@@ -1,0 +1,151 @@
+// Fused Gram statistics for the AFL local stage:
+//
+//     G = XᵀX  (d, d)     Q = XᵀY  (d, C)
+//
+// X is (N, d) and Y is (N, C), row-major, both f32 or both bf16. G and Q
+// are f32. bf16 values are converted to f32 on load and every product is
+// accumulated with a plain f32 FMA (no TF32, no mma), so the result is the
+// f32 matrix product up to the order of the sums.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/gram.py:gram_update
+// (kernel body _gram_kernel). The TPU version walks N as its sequential
+// grid axis, carrying each output tile in VMEM scratch from one grid step
+// to the next, fuses Q into the j == 0 column of G's grid, and pads every
+// dimension to a block multiple in its wrapper. On Hopper blocks run in
+// parallel and in no order, so here each block owns one 64×64 output tile,
+// loops over all N rows itself and keeps its tile in registers; Q gets its
+// own column of blocks after G's; the ragged edges of N, d and C are
+// masked in the loads and stores instead of padded.
+//
+// Work: this kernel does 2·N·d·(d+C) flops in f32 FMA, since it computes
+// both triangles of G. The function needs only N·d·(d+1) + 2·N·d·C: G is
+// symmetric, so one triangle with its diagonal suffices. Bound on an H100
+// SXM: that count at 67 TFLOP/s (f32 outside the tensor cores) against
+// 4·(d² + d·C) + itemsize·N·(d+C) bytes at 3.35 TB/s. At the main path's
+// per-batch shape (N=64, d=2304, C=16) that is 0.345 GFLOP (5.1 us)
+// against 22.0 MB (6.6 us): bytes-bound, the full f32 G write being most
+// of it. At N=8192 it is 44.1 GFLOP (0.66 ms), operations-bound. This
+// first version meets neither bound on purpose: it keeps f32 FMA for
+// exactness and computes both triangles. Computing only the tiles on and
+// above the diagonal (mirroring them on store), cp.async/TMA staging, and
+// wgmma for bf16 inputs are the follow-ups.
+// G[i][j] and G[j][i] come from the same FMA chain with the factors
+// swapped, so G is exactly symmetric.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o libafl_gram.so gram.cu
+// Each entry point launches on the caller's stream, does not synchronise,
+// allocates nothing and returns cudaGetLastError() after the launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kTile = 64;      // output tile side
+constexpr int kStep = 16;      // rows of N staged in shared memory per step
+constexpr int kMicro = 4;      // each thread owns a kMicro × kMicro sub-tile
+constexpr int kThreads = (kTile / kMicro) * (kTile / kMicro);  // 256
+constexpr int kLoadsPerThread = (kStep * kTile) / kThreads;      // 4
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// blockIdx.y picks the tile's rows of d; blockIdx.x < g_col_tiles picks a
+// tile of G's columns, the blocks after them tiles of Q's columns.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gram_kernel(const T* __restrict__ x, const T* __restrict__ y,
+            float* __restrict__ g, float* __restrict__ q,
+            int n, int d, int c, int g_col_tiles) {
+  __shared__ __align__(16) float a_tile[kStep][kTile];  // X[k, i0 + m]
+  __shared__ __align__(16) float b_tile[kStep][kTile];  // X or Y [k, j0 + m]
+
+  const bool is_q = blockIdx.x >= g_col_tiles;
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = (is_q ? blockIdx.x - g_col_tiles : blockIdx.x) * kTile;
+  const T* __restrict__ b_src = is_q ? y : x;
+  const int b_cols = is_q ? c : d;
+  float* __restrict__ out = is_q ? q : g;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % (kTile / kMicro);   // column group of the sub-tile
+  const int ty = tid / (kTile / kMicro);   // row group of the sub-tile
+
+  float acc[kMicro][kMicro];
+#pragma unroll
+  for (int r = 0; r < kMicro; ++r)
+#pragma unroll
+    for (int s = 0; s < kMicro; ++s) acc[r][s] = 0.0f;
+
+  for (int k0 = 0; k0 < n; k0 += kStep) {
+    // Neighbouring threads read neighbouring columns of one row of X / Y.
+#pragma unroll
+    for (int l = 0; l < kLoadsPerThread; ++l) {
+      const int e = tid + l * kThreads;
+      const int kk = e / kTile;
+      const int m = e % kTile;
+      const int row = k0 + kk;
+      const int ci = i0 + m;
+      const int cj = j0 + m;
+      a_tile[kk][m] = (row < n && ci < d)
+                          ? to_f32(x[static_cast<size_t>(row) * d + ci])
+                          : 0.0f;
+      b_tile[kk][m] = (row < n && cj < b_cols)
+                          ? to_f32(b_src[static_cast<size_t>(row) * b_cols + cj])
+                          : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kStep; ++kk) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&a_tile[kk][ty * kMicro]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&b_tile[kk][tx * kMicro]);
+      const float a[kMicro] = {a4.x, a4.y, a4.z, a4.w};
+      const float b[kMicro] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int r = 0; r < kMicro; ++r)
+#pragma unroll
+        for (int s = 0; s < kMicro; ++s) acc[r][s] = fmaf(a[r], b[s], acc[r][s]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < kMicro; ++r) {
+    const int row = i0 + ty * kMicro + r;
+    if (row >= d) continue;
+#pragma unroll
+    for (int s = 0; s < kMicro; ++s) {
+      const int col = j0 + tx * kMicro + s;
+      if (col < b_cols) out[static_cast<size_t>(row) * b_cols + col] = acc[r][s];
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* y, void* g, void* q, int n, int d, int c,
+           void* stream) {
+  const int g_col_tiles = (d + kTile - 1) / kTile;
+  const int q_col_tiles = (c + kTile - 1) / kTile;
+  const dim3 grid(g_col_tiles + q_col_tiles, g_col_tiles);
+  gram_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<float*>(g),
+      static_cast<float*>(q), n, d, c, g_col_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int afl_gram_update_f32(const void* x, const void* y, void* g,
+                                   void* q, int n, int d, int c, void* stream) {
+  return launch<float>(x, y, g, q, n, d, c, stream);
+}
+
+extern "C" int afl_gram_update_bf16(const void* x, const void* y, void* g,
+                                    void* q, int n, int d, int c, void* stream) {
+  return launch<__nv_bfloat16>(x, y, g, q, n, d, c, stream);
+}

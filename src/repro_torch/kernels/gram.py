@@ -1,0 +1,120 @@
+"""CUDA kernel: fused Gram-statistics update  G = XᵀX,  Q = XᵀY.
+
+The port of the Pallas TPU kernel ``repro.kernels.gram.gram_update``. Every
+analytic train step folds a batch of backbone embeddings ``X (N, d)`` and
+one-hot targets ``Y (N, C)`` into the sufficient statistics through it.
+
+The kernel is ``csrc/gram.cu`` (its header states the design and the bound
+on an H100). It is built with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface on first use, into ``build/`` at the root of the
+checkout, and bound with ``ctypes``. ``kernels.ops.gram_update`` dispatches
+between this wrapper (CUDA tensors) and the plain version in
+``kernels.ref`` (CPU tensors).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "gram.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_INT_MAX = 2**31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Build:
+    """The loaded library, and what building it took (0 s when cached)."""
+
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float
+    log: str
+
+
+_BUILD: Optional[Build] = None
+
+
+def build() -> Build:
+    """Compile ``csrc/gram.cu`` (once per source content) and load it."""
+    global _BUILD
+    if _BUILD is not None:
+        return _BUILD
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("the CUDA toolkit (nvcc) was not found")
+    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
+    path = BUILD_DIR / f"libafl_gram_{tag}.so"
+    seconds, log = 0.0, ""
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
+               "-o", str(tmp), str(SOURCE)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    for name in ("afl_gram_update_f32", "afl_gram_update_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    _BUILD = Build(lib, path, seconds, log)
+    return _BUILD
+
+
+def gram_update(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(XᵀX, XᵀY) in f32 through the CUDA kernel.
+
+    x: (N, d), y: (N, C), contiguous CUDA tensors on one device, both f32 or
+    both bf16. Launches on the current stream; ``gram_update.launches``
+    counts the launches.
+    """
+    if not (x.is_cuda and y.is_cuda) or x.device != y.device:
+        raise ValueError(
+            f"gram kernel needs both inputs on one CUDA device, got "
+            f"{x.device} and {y.device} (kernels.ops.gram_update takes the "
+            "plain version for CPU tensors)")
+    if x.dtype not in (torch.float32, torch.bfloat16) or y.dtype != x.dtype:
+        raise TypeError(f"gram kernel takes f32 or bf16 inputs of one dtype, "
+                        f"got {x.dtype} and {y.dtype}")
+    if x.dim() != 2 or y.dim() != 2 or x.shape[0] != y.shape[0]:
+        raise ValueError(f"gram kernel needs x (N, d) and y (N, C), got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("gram kernel needs contiguous inputs")
+    n, d = x.shape
+    c = y.shape[1]
+    if d == 0 or max(n * d, n * c, d * d) > _INT_MAX:
+        raise ValueError(f"gram kernel shape out of range: N={n} d={d} C={c}")
+    lib = build().lib
+    fn = lib.afl_gram_update_f32 if x.dtype == torch.float32 else lib.afl_gram_update_bf16
+    g = torch.empty((d, d), dtype=torch.float32, device=x.device)
+    q = torch.empty((d, c), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), y.data_ptr(), g.data_ptr(), q.data_ptr(),
+                 n, d, c, stream)
+    if err != 0:
+        raise RuntimeError(f"gram kernel launch failed with CUDA error {err}")
+    gram_update.launches += 1
+    return g, q
+
+
+gram_update.launches = 0
