@@ -10,18 +10,31 @@ package, and fails (non-zero exit, no result line) without a GPU or
 without the repository around it. Phases, each fatal on failure:
 
   1. header: the card's name and power limit (nvidia-smi), the TF32
-     switches (must be off), and the build of every kernel of the path;
-  2. kernels: ``gram_update`` against its plain version on the card at
-     four shapes, timed beside the plain version, one library call and
-     the card's bound;
-  3. small check: a reduced ``run_analytic`` on the card (kernel) against
+     switches (must be off), and the build of every kernel of the path
+     (one nvcc for each source, all at once), with registers and spills;
+  2. kernels: ``gram_update`` and the four panel kernels of the streamed
+     Cholesky against their plain versions on the card, at the shapes of
+     the main path, a ragged shape and (panel_factor) a block that is not
+     positive definite; each timed beside the plain version, one library
+     call where one computes the same function, and the card's bound;
+  3. streamed factor and solve of one SPD system at d = 6144 (the width
+     of nemotron4_15b and grok1): the kernel route against the plain
+     route on the card, timed beside torch.linalg, and an indefinite
+     system that must come back as NaNs;
+  4. small check: a reduced ``run_analytic`` on the card (kernel) against
      the same run on the CPU (plain versions), same weights;
-  4. slice: ``run_analytic`` at the full width of minicpm_2b (all 40
-     layers, random f32 weights from a seed), with the kernel's launches
-     counted over exactly that run; then, at the same width, the kernel's
-     fold of a real batch against the plain fold, the card's pooled
-     embeddings against the CPU's, the same aggregate solved at γ > 0, and
-     a no-layer control of how much signal the data hold.
+  5. slice: ``run_analytic`` at the full width of minicpm_2b (all 40
+     layers, random f32 weights from a seed), with the Gram kernel's
+     launches counted over exactly that run; then, at the same width, the
+     kernel's fold of a real batch against the plain fold, the card's
+     pooled embeddings against the CPU's, the same aggregate solved at
+     γ > 0 on the host, and a no-layer control of how much signal the data
+     hold;
+  6. device solve: that aggregate moved to the card in f32 and solved by
+     ``AnalyticEngine("torch", use_kernel=True)`` at three ridges, with the
+     panel kernels' launches counted over exactly those solves (9 / 9 / 8 /
+     9 per factor and solve at d = 2304), held against the plain route on
+     the card and the host's f64 weight, and scored on the test set.
 
 It then prints the kernels' JSON line, and last the device line
 ``{"ok": true, "device": {...}}``.
@@ -71,14 +84,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_cuda(fn, reps: int = 50, trials: int = 7) -> float:
+def time_cuda(fn, reps: int = 50, trials: int = 7, warmup: int = 3) -> float:
     """Median device milliseconds per call of ``fn``.
 
     A sleep kernel holds the stream while the host queues ``reps`` calls
     between two CUDA events, so host overhead between launches does not
-    count; warm-up first, median over ``trials``.
+    count (unless queueing them takes longer than the sleep, as for the
+    plain versions' column loops); warm-up first, median over ``trials``.
     """
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     out = []
@@ -95,20 +109,25 @@ def time_cuda(fn, reps: int = 50, trials: int = 7) -> float:
     return statistics.median(out)
 
 
+def _bound(flops, nbytes, dtype=torch.float32):
+    """Least milliseconds for the work, and what bounds it: the bytes each
+    read or written once at the memory rate, or the operations at the
+    input type's peak."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def gram_bound(n, d, c, dtype):
-    """Least time for (XᵀX, XᵀY): bytes each read or written once, and the
-    operations at the input type's peak. G is symmetric, so the function
-    needs N·d·(d+1) flops for it (one triangle with its diagonal), plus
-    2·N·d·C for Q."""
+    """Bound of (XᵀX, XᵀY). G is symmetric, so the function needs
+    N·d·(d+1) flops for it (one triangle with its diagonal), plus 2·N·d·C
+    for Q."""
     itemsize = torch.tensor([], dtype=dtype).element_size()
     flops = n * d * (d + 1) + 2 * n * d * c
     nbytes = 4 * (d * d + d * c) + itemsize * n * (d + c)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_S
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    return 1e3 * max(t_ops, t_bytes), by, flops, nbytes
+    return (*_bound(flops, nbytes, dtype), flops, nbytes)
 
 
-def header(G):
+def header(G, P, build):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -124,11 +143,15 @@ def header(G):
         f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
     if tf32:
         fail("TF32 matmuls are on; the f32 references need them off")
-    build = G.build()
-    log(f"build: {build.path.name} in {build.seconds:.2f} s")
-    for line in build.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    for built in build.load(G.SOURCE, P.SOURCE):
+        log(f"build: {built.path.name} in {built.seconds:.2f} s")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
+    G.build()
+    P.build()
+    log(f"build: both sources in {time.perf_counter() - t0:.2f} s (in parallel)")
 
 
 def kernel_phase(G, ref):
@@ -163,6 +186,216 @@ def kernel_phase(G, ref):
             f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) = "
             f"{100 * bound_ms / ms:.1f}% of bound")
     return rows
+
+
+# The panel kernels against their plain versions: relative 1e-4 of the
+# largest entry for the factor and inverse, the f32 bar of
+# tests/test_distributed_cholesky.py (the same column sweep with sums in
+# another order, blocks with condition numbers near 9); the Gram tolerances
+# above for the two products (f32 sums of b terms in another order).
+PANEL_REL = 1e-4
+PANEL_B = 256
+# the shapes the d = 2304 main path gives the kernels (b = 256, 9 panels):
+# panel_trsm gets the full-height (d, b) slab, panel_update the trailing
+# (d, d − o − b) slab, largest at the first panel; then d = 6144 and ragged
+TRSM_SHAPES = [(2304, 256), (1000, 200)]
+UPDATE_SHAPES = [(2304, 2048, 256), (6144, 5888, 256), (1000, 777, 200)]
+FACTOR_WIDTHS = [256, 200]
+
+
+def _rel(a, b) -> float:
+    """Largest error relative to the largest entry of ``b``."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def _abs(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def _spd_block(gen, b):
+    """SPD (b, b) = XᵀX / 4b from 4b normal rows: condition number ≈ 9."""
+    x = torch.randn((4 * b, b), generator=gen, device="cuda")
+    return x.T @ x / (4 * b)
+
+
+def _slab(gen, rows, cols, width):
+    """A (rows, cols) column slab of a (rows, width) matrix, as the
+    schedule hands the kernels slabs of its work matrix."""
+    work = torch.randn((rows, width), generator=gen, device="cuda")
+    return work[:, width - cols:]
+
+
+def _panel_row(name, shape, err, rel, ms, plain_ms, library_ms, flops, nbytes, note=""):
+    bound_ms, bound_by = _bound(flops, nbytes)
+    lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"{name} {shape}: max|err|={err:.3e} (relative {rel:.2e}) kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library {lib}, bound {bound_ms:.5f} ms ({bound_by}; "
+        f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB) = {100 * bound_ms / ms:.2f}% "
+        f"of bound{note}")
+    return dict(shape=list(shape), max_abs_err=err, rel_err=rel, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, flops=flops, bytes=nbytes)
+
+
+def panel_phase(P, ref):
+    """Each panel kernel against its plain version at the path's shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    rows = {n: [] for n in ("panel_factor", "panel_tri_inv", "panel_trsm", "panel_update")}
+    for b in FACTOR_WIDTHS:
+        a = _spd_block(gen, b)
+        l, z = P.panel_factor(a)
+        zi = P.panel_tri_inv(l)
+        l_ref, z_ref = ref.panel_factor_ref(a)
+        zi_ref = ref.panel_tri_inv_ref(l)
+        torch.cuda.synchronize()
+        rel = max(_rel(l, l_ref), _rel(z, z_ref))
+        rel_i = _rel(zi, zi_ref)
+        if rel > PANEL_REL or rel_i > PANEL_REL:
+            fail(f"panel kernels at b={b}: relative error {rel:.2e} / {rel_i:.2e} "
+                 f"above {PANEL_REL}")
+        if any(torch.triu(t, 1).any() for t in (l, z, zi)):
+            fail(f"panel kernels at b={b}: upper triangle is not exactly zero")
+        tri = b * (b + 1) // 2
+        eye = torch.eye(b, device="cuda")
+        pair_ms = time_cuda(lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky(a), eye, upper=False))
+        rows["panel_factor"].append(_panel_row(
+            "panel_factor", (b,), max(_abs(l, l_ref), _abs(z, z_ref)), rel,
+            time_cuda(lambda: P.panel_factor(a)),
+            time_cuda(lambda: ref.panel_factor_ref(a), reps=3, trials=3, warmup=1),
+            None, 2 * b ** 3 / 3, 4 * (tri + 2 * b * b),
+            f"; torch.linalg.cholesky + solve_triangular {pair_ms:.4f} ms; "
+            f"{2 * b} sequential steps"))
+        rows["panel_tri_inv"].append(_panel_row(
+            "panel_tri_inv", (b,), _abs(zi, zi_ref), rel_i,
+            time_cuda(lambda: P.panel_tri_inv(l)),
+            time_cuda(lambda: ref.panel_tri_inv_ref(l), reps=3, trials=3, warmup=1),
+            time_cuda(lambda: torch.linalg.solve_triangular(l, eye, upper=False)),
+            b ** 3 / 3, 4 * (tri + b * b), f"; {b} sequential steps"))
+    # a block that is not positive definite: NaN, through kernel and plain
+    x = torch.randn((3, PANEL_B), generator=gen, device="cuda")
+    l, z = P.panel_factor(x.T @ x)
+    l_ref, _ = ref.panel_factor_ref(x.T @ x)
+    torch.cuda.synchronize()
+    if not (torch.isnan(l).any() and torch.isnan(z).any() and torch.isnan(l_ref).any()):
+        fail("panel_factor of a rank-3 block gave no NaN")
+    log(f"panel_factor of a rank-3 ({PANEL_B}, {PANEL_B}) block: NaN in L "
+        f"{int(torch.isnan(l).sum())} entries (plain {int(torch.isnan(l_ref).sum())}), "
+        f"upper triangle zero: {not bool(torch.triu(l, 1).any())}")
+
+    rtol, atol = GRAM_TOL[torch.float32]
+    for r, b in TRSM_SHAPES:
+        raw = _slab(gen, r, b, r)
+        zinv = torch.tril(torch.randn((b, b), generator=gen, device="cuda"))
+        out, want = P.panel_trsm(raw, zinv), ref.panel_trsm_ref(raw, zinv)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+        rows["panel_trsm"].append(_panel_row(
+            "panel_trsm", (r, b), _abs(out, want), _rel(out, want),
+            time_cuda(lambda: P.panel_trsm(raw, zinv)),
+            time_cuda(lambda: ref.panel_trsm_ref(raw, zinv)),
+            time_cuda(lambda: torch.mm(raw, zinv.T)),
+            # zinv is lower triangular: its b(b+1)/2 entries, r·b·(b+1) flops
+            r * b * (b + 1), 4 * (2 * r * b + b * (b + 1) // 2)))
+    for r, w, b in UPDATE_SHAPES:
+        trail = _slab(gen, r, w, w + b)
+        lp = torch.randn((r, b), generator=gen, device="cuda")
+        pt = torch.randn((w, b), generator=gen, device="cuda")
+        want = ref.panel_update_ref(trail, lp, pt)
+        out = P.panel_update(trail, lp, pt, out=trail)     # in place, as the path does
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+        rows["panel_update"].append(_panel_row(
+            "panel_update", (r, w, b), _abs(out, want), _rel(out, want),
+            time_cuda(lambda: P.panel_update(trail, lp, pt, out=trail)),
+            time_cuda(lambda: ref.panel_update_ref(trail, lp, pt, out=trail)),
+            time_cuda(lambda: torch.addmm(trail, lp, pt.T, alpha=-1)),
+            2 * r * w * b, 4 * (2 * r * w + r * b + w * b)))
+    return rows
+
+
+STREAM_D = 6144     # nemotron4_15b's and grok1's d_model
+STREAM_C = 16
+STREAM_REL = 1e-4   # tests/test_distributed_cholesky.py:66-73
+
+
+def time_wall(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn`` to a synchronised end."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(out)
+
+
+def streamed_phase(S, P):
+    """One SPD system at d = 6144 factored and solved by the kernel route
+    and by the plain route on the card."""
+    d = STREAM_D
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6144)
+    x = torch.randn((4 * d, d), generator=gen, device="cuda")
+    a = x.T @ x / (4 * d)                 # condition number ≈ 9
+    del x
+    rhs = torch.randn((d, STREAM_C), generator=gen, device="cuda")
+    counts = [f.launches for f in (P.panel_factor, P.panel_trsm, P.panel_update,
+                                   P.panel_tri_inv)]
+    l_k = S.streamed_cholesky(a)
+    x_k = S.streamed_cholesky_solve(l_k, rhs)
+    torch.cuda.synchronize()
+    n = d // PANEL_B
+    got = [f.launches - c for f, c in zip((P.panel_factor, P.panel_trsm, P.panel_update,
+                                           P.panel_tri_inv), counts)]
+    if got != [n, n, n - 1, n]:
+        fail(f"streamed factor and solve at d={d} launched {got}, expected "
+             f"{[n, n, n - 1, n]}")
+    l_p = S.streamed_cholesky(a, use_kernel=False)
+    x_p = S.streamed_cholesky_solve(l_p, rhs, use_kernel=False)
+    x_64 = torch.linalg.solve(a.double(), rhs.double())
+    rel_l, rel_x = _rel(l_k, l_p), _rel(x_k, x_p)
+    log(f"streamed d={d}: kernel vs plain route on the card, relative L {rel_l:.2e}, "
+        f"x {rel_x:.2e} (limit {STREAM_REL}); vs an f64 solve: kernel "
+        f"{_rel(x_k, x_64):.2e}, plain {_rel(x_p, x_64):.2e}; launches "
+        f"{dict(zip(('factor', 'trsm', 'update', 'tri_inv'), got))}")
+    if not (rel_l < STREAM_REL and rel_x < STREAM_REL):
+        fail(f"streamed d={d}: kernel route differs from the plain route")
+    if torch.triu(l_k, 1).any() or not torch.isfinite(l_k).all():
+        fail(f"streamed d={d}: the factor is not a clean finite lower triangle")
+    bad = a.clone()
+    bad[d // 2, d // 2] = -1.0            # indefinite, first seen at panel 12
+    l_bad = S.streamed_cholesky(bad)
+    x_bad = S.streamed_cholesky_solve(l_bad, rhs)
+    torch.cuda.synchronize()
+    if torch.isfinite(l_bad).all() or torch.isfinite(x_bad).all():
+        fail("an indefinite system came back finite through the kernels")
+    log(f"streamed d={d}: indefinite system through the kernels gives NaN in "
+        f"{int(torch.isnan(l_bad).sum())} entries of L and {int(torch.isnan(x_bad).sum())} of x")
+
+    ms_f = time_wall(lambda: S.streamed_cholesky(a), reps=5)
+    ms_s = time_wall(lambda: S.streamed_cholesky_solve(l_k, rhs), reps=5)
+    plain_f = time_wall(lambda: S.streamed_cholesky(a, use_kernel=False), reps=1)
+    plain_s = time_wall(lambda: S.streamed_cholesky_solve(l_p, rhs, use_kernel=False), reps=1)
+    lib_f = time_wall(lambda: torch.linalg.cholesky(a), reps=5)
+    l_lib = torch.linalg.cholesky(a)
+    lib_s = time_wall(lambda: torch.cholesky_solve(rhs, l_lib), reps=5)
+    need = d ** 3 / 3
+    done = sum(2 * d * PANEL_B * PANEL_B + 2 * d * (d - o - PANEL_B) * PANEL_B
+               for o in range(0, d, PANEL_B))
+    bound_ms, bound_by = _bound(need, 4 * 2 * d * d)
+    log(f"streamed d={d}: factor kernel route {ms_f:.2f} ms, plain route {plain_f:.1f} ms, "
+        f"torch.linalg.cholesky {lib_f:.2f} ms; solve (C={STREAM_C}) kernel route "
+        f"{ms_s:.2f} ms, plain {plain_s:.1f} ms, torch.cholesky_solve {lib_s:.3f} ms; "
+        f"factor bound {bound_ms:.3f} ms ({bound_by}: the d³/3 = {need / 1e9:.1f} GFLOP "
+        f"a factor needs; the schedule does {done / 1e9:.1f} GFLOP in its products) = "
+        f"{100 * bound_ms / ms_f:.2f}% of bound")
+    return dict(d=d, rel_l=rel_l, rel_x=rel_x, factor_ms=ms_f, solve_ms=ms_s,
+                plain_factor_ms=plain_f, plain_solve_ms=plain_s, library_factor_ms=lib_f,
+                library_solve_ms=lib_s, bound_ms=bound_ms, schedule_gflop=done / 1e9)
 
 
 def _params_to(params, device):
@@ -235,8 +468,8 @@ def slice_phase(G, get_config, D, T, train, FLConfig, api):
         fail(f"gram_update launched {launches} times, expected {expected}")
     if not (math.isfinite(acc) and 0.0 <= acc <= 1.0):
         fail(f"accuracy {acc} is not a fraction")
-    slice_checks(cfg, params, tr, te, server, acc, train, fl, api)
-    return launches
+    x_te = slice_checks(cfg, params, tr, te, server, acc, train, fl, api)
+    return launches, server, x_te, te.y[:len(x_te)]
 
 
 # γ = ρ·tr(G)/d: the same aggregate solved ridgeless and at three ridges
@@ -323,6 +556,105 @@ def slice_checks(cfg, params, tr, te, server, acc, train, fl, api):
         fail(f"the aggregate re-solved at γ=0 gives {accs[0]}, run_analytic gave {acc}")
     if not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in accs + accs0):
         fail(f"head accuracies {accs} / {accs0} are not fractions")
+    return x_te
+
+
+# the device solve of the slice's aggregate: γ = ρ·tr(G)/d at these ρ, and
+# test accuracy equal to the host's within one test sample where the f32
+# system is well enough conditioned (ρ ≥ 1e-2)
+DEVICE_RHOS = (1e-4, 1e-2, 1.0)
+DEVICE_ACC_RHOS = (1e-2, 1.0)
+F32_U = 2.0 ** -24
+# weights relative to the largest weight of the reference: against the
+# plain route on the card (the same f32 system, sums in another order) at
+# most DEVICE_PLAIN_REL; against the host's f64 weight (which also sees the
+# f32 rounding of G) at most DEVICE_HOST_KU·κ·u
+DEVICE_PLAIN_REL = 1e-4
+DEVICE_HOST_KU = 10.0
+
+
+def device_solve_phase(P, S, engine, api, server, x_te, y_te):
+    """The slice's aggregate (raw Gram and moment, host f64) moved to the
+    card as f32 statistics and solved through the panel kernels."""
+    state = server.state()
+    g = np.array(state["gram"], np.float64)
+    np.fill_diagonal(g, state["gram_diag_raw"])      # raw Gram: no kγI
+    d = g.shape[0]
+    dev = torch.device("cuda")
+    stats = engine.SuffStats(
+        gram=torch.tensor(g, dtype=torch.float32, device=dev),
+        moment=torch.tensor(state["moment"], dtype=torch.float32, device=dev),
+        count=torch.tensor(float(state["count"]), device=dev),
+        clients=torch.tensor(float(len(state["seen"])), device=dev))
+    eng = engine.AnalyticEngine("torch", device=dev, use_kernel=True)
+    kernels = (P.panel_factor, P.panel_trsm, P.panel_update, P.panel_tri_inv)
+    n = -(-d // PANEL_B)
+    expected = [n, n, n - 1, n]
+    scale = float(np.trace(g)) / d
+    gammas = [rho * scale for rho in DEVICE_RHOS]
+    weights, per_solve = [], []
+    for f in kernels:
+        f.launches = 0
+    for gamma in gammas:
+        before = [f.launches for f in kernels]
+        weights.append(eng.solve(stats, target_gamma=gamma))
+        torch.cuda.synchronize()
+        per_solve.append([f.launches - b for f, b in zip(kernels, before)])
+    launches = [f.launches for f in kernels]
+    log(f"device solve d={d}: panel launches per factor and solve {per_solve} "
+        f"(expected {expected} each: factor, trsm, update, tri_inv)")
+    if any(c != expected for c in per_solve):
+        fail(f"device solves launched {per_solve}, expected {expected} each")
+
+    evals = np.linalg.eigvalsh(g)
+    for rho, gamma, w in zip(DEVICE_RHOS, gammas, weights):
+        cond = float((evals[-1] + gamma) / (evals[0] + gamma))
+        a = stats.gram + eng.backend.scalar(gamma) * eng.backend.eye(d)
+        w_plain = S.streamed_cholesky_solve(S.streamed_cholesky(a, use_kernel=False),
+                                            stats.moment, use_kernel=False)
+        w_host = server.solve(target_gamma=gamma)
+        w_cpu = w.double().cpu()
+        rel_plain = _rel(w, w_plain)
+        rel_host = _rel(w_cpu, torch.from_numpy(w_host))
+        ku = cond * F32_U
+        acc_card = api.evaluate_weight(w_cpu.numpy(), x_te, y_te)
+        acc_host = api.evaluate_weight(w_host, x_te, y_te)
+        log(f"device solve ρ={rho:g} (γ={gamma:.4g}, condition number {cond:.3e}, "
+            f"max|w| {float(np.abs(w_host).max()):.3e}): relative to the largest "
+            f"weight, card vs plain route on the card {rel_plain:.2e} (limit "
+            f"{DEVICE_PLAIN_REL:g}), vs host f64 {rel_host:.2e} = {rel_host / ku:.3f}·κ·u "
+            f"(limit {DEVICE_HOST_KU:g}·κ·u = {DEVICE_HOST_KU * ku:.2e}); accuracy card "
+            f"{acc_card:.4f} host {acc_host:.4f}")
+        if not torch.isfinite(w).all():
+            fail(f"device solve at ρ={rho} is not finite")
+        if rel_plain > DEVICE_PLAIN_REL:
+            fail(f"device solve at ρ={rho}: {rel_plain:.2e} from the plain route")
+        if rel_host > DEVICE_HOST_KU * ku:
+            fail(f"device solve at ρ={rho}: {rel_host:.2e} from the host's f64 weight, "
+                 f"more than {DEVICE_HOST_KU:g}·κ·u")
+        if rho in DEVICE_ACC_RHOS and abs(acc_card - acc_host) * len(y_te) > 1:
+            fail(f"device solve at ρ={rho}: accuracy {acc_card} on the card vs "
+                 f"{acc_host} on the host")
+
+    # what one solve costs (after the counted run): the kernel route, the
+    # library's Cholesky on the card, and the host's f64 LAPACK solve
+    gamma = gammas[-1]
+    a = stats.gram + eng.backend.scalar(gamma) * eng.backend.eye(d)
+    ms_card = time_wall(lambda: eng.solve(stats, target_gamma=gamma), reps=5)
+    ms_lib = time_wall(lambda: torch.cholesky_solve(stats.moment, torch.linalg.cholesky(a)),
+                       reps=5)
+    host = engine.AnalyticEngine("numpy_f64")
+    host_stats = engine.SuffStats(g, np.array(state["moment"], np.float64), 0.0, 1.0)
+    t_host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host.solve(host_stats, target_gamma=gamma)
+        t_host.append(1e3 * (time.perf_counter() - t0))
+    log(f"device solve d={d} (factor and solve, C={stats.moment.shape[1]}): kernel route "
+        f"{ms_card:.2f} ms, torch.linalg.cholesky + cholesky_solve {ms_lib:.2f} ms on "
+        f"the card; host f64 (numpy, {os.cpu_count()} cores) "
+        f"{statistics.median(t_host):.1f} ms")
+    return launches
 
 
 def _leaves(tree):
@@ -348,33 +680,50 @@ def main() -> None:
         fail(f"the port's package is not at {src / 'repro_torch'}; run from a checkout")
     sys.path.insert(0, str(src))
     from repro_torch.config import FLConfig
+    from repro_torch.core import engine
     from repro_torch.configs.registry import get_config
     from repro_torch.data import synthetic as D
     from repro_torch.fl import api
+    from repro_torch.kernels import build
     from repro_torch.kernels import gram as G
+    from repro_torch.kernels import panel as P
     from repro_torch.kernels import ref
+    from repro_torch.kernels import solve as S
     from repro_torch.launch import train
     from repro_torch.models import transformer as T
 
-    header(G)
-    rows = kernel_phase(G, ref)
+    header(G, P, build)
+    rows = {"gram_update": kernel_phase(G, ref)}
+    rows.update(panel_phase(P, ref))
+    streamed = streamed_phase(S, P)
     small_check(get_config, D, T, train, FLConfig)
-    launches = slice_phase(G, get_config, D, T, train, FLConfig, api)
+    gram_launches, server, x_te, y_te = slice_phase(G, get_config, D, T, train,
+                                                    FLConfig, api)
+    panel_launches = device_solve_phase(P, S, engine, api, server, x_te, y_te)
+    launches = dict(zip(("gram_update", "panel_factor", "panel_trsm", "panel_update",
+                         "panel_tri_inv"), [gram_launches, *panel_launches]))
 
-    main_row = rows[0]
-    max_err = max(r["max_abs_err"] for r in rows)
-    # ``kernel_ms`` and ``max_err`` repeat ``ms`` and ``max_abs_err``: the
-    # kernels line is read under both names
-    kernel = dict(
-        name="gram_update", route="cuda",
-        source="src/repro_torch/kernels/csrc/gram.cu",
-        replaces="src/repro/kernels/gram.py:86",
-        launches=launches, max_abs_err=max_err, max_err=max_err,
-        ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=main_row["library_ms"], shapes=rows)
+    sources = {"gram_update": ("gram.cu", "gram.py:86"),
+               "panel_factor": ("panel.cu", "solve.py:469"),
+               "panel_tri_inv": ("panel.cu", "solve.py:491"),
+               "panel_trsm": ("panel.cu", "solve.py:508"),
+               "panel_update": ("panel.cu", "solve.py:536")}
+    kernels = []
+    for name, (src, where) in sources.items():
+        main_row = rows[name][0]          # the main path's shape comes first
+        max_err = max(r["max_abs_err"] for r in rows[name])
+        # ``kernel_ms`` and ``max_err`` repeat ``ms`` and ``max_abs_err``:
+        # the kernels line is read under both names
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=f"src/repro/kernels/{where}",
+            launches=launches[name], max_abs_err=max_err, max_err=max_err,
+            ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+            library_ms=main_row["library_ms"], shapes=rows[name]))
+    log(json.dumps({"streamed": streamed}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

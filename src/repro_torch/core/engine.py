@@ -17,10 +17,13 @@ Backends:
   * ``torch`` — tensors on a device (CUDA unless ``device`` names another),
     f32 by default, with an optional Kahan-compensated accumulator.
     ``use_kernel=True`` folds Gram updates through the hand-written CUDA
-    kernel (``kernels.ops.gram_update``); the factor, solve, γ-sweep and
-    rank-update kernels are not ported yet, so with ``use_kernel=True``
-    those raise ``NotImplementedError`` rather than quietly running
-    ``torch.linalg``.
+    kernel (``kernels.ops.gram_update``), and factors and solves a system
+    at least ``STREAM_MIN_DIM`` = 2048 wide through the streamed panel
+    Cholesky and its four CUDA kernels (``kernels.ops.streamed_cholesky``
+    and ``streamed_cholesky_solve``). The kernels for narrower systems,
+    the γ sweep and the rank update are not ported yet: with
+    ``use_kernel=True`` those raise ``NotImplementedError`` rather than
+    quietly running ``torch.linalg``.
 
 Both backends pair a factorization handle (:meth:`AnalyticEngine.factor` /
 :meth:`AnalyticEngine.factor_solve`) with a rank update
@@ -58,6 +61,8 @@ __all__ = [
 # Where the kernels that ``use_kernel=True`` would need are queued.
 _KERNEL_QUEUE = ("ROADMAP.md Queue 2: {} is not ported to CUDA yet, and "
                  "use_kernel=True does not fall back to torch.linalg")
+_NARROW = ("{} (src/repro/kernels/solve.py:{}), which serves systems "
+           "narrower than STREAM_MIN_DIM = {}, d = {} here,")
 
 
 def to_numpy(a, dtype=np.float64) -> np.ndarray:
@@ -274,9 +279,13 @@ class TorchBackend:
     the factor and solves are ``torch.linalg`` (the counterpart of
     ``jax.scipy.linalg.cho_factor`` / ``cho_solve``), with the host
     backend's pinv fallback when the system is not positive definite.
-    ``use_kernel=True`` routes the Gram update through the CUDA kernel
-    (CPU tensors take its plain version); the solve-side kernels are not
-    ported yet and raise ``NotImplementedError`` (ROADMAP Queue 2).
+    ``use_kernel=True`` routes the Gram update through the CUDA kernel,
+    and the factor and solve of a system at least ``STREAM_MIN_DIM`` wide
+    through the streamed panel Cholesky, as the reference's jax backend
+    does (CPU tensors take the kernels' plain versions). There is no pinv
+    fallback on that route: a system that is not positive definite comes
+    back as NaNs. Narrower systems, the γ sweep and the rank update raise
+    ``NotImplementedError`` until their kernels land (ROADMAP Queue 2).
     """
 
     name = "torch"
@@ -320,9 +329,17 @@ class TorchBackend:
 
     def factor(self, a) -> Factorization:
         """Lower Cholesky factor L (A = LLᵀ); pinv fallback when A is not
-        positive definite, as on the host backend."""
-        self._no_kernel("the Cholesky factor (item 2, blocked_cholesky / "
-                        "item 6, the panel set)")
+        positive definite, as on the host backend. With ``use_kernel`` a
+        system at least ``STREAM_MIN_DIM`` wide goes through
+        ``streamed_cholesky`` (NaNs when not positive definite)."""
+        if self.use_kernel:
+            from repro_torch.kernels import ops as _kops
+
+            d = a.shape[-1]
+            if d < _kops.STREAM_MIN_DIM:
+                self._no_kernel(_NARROW.format(
+                    "blocked_cholesky", 253, _kops.STREAM_MIN_DIM, d))
+            return Factorization(_kops.streamed_cholesky(a), backend=self)
         lower, info = torch.linalg.cholesky_ex(a)
         if int(info) != 0:
             return Factorization(None, a, backend=self)
@@ -330,7 +347,7 @@ class TorchBackend:
 
     def rank_update(self, f: Factorization, xs) -> Factorization:
         """Rank-k update of a lower factor: a column sweep on the device."""
-        self._no_kernel("the rank-k factor update (item 5, chol_rank_update)")
+        self._no_kernel("chol_rank_update (src/repro/kernels/solve.py:774)")
         xs = self.asarray(xs).reshape(-1, f.handle.shape[0])
         return Factorization(_chol_rank_update_torch(f.handle, xs), backend=self)
 
@@ -343,8 +360,15 @@ class TorchBackend:
         return self.rank_update(f, torch.cat(xs, 0))
 
     def factor_solve(self, f: Factorization, b):
-        self._no_kernel("the Cholesky solve (item 3, cholesky_solve)")
         b = self.asarray(b)
+        if self.use_kernel:
+            from repro_torch.kernels import ops as _kops
+
+            d = b.shape[0]
+            if d < _kops.STREAM_MIN_DIM:
+                self._no_kernel(_NARROW.format(
+                    "cholesky_solve", 295, _kops.STREAM_MIN_DIM, d))
+            return _kops.streamed_cholesky_solve(f.handle, b)
         if f.handle is None:
             return torch.linalg.pinv(f.matrix, rtol=_PINV_RCOND) @ b
         return torch.cholesky_solve(b, f.handle)
@@ -356,7 +380,7 @@ class TorchBackend:
         """Whole-γ-grid solve ``(a + γ_j I) W_j = b`` — the fused sweep
         kernel, which is not ported yet."""
         raise NotImplementedError(
-            _KERNEL_QUEUE.format("the fused γ sweep (item 4, multi_gamma_solve)"))
+            _KERNEL_QUEUE.format("multi_gamma_solve (src/repro/kernels/solve.py:346)"))
 
     def eigh(self, a):
         return torch.linalg.eigh(a)

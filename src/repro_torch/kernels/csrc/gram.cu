@@ -13,9 +13,10 @@
 // to the next, fuses Q into the j == 0 column of G's grid, and pads every
 // dimension to a block multiple in its wrapper. On Hopper blocks run in
 // parallel and in no order, so here each block owns one 64×64 output tile,
-// loops over all N rows itself and keeps its tile in registers; Q gets its
-// own column of blocks after G's; the ragged edges of N, d and C are
-// masked in the loads and stores instead of padded.
+// loops over all N rows itself and keeps its tile in registers (the tile
+// loop of tile_gemm.cuh, shared with panel.cu); Q gets its own column of
+// blocks after G's; the ragged edges of N, d and C are masked in the loads
+// and stores instead of padded.
 //
 // Work: this kernel does 2·N·d·(d+C) flops in f32 FMA, since it computes
 // both triangles of G. The function needs only N·d·(d+1) + 2·N·d·C: G is
@@ -42,13 +43,13 @@
 
 #include <cstddef>
 
+#include "tile_gemm.cuh"
+
 namespace {
 
-constexpr int kTile = 64;      // output tile side
-constexpr int kStep = 16;      // rows of N staged in shared memory per step
-constexpr int kMicro = 4;      // each thread owns a kMicro × kMicro sub-tile
-constexpr int kThreads = (kTile / kMicro) * (kTile / kMicro);  // 256
-constexpr int kLoadsPerThread = (kStep * kTile) / kThreads;      // 4
+using afl_tile::kLoadsPerThread;
+using afl_tile::kThreads;
+using afl_tile::kTile;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -62,9 +63,6 @@ __global__ void __launch_bounds__(kThreads)
 gram_kernel(const T* __restrict__ x, const T* __restrict__ y,
             float* __restrict__ g, float* __restrict__ q,
             int n, int d, int c, int g_col_tiles) {
-  __shared__ __align__(16) float a_tile[kStep][kTile];  // X[k, i0 + m]
-  __shared__ __align__(16) float b_tile[kStep][kTile];  // X or Y [k, j0 + m]
-
   const bool is_q = blockIdx.x >= g_col_tiles;
   const int i0 = blockIdx.y * kTile;
   const int j0 = (is_q ? blockIdx.x - g_col_tiles : blockIdx.x) * kTile;
@@ -72,58 +70,32 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ y,
   const int b_cols = is_q ? c : d;
   float* __restrict__ out = is_q ? q : g;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (kTile / kMicro);   // column group of the sub-tile
-  const int ty = tid / (kTile / kMicro);   // row group of the sub-tile
-
-  float acc[kMicro][kMicro];
+  afl_tile::tile_gemm(
+      n,
+      // the reduction runs over the rows of X / Y: neighbouring threads
+      // read neighbouring columns of one row
+      [=](afl_tile::Stage a_tile, afl_tile::Stage b_tile, int k0) {
 #pragma unroll
-  for (int r = 0; r < kMicro; ++r)
-#pragma unroll
-    for (int s = 0; s < kMicro; ++s) acc[r][s] = 0.0f;
-
-  for (int k0 = 0; k0 < n; k0 += kStep) {
-    // Neighbouring threads read neighbouring columns of one row of X / Y.
-#pragma unroll
-    for (int l = 0; l < kLoadsPerThread; ++l) {
-      const int e = tid + l * kThreads;
-      const int kk = e / kTile;
-      const int m = e % kTile;
-      const int row = k0 + kk;
-      const int ci = i0 + m;
-      const int cj = j0 + m;
-      a_tile[kk][m] = (row < n && ci < d)
-                          ? to_f32(x[static_cast<size_t>(row) * d + ci])
-                          : 0.0f;
-      b_tile[kk][m] = (row < n && cj < b_cols)
-                          ? to_f32(b_src[static_cast<size_t>(row) * b_cols + cj])
-                          : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kStep; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&a_tile[kk][ty * kMicro]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&b_tile[kk][tx * kMicro]);
-      const float a[kMicro] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[kMicro] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int r = 0; r < kMicro; ++r)
-#pragma unroll
-        for (int s = 0; s < kMicro; ++s) acc[r][s] = fmaf(a[r], b[s], acc[r][s]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < kMicro; ++r) {
-    const int row = i0 + ty * kMicro + r;
-    if (row >= d) continue;
-#pragma unroll
-    for (int s = 0; s < kMicro; ++s) {
-      const int col = j0 + tx * kMicro + s;
-      if (col < b_cols) out[static_cast<size_t>(row) * b_cols + col] = acc[r][s];
-    }
-  }
+        for (int l = 0; l < kLoadsPerThread; ++l) {
+          const int e = threadIdx.x + l * kThreads;
+          const int kk = e / kTile;
+          const int m = e % kTile;
+          const int row = k0 + kk;
+          const int ci = i0 + m;
+          const int cj = j0 + m;
+          a_tile[kk][m] = (row < n && ci < d)
+                              ? to_f32(x[static_cast<size_t>(row) * d + ci])
+                              : 0.0f;
+          b_tile[kk][m] = (row < n && cj < b_cols)
+                              ? to_f32(b_src[static_cast<size_t>(row) * b_cols + cj])
+                              : 0.0f;
+        }
+      },
+      [=](int r, int s, float v) {
+        const int row = i0 + r;
+        const int col = j0 + s;
+        if (row < d && col < b_cols) out[static_cast<size_t>(row) * b_cols + col] = v;
+      });
 }
 
 template <typename T>

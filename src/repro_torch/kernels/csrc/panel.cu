@@ -1,0 +1,244 @@
+// Panel kernels of the streamed Cholesky factor and solve of one wide SPD
+// system (d >= 2048), in f32:
+//
+//   panel_factor   (b, b) SPD diagonal block A  ->  L = chol(A), Z = L^-1
+//   panel_tri_inv  (b, b) lower-triangular L    ->  Z = L^-1
+//   panel_trsm     raw (r, b), Z (b, b)         ->  raw · Zᵀ
+//   panel_update   T (r, w), A (r, b), B (w, b) ->  T − A · Bᵀ
+//
+// They replace the Pallas TPU kernels of src/repro/kernels/solve.py:
+// panel_factor (_factor_tile then _tri_inv_tile), panel_tri_inv
+// (_tri_inv_tile), panel_trsm and panel_update (one tiled matmul each).
+// Every product is a plain f32 FMA (no TF32, no mma), sqrt and division
+// are IEEE (no fast math), and no pivot is clamped, so a block that is not
+// positive definite gives NaN (sqrt of a negative pivot) as the reference
+// does. The upper triangles of L and Z are written as exact zeros.
+//
+// panel_factor / panel_tri_inv. On the TPU the whole (b, b) tile sits in
+// VMEM and a fori_loop sweeps its columns. Here one block of 1024 threads
+// does the same. At b = 256 an f32 tile is 256 KB: more than a block's
+// 227 KB of shared memory, and the whole register file of the SM. Only the
+// lower triangle carries data (the upper half of the input is never read,
+// and the output's is zero), so the block keeps that triangle, packed by
+// rows, in 128.5 KB of dynamic shared memory. The factor is right-looking:
+// at column j one barrier publishes the scaled column, then warps take the
+// rows and lanes the columns of the trailing triangle for the rank-1
+// update. The inverse then runs in place, row by row, over the same packed
+// triangle: row i of Z needs row i of L, copied to a buffer first, and the
+// rows of Z above it, which have already overwritten theirs; four threads
+// share each column's dot product and add their parts with shuffles.
+// Bound at b = 256: 2b³/3 = 11.2 MFLOP (0.17 us at 67 TFLOP/s f32) against
+// 4·(b(b+1)/2 + 2b²) = 0.66 MB (0.20 us at 3.35 TB/s), so bytes. Neither
+// is what limits it: it is 2b = 512 steps that must run one after the
+// other, each behind a barrier, on one SM.
+//
+// panel_trsm / panel_update. One tiled kernel computes C = A·Bᵀ, or
+// C = T − A·Bᵀ, in 64×64 output tiles: the tile loop of tile_gemm.cuh
+// (one tile per 256-thread block, 4×4 register micro-tiles, K staged 16 at
+// a time through shared memory), which gram.cu shares. Each operand comes
+// as a pointer and a row stride, so the column slabs of the (d, d) work
+// matrix are read and written where they lie, without a copy; C may be T
+// itself (each element is read and then written by one thread). Ragged
+// edges are masked. At the shapes of the d = 2304 path, panel_update
+// (2304, 2048, 256) needs 2·r·w·b = 2.42 GFLOP (36 us) against
+// 4·(2rw + rb + wb) = 42.2 MB (12.6 us). Z is lower triangular (both
+// panel kernels write its upper half as zeros), so panel_trsm (2304, 256)
+// needs r·b·(b+1) = 0.152 GFLOP (2.3 us) against 4·(2rb + b(b+1)/2) =
+// 4.85 MB (1.4 us); this kernel does twice those flops, since it
+// multiplies the zero half too. Both are bound by operations. Skipping Z's
+// zero half, skipping the rows of the full-height slab that the schedule
+// masks to zero, cp.async/TMA staging and wgmma (at a lower precision than
+// this port's f32) are later work.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o libpanel.so panel.cu
+// Each entry point launches on the caller's stream, does not synchronise,
+// allocates nothing and returns a CUDA error code (0 on success).
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+#include "tile_gemm.cuh"
+
+namespace {
+
+constexpr int kMaxPanel = 256;
+constexpr int kPanelThreads = 1024;
+constexpr int kPanelWarps = kPanelThreads / 32;
+constexpr int kColumnParts = kPanelThreads / kMaxPanel;  // 4 threads a column
+
+// Offset of row i in a lower triangle packed by rows.
+__device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
+
+__device__ void load_lower(const float* __restrict__ a, int lda, int b,
+                           float* s) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int i = warp; i < b; i += kPanelWarps)
+    for (int k = lane; k <= i; k += 32)
+      s[tri(i) + k] = a[static_cast<size_t>(i) * lda + k];
+}
+
+// Writes the packed triangle as a dense (b, b) matrix with a zero upper half.
+__device__ void store_lower(const float* s, int b, float* __restrict__ out) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int i = warp; i < b; i += kPanelWarps)
+    for (int k = lane; k < b; k += 32)
+      out[static_cast<size_t>(i) * b + k] = k <= i ? s[tri(i) + k] : 0.0f;
+}
+
+// Right-looking Cholesky of the packed triangle, in place.
+__device__ void factor_packed(float* s, float* col, int b) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int j = 0; j < b; ++j) {
+    const float pv = sqrtf(s[tri(j) + j]);
+    for (int t = j + 1 + threadIdx.x; t < b; t += kPanelThreads) {
+      const float c = s[tri(t) + j] / pv;
+      s[tri(t) + j] = c;
+      col[t] = c;
+    }
+    __syncthreads();
+    // The pivot is read by every thread above; nothing below reads it.
+    if (threadIdx.x == 0) s[tri(j) + j] = pv;
+    for (int i = j + 1 + warp; i < b; i += kPanelWarps) {
+      const float ci = col[i];
+      float* row = s + tri(i);
+      for (int k = j + 1 + lane; k <= i; k += 32)
+        row[k] = fmaf(-ci, col[k], row[k]);
+    }
+    __syncthreads();
+  }
+}
+
+// Inverse of the packed lower triangle, in place, by forward substitution
+// on the identity: z_i = (e_i − Σ_{m<i} L[i][m] z_m) / L[i][i].
+__device__ void invert_packed(float* s, float* lrow, int b) {
+  const int c = threadIdx.x / kColumnParts;
+  const int part = threadIdx.x % kColumnParts;
+  for (int i = 0; i < b; ++i) {
+    for (int t = threadIdx.x; t <= i; t += kPanelThreads) lrow[t] = s[tri(i) + t];
+    __syncthreads();
+    float acc = 0.0f;
+    if (c <= i)
+      for (int m = c + part; m < i; m += kColumnParts)
+        acc = fmaf(lrow[m], s[tri(m) + c], acc);
+    // the four parts of a column are neighbouring lanes of one warp
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (c <= i && part == 0)
+      s[tri(i) + c] = ((c == i ? 1.0f : 0.0f) - acc) / lrow[i];
+    __syncthreads();
+  }
+}
+
+template <bool kFactor>
+__global__ void __launch_bounds__(kPanelThreads)
+panel_kernel(const float* __restrict__ a, int lda, int b,
+             float* __restrict__ l_out, float* __restrict__ z_out) {
+  extern __shared__ float smem[];
+  float* s = smem;               // tri(b) values: the packed lower triangle
+  float* buf = smem + tri(b);    // kMaxPanel values: a column or a row of L
+  load_lower(a, lda, b, s);
+  __syncthreads();
+  if (kFactor) {
+    factor_packed(s, buf, b);
+    store_lower(s, b, l_out);
+    __syncthreads();             // the inverse overwrites what was stored
+  }
+  invert_packed(s, buf, b);
+  store_lower(s, b, z_out);
+}
+
+template <bool kFactor>
+int launch_panel(const void* a, int lda, int b, void* l, void* z,
+                 void* stream) {
+  const int bytes = (b * (b + 1) / 2 + kMaxPanel) * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      panel_kernel<kFactor>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  panel_kernel<kFactor><<<1, kPanelThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), lda, b, static_cast<float*>(l),
+      static_cast<float*>(z));
+  return static_cast<int>(cudaGetLastError());
+}
+
+using afl_tile::kLoadsPerThread;
+using afl_tile::kStep;
+using afl_tile::kThreads;
+using afl_tile::kTile;
+
+// C (m, n) = A (m, k) · B (n, k)ᵀ, or T − A · Bᵀ. Row strides lda, ldb,
+// ldt, ldc; unit column strides. t and c may be the same matrix.
+template <bool kSubtract>
+__global__ void __launch_bounds__(kThreads)
+gemm_nt_kernel(const float* __restrict__ a, int lda,
+               const float* __restrict__ bm, int ldb, const float* t, int ldt,
+               float* c, int ldc, int m, int n, int k) {
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.x * kTile;
+  afl_tile::tile_gemm(
+      k,
+      // the reduction runs along the rows of A and B: neighbouring threads
+      // read neighbouring entries of one row
+      [=](afl_tile::Stage a_tile, afl_tile::Stage b_tile, int k0) {
+#pragma unroll
+        for (int l = 0; l < kLoadsPerThread; ++l) {
+          const int e = threadIdx.x + l * kThreads;
+          const int r = e / kStep;
+          const int kk = e % kStep;
+          const int col = k0 + kk;
+          a_tile[kk][r] = (i0 + r < m && col < k)
+                              ? a[static_cast<size_t>(i0 + r) * lda + col]
+                              : 0.0f;
+          b_tile[kk][r] = (j0 + r < n && col < k)
+                              ? bm[static_cast<size_t>(j0 + r) * ldb + col]
+                              : 0.0f;
+        }
+      },
+      [=](int r, int s, float v) {
+        const int row = i0 + r;
+        const int col = j0 + s;
+        if (row >= m || col >= n) return;
+        if (kSubtract) v = t[static_cast<size_t>(row) * ldt + col] - v;
+        c[static_cast<size_t>(row) * ldc + col] = v;
+      });
+}
+
+template <bool kSubtract>
+int launch_gemm(const void* t, int ldt, const void* a, int lda, const void* b,
+                int ldb, void* c, int ldc, int m, int n, int k, void* stream) {
+  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
+  gemm_nt_kernel<kSubtract><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), lda, static_cast<const float*>(b), ldb,
+      static_cast<const float*>(t), ldt, static_cast<float*>(c), ldc, m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int afl_panel_factor_f32(const void* a, int lda, int b, void* l,
+                                    void* z, void* stream) {
+  return launch_panel<true>(a, lda, b, l, z, stream);
+}
+
+extern "C" int afl_panel_tri_inv_f32(const void* l, int ldl, int b, void* z,
+                                     void* stream) {
+  return launch_panel<false>(l, ldl, b, nullptr, z, stream);
+}
+
+extern "C" int afl_panel_trsm_f32(const void* raw, int ldr, const void* zinv,
+                                  int ldz, void* out, int ldo, int r, int b,
+                                  void* stream) {
+  return launch_gemm<false>(nullptr, 0, raw, ldr, zinv, ldz, out, ldo, r, b, b,
+                            stream);
+}
+
+extern "C" int afl_panel_update_f32(const void* trail, int ldt, const void* lp,
+                                    int ldl, const void* pt, int ldp, void* out,
+                                    int ldo, int r, int w, int b, void* stream) {
+  return launch_gemm<true>(trail, ldt, lp, ldl, pt, ldp, out, ldo, r, w, b,
+                           stream);
+}

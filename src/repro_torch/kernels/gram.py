@@ -5,78 +5,37 @@ analytic train step folds a batch of backbone embeddings ``X (N, d)`` and
 one-hot targets ``Y (N, C)`` into the sufficient statistics through it.
 
 The kernel is ``csrc/gram.cu`` (its header states the design and the bound
-on an H100). It is built with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface on first use, into ``build/`` at the root of the
-checkout, and bound with ``ctypes``. ``kernels.ops.gram_update`` dispatches
-between this wrapper (CUDA tensors) and the plain version in
-``kernels.ref`` (CPU tensors).
+on an H100). ``kernels.build`` compiles it with ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C interface on first use, and ``ctypes``
+binds it. ``kernels.ops.gram_update`` dispatches between this wrapper (CUDA
+tensors) and the plain version in ``kernels.ref`` (CPU tensors).
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import hashlib
-import os
-import subprocess
-import time
+import functools
 from pathlib import Path
-from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build as _build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gram.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _INT_MAX = 2**31 - 1
 
 
-@dataclasses.dataclass(frozen=True)
-class Build:
-    """The loaded library, and what building it took (0 s when cached)."""
-
-    lib: ctypes.CDLL
-    path: Path
-    seconds: float
-    log: str
-
-
-_BUILD: Optional[Build] = None
-
-
-def build() -> Build:
-    """Compile ``csrc/gram.cu`` (once per source content) and load it."""
-    global _BUILD
-    if _BUILD is not None:
-        return _BUILD
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("the CUDA toolkit (nvcc) was not found")
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    path = BUILD_DIR / f"libafl_gram_{tag}.so"
-    seconds, log = 0.0, ""
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
-               "-o", str(tmp), str(SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
+@functools.cache
+def build() -> _build.Build:
+    """Compile ``csrc/gram.cu`` (once per source content), load it and
+    declare its entry points."""
+    built = _build.load(SOURCE)[0]
     for name in ("afl_gram_update_f32", "afl_gram_update_bf16"):
-        fn = getattr(lib, name)
+        fn = getattr(built.lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    _BUILD = Build(lib, path, seconds, log)
-    return _BUILD
+    return built
 
 
 def gram_update(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

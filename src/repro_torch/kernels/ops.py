@@ -7,10 +7,14 @@ two: a kernel that fails to build or launch raises.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import ref
+from repro_torch.kernels.solve import (  # noqa: F401  (re-exported)
+    STREAM_MIN_DIM, panels, streamed_cholesky, streamed_cholesky_solve)
 
 
 def gram_update(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -18,3 +22,24 @@ def gram_update(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.T
     if x.is_cuda:
         return _gram.gram_update(x, y)
     return ref.gram_ref(x, y)
+
+
+def panel_factor(diag: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(L, L⁻¹)`` of one SPD diagonal block: the kernel on the card."""
+    return panels(diag.device).panel_factor(diag)
+
+
+def panel_tri_inv(l: torch.Tensor) -> torch.Tensor:
+    """``L⁻¹`` of one lower-triangular block: the kernel on the card."""
+    return panels(l.device).panel_tri_inv(l)
+
+
+def panel_trsm(raw: torch.Tensor, zinv: torch.Tensor) -> torch.Tensor:
+    """Panel trsm ``raw @ zinvᵀ``: the kernel on the card."""
+    return panels(raw.device).panel_trsm(raw, zinv)
+
+
+def panel_update(trail: torch.Tensor, lp: torch.Tensor, pt: torch.Tensor, *,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Trailing update ``trail − lp @ ptᵀ``: the kernel on the card."""
+    return panels(trail.device).panel_update(trail, lp, pt, out=out)

@@ -17,6 +17,8 @@ import torch
 from repro_torch.core.engine import AnalyticEngine
 from repro_torch.kernels import gram as G
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import panel as P
+from repro_torch.kernels import solve as S
 
 TOL = {torch.float32: (2e-4, 2e-3), torch.bfloat16: (2e-2, 2e-1)}
 
@@ -81,3 +83,176 @@ def test_engine_kernel_path_matches_plain_path(cuda):
     rtol, atol = TOL[torch.float32]
     torch.testing.assert_close(s_k.gram, s_p.gram, rtol=rtol, atol=atol)
     torch.testing.assert_close(s_k.moment, s_p.moment, rtol=rtol, atol=atol)
+
+
+# --- the panel kernels of the streamed Cholesky -------------------------------
+#
+# Factor and inverse are held to their plain versions (the reference's column
+# loops) at relative 1e-4 of the largest entry, the bar of
+# tests/test_distributed_cholesky.py for f32 factors: f32 arithmetic in
+# another order, on blocks with condition numbers near 10. The two products
+# take the Gram tolerances above (f32 sums of 256 terms in another order).
+
+
+def _rel(a, b):
+    """Largest error relative to the largest entry of ``b``."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def _spd_block(seed, b, device, rows=None):
+    """An SPD (b, b) block XᵀX / rows from rows = 4b normal rows (cond ≈ 9)."""
+    rng = np.random.default_rng(seed)
+    rows = rows or 4 * b
+    x = rng.standard_normal((rows, b))
+    return torch.from_numpy(x.T @ x / rows).to(device, torch.float32)
+
+
+def _inside(t, pad=3):
+    """``t`` as a view inside a larger matrix: rows with a larger stride,
+    as the schedule hands the kernels column slabs of its work matrix."""
+    big = torch.full((t.shape[0] + pad, t.shape[1] + 2 * pad), float("nan"),
+                     dtype=t.dtype, device=t.device)
+    big[pad:pad + t.shape[0], pad:pad + t.shape[1]] = t
+    return big[pad:pad + t.shape[0], pad:pad + t.shape[1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [256, 200, 16])     # the path's width, ragged, tiny
+def test_panel_factor_and_tri_inv_match_plain(cuda, b):
+    a = _inside(_spd_block(b, b, cuda))
+    assert a.stride(0) > b
+    before = (P.panel_factor.launches, P.panel_tri_inv.launches)
+    l, z = ops.panel_factor(a)
+    # the upper triangle of the input is not read
+    z2 = ops.panel_tri_inv(_inside(l + torch.triu(torch.full_like(l, 7.0), 1)))
+    torch.cuda.synchronize()
+    assert (P.panel_factor.launches, P.panel_tri_inv.launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+    l_ref, z_ref = ref.panel_factor_ref(a)
+    assert _rel(l, l_ref) < 1e-4 and _rel(z, z_ref) < 1e-4
+    assert _rel(z2, ref.panel_tri_inv_ref(l)) < 1e-4
+    for t in (l, z, z2):      # clean lower triangles
+        assert torch.isfinite(t).all()
+        assert not torch.triu(t, 1).any()
+    # the inverse is the inverse
+    eye = torch.eye(b, device=cuda, dtype=torch.float64)
+    assert float((l.double() @ z.double() - eye).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_panel_factor_non_pd_gives_nan(cuda):
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((3, 256))).to(cuda, torch.float32)
+    a = x.T @ x                                       # rank 3
+    l, z = ops.panel_factor(a)
+    l_ref, _ = ref.panel_factor_ref(a)
+    torch.cuda.synchronize()
+    assert torch.isnan(l).any() and torch.isnan(z).any()
+    assert torch.isnan(l_ref).any()
+    assert not torch.triu(l, 1).any()                 # NaN stays off the upper half
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,b", [(2304, 256), (1000, 200)])
+def test_panel_trsm_matches_plain(cuda, r, b):
+    rng = np.random.default_rng(r)
+    raw = _inside(torch.from_numpy(rng.standard_normal((r, b))).to(cuda, torch.float32))
+    zinv = torch.from_numpy(np.tril(rng.standard_normal((b, b)))).to(cuda, torch.float32)
+    before = P.panel_trsm.launches
+    out = ops.panel_trsm(raw, zinv)
+    torch.cuda.synchronize()
+    assert P.panel_trsm.launches == before + 1
+    assert out.shape == (r, b) and out.is_contiguous()
+    rtol, atol = TOL[torch.float32]
+    torch.testing.assert_close(out, ref.panel_trsm_ref(raw, zinv), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,w,b", [(2304, 2048, 256), (6144, 5888, 256), (1000, 777, 200)])
+def test_panel_update_matches_plain_in_place(cuda, r, w, b):
+    rng = np.random.default_rng(w)
+    f32 = lambda a: torch.from_numpy(a).to(cuda, torch.float32)  # noqa: E731
+    work = f32(rng.standard_normal((r, w + b)))
+    lp = f32(rng.standard_normal((r, b)))
+    pt = f32(rng.standard_normal((w, b)))
+    trail = work[:, b:]                               # a slab of the work matrix
+    want = ref.panel_update_ref(trail, lp, pt)
+    head = work[:, :b].clone()
+    before = P.panel_update.launches
+    got = ops.panel_update(trail, lp, pt, out=trail)
+    torch.cuda.synchronize()
+    assert P.panel_update.launches == before + 1
+    assert got.data_ptr() == trail.data_ptr()
+    rtol, atol = TOL[torch.float32]
+    torch.testing.assert_close(trail, want, rtol=rtol, atol=atol)
+    assert torch.equal(work[:, :b], head)             # nothing outside the slab
+    fresh = ops.panel_update(want, lp, pt)            # and into a new tensor
+    torch.testing.assert_close(fresh, ref.panel_update_ref(want, lp, pt),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_panel_products_carry_nan(cuda):
+    lp = torch.ones((70, 16), device=cuda)
+    lp[5, 3] = float("nan")
+    pt = torch.ones((40, 16), device=cuda)
+    out = ops.panel_update(torch.zeros((70, 40), device=cuda), lp, pt)
+    trsm = ops.panel_trsm(lp, torch.eye(16, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.isnan(out[5]).all() and torch.isfinite(out[:5]).all()
+    assert torch.isnan(trsm[5, 3]) and torch.isfinite(trsm[6:]).all()
+
+
+@pytest.mark.cuda
+def test_panel_kernels_reject_bad_inputs(cuda):
+    a = _spd_block(0, 32, cuda)
+    before = [f.launches for f in (P.panel_factor, P.panel_tri_inv,
+                                   P.panel_trsm, P.panel_update)]
+    with pytest.raises(TypeError):
+        P.panel_factor(a.double())
+    with pytest.raises(ValueError, match="CUDA"):
+        P.panel_tri_inv(a.cpu())
+    with pytest.raises(ValueError):
+        P.panel_factor(a[:, :31])                     # not square
+    with pytest.raises(ValueError):
+        P.panel_factor(torch.eye(257, device=cuda))   # wider than one SM holds
+    with pytest.raises(ValueError, match="stride"):
+        P.panel_trsm(a.T[:, :16], a[:16, :16])        # column-major slab
+    with pytest.raises(ValueError):
+        P.panel_trsm(a, a[:16, :16])                  # zinv not (b, b)
+    with pytest.raises(ValueError):
+        P.panel_update(a, a[:, :8], a[:16, :8])       # pt not (w, b)
+    with pytest.raises(TypeError):
+        P.panel_update(a, a[:, :8], a[:, :8], out=a.double())
+    after = [f.launches for f in (P.panel_factor, P.panel_tri_inv,
+                                  P.panel_trsm, P.panel_update)]
+    assert after == before
+
+
+@pytest.mark.cuda
+def test_engine_streamed_solve_at_minicpm_width(cuda):
+    """d = 2304 through AnalyticEngine(use_kernel=True): 9 panels, so one
+    factor and solve launch the panel kernels 9 / 9 / 8 / 9 times, and the
+    weight matches the plain route on the card and the host f64 engine."""
+    from repro_torch.core.engine import SuffStats
+
+    d, c = 2304, 16
+    x, y = _data(7, 4 * d, d, c, torch.float32, cuda)
+    g, q = ref.gram_ref(x, y)
+    one = torch.tensor(1.0, device=cuda)
+    stats = SuffStats(g, q, torch.tensor(float(4 * d), device=cuda), one)
+    eng = AnalyticEngine("torch", device=cuda, use_kernel=True)
+    counts = lambda: [f.launches for f in (P.panel_factor, P.panel_trsm,  # noqa: E731
+                                           P.panel_update, P.panel_tri_inv)]
+    before = counts()
+    w = eng.solve(stats, target_gamma=0.5)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [9, 9, 8, 9]
+    a = g + 0.5 * torch.eye(d, device=cuda)
+    l_plain = S.streamed_cholesky(a, use_kernel=False)
+    w_plain = S.streamed_cholesky_solve(l_plain, q, use_kernel=False)
+    assert _rel(w, w_plain) < 1e-4
+    w_host = np.linalg.solve(g.double().cpu().numpy() + 0.5 * np.eye(d),
+                             q.double().cpu().numpy())
+    assert _rel(w.cpu(), torch.from_numpy(w_host)) < 1e-4
+    assert counts() == [n + k for n, k in zip(before, [9, 9, 8, 9])]   # plain launches none

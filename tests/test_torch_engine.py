@@ -168,8 +168,11 @@ def test_kahan_update_matches_plain_sum_in_f64():
 
 @pytest.mark.parametrize("call", ["factor", "solve", "solve_multi_gamma", "rank_update"])
 def test_kernel_path_solves_raise_until_ported(call):
-    """use_kernel=True has only the Gram kernel so far: the solve side
-    raises instead of quietly running torch.linalg."""
+    """use_kernel=True at d = 16: the factor and solve of a system this
+    narrow (blocked_cholesky, cholesky_solve), the γ sweep and the rank
+    update are not ported, and raise instead of quietly running
+    torch.linalg. Systems of STREAM_MIN_DIM and wider are solved
+    (tests/test_torch_solve.py)."""
     eng = AnalyticEngine("torch", dtype=torch.float32, device="cpu", use_kernel=True)
     plain = AnalyticEngine("torch", dtype=torch.float32, device="cpu")
     (x, y), = _shards(10, sizes=(40,))
