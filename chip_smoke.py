@@ -11,12 +11,15 @@ without the repository around it. Phases, each fatal on failure:
 
   1. header: the card's name and power limit (nvidia-smi), the TF32
      switches (must be off), and the build of every kernel of the path
-     (one nvcc for each source, all at once), with registers and spills;
-  2. kernels: ``gram_update`` and the four panel kernels of the streamed
-     Cholesky against their plain versions on the card, at the shapes of
-     the main path, a ragged shape and (panel_factor) a block that is not
-     positive definite; each timed beside the plain version, one library
-     call where one computes the same function, and the card's bound;
+     (one nvcc for each of the four sources, all at once), with registers
+     and spills;
+  2. kernels: ``gram_update``, the four panel kernels of the streamed
+     Cholesky, ``blocked_cholesky``, ``cholesky_solve``,
+     ``multi_gamma_solve`` and ``chol_rank_update`` against their plain
+     versions on the card, at the shapes of the main path, a ragged shape
+     and (the factors and the sweep) an input that is not positive
+     definite; each timed beside the plain version, one library call that
+     computes the same function, and the card's bound;
   3. streamed factor and solve of one SPD system at d = 6144 (the width
      of nemotron4_15b and grok1): the kernel route against the plain
      route on the card, timed beside torch.linalg, and an indefinite
@@ -34,9 +37,23 @@ without the repository around it. Phases, each fatal on failure:
      ``AnalyticEngine("torch", use_kernel=True)`` at three ridges, with the
      panel kernels' launches counted over exactly those solves (9 / 9 / 8 /
      9 per factor and solve at d = 2304), held against the plain route on
-     the card and the host's f64 weight, and scored on the test set.
+     the card and the host's f64 weight, and scored on the test set;
+  7. γ sweep: that aggregate through ``solve_multi_gamma`` at 16 ridges,
+     answered by one ``multi_gamma_solve`` launch and no
+     eigendecomposition, against the plain route on the card and the
+     host's f64 sweep; then γ = 0 on a rank-deficient aggregate, which
+     must reroute to the eigendecomposition and give the host's pinv
+     answer;
+  8. narrow solves: the paper tables' features (d = 128) and a seeded
+     system at granite_moe_3b_a800m's width (d = 1536) through the
+     engine's ``solve`` and ``factor`` / ``factor_solve``, one
+     ``blocked_cholesky`` and one ``cholesky_solve`` launch per solve;
+  9. rank update: a straggler's 64-row root folded into the cached factor
+     of the slice's aggregate by one ``chol_rank_update`` launch, against
+     the refactor on the card and host f64.
 
-It then prints the kernels' JSON line, and last the device line
+Each path's launches are counted from zero just before it runs. It then
+prints the kernels' JSON line (nine kernels), and last the device line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -51,6 +68,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 # One card: every phase runs on device 0, and the last line counts it.
 os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -127,7 +145,7 @@ def gram_bound(n, d, c, dtype):
     return (*_bound(flops, nbytes, dtype), flops, nbytes)
 
 
-def header(G, P, build):
+def header(K, build):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -144,14 +162,15 @@ def header(G, P, build):
     if tf32:
         fail("TF32 matmuls are on; the f32 references need them off")
     t0 = time.perf_counter()
-    for built in build.load(G.SOURCE, P.SOURCE):
+    modules = (K.G, K.P, K.B, K.R)
+    for built in build.load(*(m.SOURCE for m in modules)):
         log(f"build: {built.path.name} in {built.seconds:.2f} s")
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
-    G.build()
-    P.build()
-    log(f"build: both sources in {time.perf_counter() - t0:.2f} s (in parallel)")
+    for m in modules:
+        m.build()
+    log(f"build: {len(modules)} sources in {time.perf_counter() - t0:.2f} s (in parallel)")
 
 
 def kernel_phase(G, ref):
@@ -225,7 +244,7 @@ def _slab(gen, rows, cols, width):
     return work[:, width - cols:]
 
 
-def _panel_row(name, shape, err, rel, ms, plain_ms, library_ms, flops, nbytes, note=""):
+def _kernel_row(name, shape, err, rel, ms, plain_ms, library_ms, flops, nbytes, note=""):
     bound_ms, bound_by = _bound(flops, nbytes)
     lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
     log(f"{name} {shape}: max|err|={err:.3e} (relative {rel:.2e}) kernel {ms:.4f} ms, "
@@ -260,14 +279,14 @@ def panel_phase(P, ref):
         eye = torch.eye(b, device="cuda")
         pair_ms = time_cuda(lambda: torch.linalg.solve_triangular(
             torch.linalg.cholesky(a), eye, upper=False))
-        rows["panel_factor"].append(_panel_row(
+        rows["panel_factor"].append(_kernel_row(
             "panel_factor", (b,), max(_abs(l, l_ref), _abs(z, z_ref)), rel,
             time_cuda(lambda: P.panel_factor(a)),
             time_cuda(lambda: ref.panel_factor_ref(a), reps=3, trials=3, warmup=1),
             None, 2 * b ** 3 / 3, 4 * (tri + 2 * b * b),
             f"; torch.linalg.cholesky + solve_triangular {pair_ms:.4f} ms; "
             f"{2 * b} sequential steps"))
-        rows["panel_tri_inv"].append(_panel_row(
+        rows["panel_tri_inv"].append(_kernel_row(
             "panel_tri_inv", (b,), _abs(zi, zi_ref), rel_i,
             time_cuda(lambda: P.panel_tri_inv(l)),
             time_cuda(lambda: ref.panel_tri_inv_ref(l), reps=3, trials=3, warmup=1),
@@ -291,7 +310,7 @@ def panel_phase(P, ref):
         out, want = P.panel_trsm(raw, zinv), ref.panel_trsm_ref(raw, zinv)
         torch.cuda.synchronize()
         torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
-        rows["panel_trsm"].append(_panel_row(
+        rows["panel_trsm"].append(_kernel_row(
             "panel_trsm", (r, b), _abs(out, want), _rel(out, want),
             time_cuda(lambda: P.panel_trsm(raw, zinv)),
             time_cuda(lambda: ref.panel_trsm_ref(raw, zinv)),
@@ -306,7 +325,7 @@ def panel_phase(P, ref):
         out = P.panel_update(trail, lp, pt, out=trail)     # in place, as the path does
         torch.cuda.synchronize()
         torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
-        rows["panel_update"].append(_panel_row(
+        rows["panel_update"].append(_kernel_row(
             "panel_update", (r, w, b), _abs(out, want), _rel(out, want),
             time_cuda(lambda: P.panel_update(trail, lp, pt, out=trail)),
             time_cuda(lambda: ref.panel_update_ref(trail, lp, pt, out=trail)),
@@ -431,7 +450,7 @@ def small_check(get_config, D, T, train, FLConfig):
         fail(f"reduced run accuracy {acc_gpu} on the card vs {acc_cpu} on the CPU")
 
 
-def slice_phase(G, get_config, D, T, train, FLConfig, api):
+def slice_phase(K, get_config, D, T, train, FLConfig, api):
     cfg = dataclasses.replace(get_config(SLICE["arch"]), num_classes=SLICE["classes"])
     t0 = time.perf_counter()
     ds = D.token_classification(n=SLICE["samples"], seq=SLICE["seq"],
@@ -453,19 +472,19 @@ def slice_phase(G, get_config, D, T, train, FLConfig, api):
     fl = FLConfig(gamma=1.0)
     server = api.AFLServer(cfg.d_model, cfg.num_classes, gamma=fl.gamma)
     torch.cuda.reset_peak_memory_stats()
-    G.gram_update.launches = 0
+    _zero(K)
     t0 = time.perf_counter()
     acc, train_s = train.run_analytic(cfg, tr, te, fl, SLICE["batch"],
                                       use_kernel=True, device="cuda", params=params,
                                       coordinator=server)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = G.gram_update.launches
+    launches = _read(K)
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"slice: run_analytic acc={acc:.4f} train_s={train_s:.3f} wall_s={wall:.3f} "
-        f"gram_update launches={launches} (expected {expected}) peak_mem={peak:.2f} GB")
-    if launches != expected:
-        fail(f"gram_update launched {launches} times, expected {expected}")
+        f"gram_update launches={launches['gram_update']} (expected {expected}) "
+        f"peak_mem={peak:.2f} GB")
+    _only(launches, {"gram_update": expected}, "run_analytic")
     if not (math.isfinite(acc) and 0.0 <= acc <= 1.0):
         fail(f"accuracy {acc} is not a fraction")
     x_te = slice_checks(cfg, params, tr, te, server, acc, train, fl, api)
@@ -573,38 +592,63 @@ DEVICE_PLAIN_REL = 1e-4
 DEVICE_HOST_KU = 10.0
 
 
-def device_solve_phase(P, S, engine, api, server, x_te, y_te):
-    """The slice's aggregate (raw Gram and moment, host f64) moved to the
-    card as f32 statistics and solved through the panel kernels."""
+def _card_stats(server, engine):
+    """A server's aggregate: the raw Gram and the moment in host f64, and
+    the same statistics in f32 on the card."""
     state = server.state()
     g = np.array(state["gram"], np.float64)
     np.fill_diagonal(g, state["gram_diag_raw"])      # raw Gram: no kγI
-    d = g.shape[0]
+    q = np.array(state["moment"], np.float64)
     dev = torch.device("cuda")
     stats = engine.SuffStats(
         gram=torch.tensor(g, dtype=torch.float32, device=dev),
-        moment=torch.tensor(state["moment"], dtype=torch.float32, device=dev),
+        moment=torch.tensor(q, dtype=torch.float32, device=dev),
         count=torch.tensor(float(state["count"]), device=dev),
         clients=torch.tensor(float(len(state["seen"])), device=dev))
-    eng = engine.AnalyticEngine("torch", device=dev, use_kernel=True)
+    return g, q, stats
+
+
+def _zero(K):
+    for f in K.ALL.values():
+        f.launches = 0
+
+
+def _read(K) -> dict:
+    return {name: f.launches for name, f in K.ALL.items()}
+
+
+def _only(launches: dict, want: dict, what: str) -> None:
+    """Fails unless the path launched exactly ``want`` (and nothing else)."""
+    expected = {name: want.get(name, 0) for name in launches}
+    if launches != expected:
+        fail(f"{what} launched {launches}, expected {expected}")
+
+
+def device_solve_phase(K, S, engine, api, server, x_te, y_te):
+    """The slice's aggregate (raw Gram and moment, host f64) moved to the
+    card as f32 statistics and solved through the panel kernels."""
+    P = K.P
+    g, q, stats = _card_stats(server, engine)
+    d = g.shape[0]
+    eng = engine.AnalyticEngine("torch", device="cuda", use_kernel=True)
     kernels = (P.panel_factor, P.panel_trsm, P.panel_update, P.panel_tri_inv)
     n = -(-d // PANEL_B)
     expected = [n, n, n - 1, n]
     scale = float(np.trace(g)) / d
     gammas = [rho * scale for rho in DEVICE_RHOS]
     weights, per_solve = [], []
-    for f in kernels:
-        f.launches = 0
+    _zero(K)
     for gamma in gammas:
         before = [f.launches for f in kernels]
         weights.append(eng.solve(stats, target_gamma=gamma))
         torch.cuda.synchronize()
         per_solve.append([f.launches - b for f, b in zip(kernels, before)])
-    launches = [f.launches for f in kernels]
+    launches = _read(K)
     log(f"device solve d={d}: panel launches per factor and solve {per_solve} "
         f"(expected {expected} each: factor, trsm, update, tri_inv)")
     if any(c != expected for c in per_solve):
         fail(f"device solves launched {per_solve}, expected {expected} each")
+    _only(launches, {f.__name__: 3 * e for f, e in zip(kernels, expected)}, "device solves")
 
     evals = np.linalg.eigvalsh(g)
     for rho, gamma, w in zip(DEVICE_RHOS, gammas, weights):
@@ -644,7 +688,7 @@ def device_solve_phase(P, S, engine, api, server, x_te, y_te):
     ms_lib = time_wall(lambda: torch.cholesky_solve(stats.moment, torch.linalg.cholesky(a)),
                        reps=5)
     host = engine.AnalyticEngine("numpy_f64")
-    host_stats = engine.SuffStats(g, np.array(state["moment"], np.float64), 0.0, 1.0)
+    host_stats = engine.SuffStats(g, q, 0.0, 1.0)
     t_host = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -654,6 +698,404 @@ def device_solve_phase(P, S, engine, api, server, x_te, y_te):
         f"{ms_card:.2f} ms, torch.linalg.cholesky + cholesky_solve {ms_lib:.2f} ms on "
         f"the card; host f64 (numpy, {os.cpu_count()} cores) "
         f"{statistics.median(t_host):.1f} ms")
+    return launches
+
+
+# --- the blocked kernels and the rank update: kernel phase ---------------------
+
+# each kernel against its plain version (the reference's algorithm in torch,
+# on the card): relative 1e-4 of the largest entry, PANEL_REL's bar
+BLOCKED_REL = 1e-4
+# the path's shapes first (the narrow solves' d = 1536 and 128, the sweep
+# and the rank update of the d = 2304 aggregate), then ragged ones
+FACTOR_SHAPES = [(1, 1536), (1, 128), (3, 130)]           # (m, d)
+SOLVE_SHAPES = [(1, 1536, 16), (1, 128, 40)]              # (m, d, c)
+SWEEP_SHAPES = [(2304, 16, 16), (130, 7, 11)]             # (d, c, n_g)
+RANK_SHAPES = [(2304, 64), (130, 3)]                      # (d, k)
+
+
+def time_auto(fn) -> float:
+    """Median device milliseconds per call of ``fn``, queueing as many calls
+    per trial as fit in about 50 ms (one for calls of a second or more)."""
+    t = time_wall(fn, reps=1)
+    reps = max(1, min(50, int(50.0 / max(t, 1e-3))))
+    trials = 1 if t > 1000 else 3 if t > 5 else 7
+    return time_cuda(fn, reps=reps, trials=trials, warmup=1)
+
+
+def _tri(d: int) -> int:
+    return d * (d + 1) // 2
+
+
+def _check_close(name, shape, got, want) -> float:
+    rel = _rel(got, want)
+    if not rel <= BLOCKED_REL:
+        fail(f"{name} {shape}: relative error {rel:.2e} against the plain version, "
+             f"above {BLOCKED_REL}")
+    return rel
+
+
+def blocked_phase(K, ref):
+    """blocked_cholesky, cholesky_solve, multi_gamma_solve and
+    chol_rank_update against their plain versions at the path's shapes."""
+    B, R = K.B, K.R
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    rows = {n: [] for n in ("blocked_cholesky", "cholesky_solve", "multi_gamma_solve",
+                            "chol_rank_update")}
+    for m, d in FACTOR_SHAPES:
+        a = torch.stack([_spd_block(gen, d) for _ in range(m)])
+        l, want = B.blocked_cholesky(a), ref.blocked_cholesky_ref(a)
+        torch.cuda.synchronize()
+        rel = _check_close("blocked_cholesky", (m, d), l, want)
+        if torch.triu(l, 1).any() or not torch.isfinite(l).all():
+            fail(f"blocked_cholesky {(m, d)}: not a clean finite lower triangle")
+        rows["blocked_cholesky"].append(_kernel_row(
+            "blocked_cholesky", (m, d), _abs(l, want), rel,
+            time_auto(lambda: B.blocked_cholesky(a)),
+            time_auto(lambda: ref.blocked_cholesky_ref(a)),
+            time_auto(lambda: torch.linalg.cholesky(a)),
+            m * d ** 3 / 3, 4 * m * (_tri(d) + d * d),
+            f"; library torch.linalg.cholesky; {2 * d} sequential column steps"))
+    x = torch.randn((3, 200), generator=gen, device="cuda")
+    a = torch.stack([_spd_block(gen, 200), x.T @ x])      # PD, then rank 3
+    l, want = B.blocked_cholesky(a), ref.blocked_cholesky_ref(a)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(l[0]).all() and torch.isnan(l[1]).any()
+            and torch.isnan(want[1]).any()) or torch.triu(l, 1).any():
+        fail("blocked_cholesky of a PD and a rank-3 system: NaN not confined to the "
+             "second, or the upper triangle not zero")
+    log(f"blocked_cholesky of a PD and a rank-3 (200, 200) system: the first finite "
+        f"(relative {_rel(l[0], want[0]):.2e} from plain), NaN in {int(torch.isnan(l[1]).sum())} "
+        f"entries of the second (plain {int(torch.isnan(want[1]).sum())})")
+
+    for m, d, c in SOLVE_SHAPES:
+        l = ref.blocked_cholesky_ref(torch.stack([_spd_block(gen, d) for _ in range(m)]))
+        b = torch.randn((m, d, c), generator=gen, device="cuda")
+        x, want = B.cholesky_solve(l, b), ref.cholesky_solve_ref(l, b)
+        torch.cuda.synchronize()
+        rel = _check_close("cholesky_solve", (m, d, c), x, want)
+        rows["cholesky_solve"].append(_kernel_row(
+            "cholesky_solve", (m, d, c), _abs(x, want), rel,
+            time_auto(lambda: B.cholesky_solve(l, b)),
+            time_auto(lambda: ref.cholesky_solve_ref(l, b)),
+            time_auto(lambda: torch.cholesky_solve(b, l)),
+            2 * m * d * d * c, 4 * m * (_tri(d) + 2 * d * c),
+            "; library torch.cholesky_solve"))
+
+    for d, c, n_g in SWEEP_SHAPES:
+        a = _spd_block(gen, d)
+        q = torch.randn((d, c), generator=gen, device="cuda")
+        gammas = torch.logspace(-4, 0, n_g, device="cuda") * torch.trace(a) / d
+        eye = torch.eye(d, device="cuda")
+
+        def library(a=a, q=q, gammas=gammas, eye=eye, d=d, c=c, n_g=n_g):
+            l = torch.linalg.cholesky(a + gammas[:, None, None] * eye)
+            return torch.cholesky_solve(q.expand(n_g, d, c), l)
+
+        def plain(a=a, q=q, gammas=gammas):
+            return ref.multi_gamma_solve_ref(a, q, gammas)
+
+        w, want = B.multi_gamma_solve(a, q, gammas), plain()
+        torch.cuda.synchronize()
+        rel = max(_check_close("multi_gamma_solve", (d, c, n_g), w[j], want[j])
+                  for j in range(n_g))
+        rows["multi_gamma_solve"].append(_kernel_row(
+            "multi_gamma_solve", (d, c, n_g), _abs(w, want), rel,
+            time_auto(lambda: B.multi_gamma_solve(a, q, gammas)), time_auto(plain),
+            time_auto(library), n_g * (d ** 3 / 3 + 2 * d * d * c),
+            4 * (_tri(d) + d * c + n_g + n_g * d * c),
+            "; library batched torch.linalg.cholesky + torch.cholesky_solve"))
+    x = torch.randn((5, 64), generator=gen, device="cuda")
+    w = B.multi_gamma_solve(x.T @ x, torch.randn((64, 3), generator=gen, device="cuda"),
+                            torch.tensor([0.0, 1.0], device="cuda"))
+    torch.cuda.synchronize()
+    if torch.isfinite(w[0]).all() or not torch.isfinite(w[1]).all():
+        fail("multi_gamma_solve on a rank-5 (64, 64) C: γ = 0 is not NaN, or γ = 1 is not "
+             "finite")
+    log(f"multi_gamma_solve on a rank-5 (64, 64) C: NaN in {int(torch.isnan(w[0]).sum())} "
+        f"of {w[0].numel()} weights at γ = 0, none at γ = 1")
+
+    for d, k in RANK_SHAPES:
+        l = torch.linalg.cholesky(_spd_block(gen, d)).contiguous()   # cuSOLVER's is column-major
+        xs = torch.randn((k, d), generator=gen, device="cuda")
+        out, want = R.chol_rank_update(l, xs), ref.chol_rank_update_ref(l, xs)
+        torch.cuda.synchronize()
+        rel = _check_close("chol_rank_update", (d, k), out, want)
+        if torch.triu(out, 1).any() or not torch.isfinite(out).all():
+            fail(f"chol_rank_update {(d, k)}: not a clean finite lower triangle")
+        rows["chol_rank_update"].append(_kernel_row(
+            "chol_rank_update", (d, k), _abs(out, want), rel,
+            time_auto(lambda: R.chol_rank_update(l, xs)),
+            time_auto(lambda: ref.chol_rank_update_ref(l, xs)),
+            time_auto(lambda: torch.linalg.cholesky(l @ l.T + xs.T @ xs)),
+            2 * k * d * d, 4 * (2 * d * d + k * d),
+            f"; library torch.linalg.cholesky(L·Lᵀ + xsᵀ·xs); {d} sequential columns"))
+    return rows
+
+
+# --- the γ sweep of the slice's aggregate ---------------------------------------
+
+SWEEP_RHOS = np.logspace(-4, 0, 16)      # γ = ρ·tr(G)/d
+SWEEP_ACC_RHO = 1e-2                     # equal accuracy from here up, as DEVICE_ACC_RHOS
+# a rank-deficient aggregate: one client with half as many rows as d
+RANKDEF_ROWS = 1152
+# pinv cutoff for that grid, on the card and the host alike: above the f32
+# eigenvalues' rounding (at most about d·u = 1.4e-4 of the largest) and
+# below the smallest nonzero eigenvalue (about 1/34 of the largest for
+# 1152 normal rows in 2304 dimensions)
+RANKDEF_RCOND = 1e-3
+
+
+def _counted_eigh(eng) -> list:
+    """Counts the eigendecompositions of ``eng``'s backend: the sweep's
+    fallback route."""
+    calls = [0]
+    eigh = eng.backend.eigh
+
+    def counted(a):
+        calls[0] += 1
+        return eigh(a)
+
+    eng.backend.eigh = counted
+    return calls
+
+
+def sweep_phase(K, ref, S, engine, api, server, x_te, y_te):
+    """The slice's aggregate through ``solve_multi_gamma`` at 16 ridges,
+    then γ = 0 on a rank-deficient aggregate."""
+    g, q, stats = _card_stats(server, engine)
+    d, c = q.shape
+    eng = engine.AnalyticEngine("torch", device="cuda", use_kernel=True)
+    eighs = _counted_eigh(eng)
+    scale = float(np.trace(g)) / d
+    gammas = [float(rho * scale) for rho in SWEEP_RHOS]
+    _zero(K)
+    t0 = time.perf_counter()
+    ws = eng.solve_multi_gamma(stats, gammas)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    launches = _read(K)
+    log(f"sweep d={d} C={c}: {len(gammas)} ridges in {wall:.1f} ms (with the host's "
+        f"trust check), launches {launches}, eigendecompositions {eighs[0]}")
+    _only(launches, {"multi_gamma_solve": 1}, "the sweep")
+    if eighs[0]:
+        fail("the sweep fell back to the eigendecomposition")
+    plain = ref.multi_gamma_solve_ref(stats.gram, stats.moment,
+                                      torch.tensor(gammas, device="cuda"))
+    host = server.solve_multi_gamma(gammas)
+    evals = np.linalg.eigvalsh(g)
+    worst = [0.0, 0.0]
+    for rho, gamma, w, w_p, w_h in zip(SWEEP_RHOS, gammas, ws, plain, host):
+        cond = float((evals[-1] + gamma) / (evals[0] + gamma))
+        ku = cond * F32_U
+        rel_plain = _rel(w, w_p)
+        rel_host = _rel(w.double().cpu(), torch.from_numpy(w_h))
+        acc_card = api.evaluate_weight(w.double().cpu().numpy(), x_te, y_te)
+        acc_host = api.evaluate_weight(w_h, x_te, y_te)
+        worst = [max(worst[0], rel_plain), max(worst[1], rel_host / ku)]
+        log(f"sweep ρ={rho:.3g} (γ={gamma:.4g}, κ={cond:.3e}): card vs plain route "
+            f"{rel_plain:.2e} (limit {DEVICE_PLAIN_REL:g}), vs host f64 {rel_host:.2e} = "
+            f"{rel_host / ku:.3f}·κ·u (limit {DEVICE_HOST_KU:g}·κ·u); accuracy card "
+            f"{acc_card:.4f} host {acc_host:.4f}")
+        if not torch.isfinite(w).all() or rel_plain > DEVICE_PLAIN_REL:
+            fail(f"sweep at ρ={rho:.3g}: {rel_plain:.2e} from the plain route")
+        if rel_host > DEVICE_HOST_KU * ku:
+            fail(f"sweep at ρ={rho:.3g}: {rel_host:.2e} from the host's f64 weight, more "
+                 f"than {DEVICE_HOST_KU:g}·κ·u")
+        if rho >= SWEEP_ACC_RHO and abs(acc_card - acc_host) * len(y_te) > 1:
+            fail(f"sweep at ρ={rho:.3g}: accuracy {acc_card} on the card vs {acc_host}")
+    ms_card = time_wall(lambda: eng.solve_multi_gamma(stats, gammas), reps=3)
+    ms_fused = time_wall(lambda: S.multi_gamma_solve(stats.gram, stats.moment, gammas), reps=3)
+    eye = torch.eye(d, device="cuda")
+    gt = torch.tensor(gammas, device="cuda")
+    ms_lib = time_wall(lambda: torch.cholesky_solve(
+        stats.moment.expand(len(gammas), d, c),
+        torch.linalg.cholesky(stats.gram + gt[:, None, None] * eye)), reps=3)
+    t_host = []
+    for _ in range(2):
+        fresh = api.AFLServer.from_state(server.state())
+        t1 = time.perf_counter()
+        fresh.solve_multi_gamma(gammas)
+        t_host.append(1e3 * (time.perf_counter() - t1))
+    log(f"sweep d={d}, {len(gammas)} ridges: engine kernel route {ms_card:.2f} ms "
+        f"(multi_gamma_solve alone {ms_fused:.2f} ms), batched torch.linalg.cholesky + "
+        f"cholesky_solve {ms_lib:.2f} ms on the card; host f64 eigendecomposition sweep "
+        f"(AFLServer, {os.cpu_count()} cores) {statistics.median(t_host):.1f} ms; worst "
+        f"card vs plain {worst[0]:.2e}, vs host {worst[1]:.3f}·κ·u")
+
+    # γ = 0 on a rank-deficient aggregate: the kernel cannot answer it
+    rng = np.random.default_rng(RANKDEF_ROWS)
+    xr = rng.standard_normal((RANKDEF_ROWS, d))
+    yr = np.eye(c)[rng.integers(0, c, RANKDEF_ROWS)]
+    host_eng = engine.AnalyticEngine("numpy_f64")
+    hs = host_eng.client_stats(xr, yr)
+    cs = engine.SuffStats(*(torch.tensor(np.asarray(v, np.float64), dtype=torch.float32,
+                                         device="cuda") for v in hs[:4]))
+    scale_r = float(np.trace(hs.gram)) / d
+    grid = [0.0, 1e-2 * scale_r, scale_r]
+    eighs[0] = 0
+    _zero(K)
+    ws = eng.solve_multi_gamma(cs, grid, rcond=RANKDEF_RCOND)
+    torch.cuda.synchronize()
+    fallback = _read(K)
+    _only(fallback, {"multi_gamma_solve": 1}, "the rank-deficient sweep")
+    if eighs[0] != 1:
+        fail(f"the rank-deficient sweep ran {eighs[0]} eigendecompositions, expected 1")
+    fused = S.multi_gamma_solve(cs.gram, cs.moment, grid)
+    want = host_eng.solve_multi_gamma(hs, grid, rcond=RANKDEF_RCOND)
+    evals = np.linalg.eigvalsh(hs.gram)
+    nonzero = evals[evals > RANKDEF_RCOND * evals[-1]]
+    for gamma, w, w_f, w_h in zip(grid, ws, fused, want):
+        cond = float((evals[-1] + gamma) / (nonzero[0] + gamma))
+        rel = _rel(w.double().cpu(), torch.from_numpy(w_h))
+        limit = d * cond * F32_U
+        log(f"rank-deficient sweep (N={RANKDEF_ROWS} < d={d}, rank {len(nonzero)}) γ={gamma:.4g}: "
+            f"the kernel's weights {'finite' if torch.isfinite(w_f).all() else 'NaN'} "
+            f"({int(torch.isnan(w_f).sum())} NaN), answered by the eigendecomposition: "
+            f"vs host pinv {rel:.2e} = {rel / (cond * F32_U):.2f}·κ·u with κ={cond:.3g} over "
+            f"the kept spectrum (limit d·κ·u = {limit:.2e}, the f32 eigendecomposition's "
+            f"backward error)")
+        if not torch.isfinite(w).all() or rel > limit:
+            fail(f"rank-deficient sweep at γ={gamma:.4g}: {rel:.2e} from the host's pinv "
+                 "answer")
+    return {name: launches[name] + fallback[name] for name in launches}
+
+
+# --- narrow systems: the blocked factor and solve --------------------------------
+
+NARROW_FEATURES = dict(n=8000, dim=128, num_classes=40, separation=0.45, seed=0)
+NARROW_WIDE_D = 1536     # granite_moe_3b_a800m's d_model, the widest below 2048
+NARROW_C = 16
+
+
+def _narrow_solves(K, eng, stats, what):
+    """``solve`` and ``factor`` + ``factor_solve`` of one system: one
+    blocked_cholesky and one cholesky_solve launch each."""
+    _zero(K)
+    w = eng.solve(stats)
+    f = eng.factor(stats)
+    w2 = eng.factor_solve(f, stats.moment)
+    torch.cuda.synchronize()
+    launches = _read(K)
+    _only(launches, {"blocked_cholesky": 2, "cholesky_solve": 2}, what)
+    if not torch.equal(w, w2):
+        fail(f"{what}: solve and factor + factor_solve differ")
+    return w, f, launches
+
+
+def narrow_phase(K, ref, engine, api, D):
+    """The paper tables' feature configuration (d = 128) and a seeded system
+    at d = 1536 through the engine's narrow route."""
+    ds = D.gaussian_mixture(**NARROW_FEATURES)
+    tr, te = D.train_test_split(ds, 0.25, seed=0)
+    c = NARROW_FEATURES["num_classes"]
+    host = engine.AnalyticEngine("numpy_f64")
+    hs = host.client_stats(tr.x.astype(np.float64), np.eye(c)[tr.y])
+    cs = engine.SuffStats(*(torch.tensor(np.asarray(v, np.float64), dtype=torch.float32,
+                                         device="cuda") for v in hs[:4]))
+    eng = engine.AnalyticEngine("torch", device="cuda", use_kernel=True)
+    w, _, launches = _narrow_solves(K, eng, cs, "the d = 128 feature solve")
+    w_host = host.solve(hs)
+    evals = np.linalg.eigvalsh(hs.gram)
+    cond = float(evals[-1] / evals[0])
+    rel = _rel(w.double().cpu(), torch.from_numpy(w_host))
+    acc_card = api.evaluate_weight(w.double().cpu().numpy(), te.x, te.y)
+    acc_host = api.evaluate_weight(w_host, te.x, te.y)
+    log(f"narrow d={hs.dim} (gaussian_mixture {NARROW_FEATURES}, {len(tr)} train / "
+        f"{len(te)} test): launches {launches}; vs host f64 {rel:.2e} = "
+        f"{rel / (cond * F32_U):.3f}·κ·u with κ={cond:.3g} (limit {DEVICE_HOST_KU:g}·κ·u); "
+        f"accuracy card {acc_card:.4f} host {acc_host:.4f}")
+    if rel > DEVICE_HOST_KU * cond * F32_U:
+        fail(f"narrow d={hs.dim}: {rel:.2e} from the host's f64 weight")
+    if acc_card != acc_host:
+        fail(f"narrow d={hs.dim}: accuracy {acc_card} on the card vs {acc_host} on the host")
+
+    d = NARROW_WIDE_D
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(d)
+    a = _spd_block(gen, d)
+    rhs = torch.randn((d, NARROW_C), generator=gen, device="cuda")
+    one = torch.tensor(1.0, device="cuda")
+    stats = engine.SuffStats(a, rhs, one, one)
+    w, f, more = _narrow_solves(K, eng, stats, f"the d = {d} solve")
+    w_plain = ref.cholesky_solve_ref(ref.blocked_cholesky_ref(a[None]), rhs[None])[0]
+    w_64 = torch.linalg.solve(a.double(), rhs.double())
+    evals = torch.linalg.eigvalsh(a.double())
+    cond = float(evals[-1] / evals[0])
+    rel_plain, rel_64 = _rel(w, w_plain), _rel(w, w_64)
+    ms_card = time_wall(lambda: eng.solve(stats), reps=5)
+    ms_lib = time_wall(lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky(a)), reps=5)
+    log(f"narrow d={d} C={NARROW_C} (XᵀX/4d, κ={cond:.3g}): launches {more}; card vs plain "
+        f"route {rel_plain:.2e} (limit {DEVICE_PLAIN_REL:g}), vs f64 {rel_64:.2e} = "
+        f"{rel_64 / (cond * F32_U):.2f}·κ·u (limit {DEVICE_HOST_KU:g}·κ·u); factor and solve "
+        f"{ms_card:.2f} ms on the kernel route, torch.linalg.cholesky + cholesky_solve "
+        f"{ms_lib:.3f} ms")
+    if rel_plain > DEVICE_PLAIN_REL or rel_64 > DEVICE_HOST_KU * cond * F32_U:
+        fail(f"narrow d={d}: {rel_plain:.2e} from the plain route, {rel_64:.2e} from f64")
+    if torch.triu(f.handle, 1).any():
+        fail(f"narrow d={d}: the factor's upper triangle is not zero")
+    return {name: launches[name] + more[name] for name in launches}
+
+
+# --- a straggler folded into the cached factor -----------------------------------
+
+STRAGGLER_ROWS = 64
+RANK_RHO = 1e-2          # the factor's ridge γ = ρ·tr(G)/d
+
+
+def rank_update_phase(K, engine, api, server, x_te, y_te, fl):
+    """Factor the slice's aggregate on the card, then fold a straggler's
+    64-row root into the factor with one chol_rank_update launch."""
+    g, _, stats = _card_stats(server, engine)
+    d = g.shape[0]
+    c = stats.moment.shape[1]
+    eng = engine.AnalyticEngine("torch", device="cuda", use_kernel=True)
+    gamma = RANK_RHO * float(np.trace(g)) / d
+    fact = eng.factor(stats, target_gamma=gamma)              # the panel kernels
+    dev = torch.device("cuda")
+    emb = torch.tensor(x_te[:STRAGGLER_ROWS], dtype=torch.float32, device=dev)
+    onehot = F.one_hot(torch.as_tensor(y_te[:STRAGGLER_ROWS], device=dev), c).float()
+    report = api.AFLClient(10_000, gamma=fl.gamma, backend="torch", device=dev,
+                           use_kernel=True).update(emb, onehot).report()
+    merged_server = api.AFLServer.from_state(server.state())
+    merged_server.submit(report)
+    g_m, q_m, merged = _card_stats(merged_server, engine)
+    root = torch.tensor(report.root, dtype=torch.float32, device=dev)
+    _zero(K)
+    t0 = time.perf_counter()
+    updated = eng.factor_update(fact, merged, root, target_gamma=gamma)
+    torch.cuda.synchronize()
+    ms_update = 1e3 * (time.perf_counter() - t0)
+    launches = _read(K)
+    _only(launches, {"chol_rank_update": 1}, "the factor update")
+    refactor = eng.factor(merged, target_gamma=gamma)
+    a_m = g_m + gamma * np.eye(d)
+    evals = np.linalg.eigvalsh(a_m)
+    cond = float(evals[-1] / evals[0])
+    ku = cond * F32_U
+    l_host = np.linalg.cholesky(a_m)
+    w = eng.factor_solve(updated, merged.moment)
+    w_host = engine.AnalyticEngine("numpy_f64").solve(
+        engine.SuffStats(g_m, q_m, 0.0, 1.0), target_gamma=gamma)
+    rel_re = _rel(updated.handle, refactor.handle)
+    rel_l = _rel(updated.handle.double().cpu(), torch.from_numpy(l_host))
+    rel_w = _rel(w.double().cpu(), torch.from_numpy(w_host))
+    ms_re = time_wall(lambda: eng.factor(merged, target_gamma=gamma), reps=3)
+    a_card = merged.gram + gamma * torch.eye(d, device=dev)
+    ms_lib = time_wall(lambda: torch.linalg.cholesky(a_card), reps=3)
+    log(f"rank update d={d}: a {root.shape[0]}-row root (report of {STRAGGLER_ROWS} held-out "
+        f"pooled embeddings) at γ={gamma:.4g} (ρ={RANK_RHO:g}, κ={cond:.3e}): launches "
+        f"{launches}, {ms_update:.2f} ms with the NaN check; updated L vs the kernel route's "
+        f"refactor {rel_re:.2e} = {rel_re / ku:.3f}·κ·u, vs host f64 Cholesky {rel_l:.2e} = "
+        f"{rel_l / ku:.3f}·κ·u; its factor_solve vs host f64 weight {rel_w:.2e} = "
+        f"{rel_w / ku:.3f}·κ·u (limits {DEVICE_HOST_KU:g}·κ·u); refactor on the card "
+        f"{ms_re:.2f} ms, torch.linalg.cholesky {ms_lib:.2f} ms")
+    if max(rel_re, rel_l, rel_w) > DEVICE_HOST_KU * ku:
+        fail(f"rank update: {rel_re:.2e} / {rel_l:.2e} / {rel_w:.2e} from the refactor, the "
+             "host factor and the host weight")
+    if torch.triu(updated.handle, 1).any():
+        fail("rank update: the updated factor's upper triangle is not zero")
     return launches
 
 
@@ -684,30 +1126,49 @@ def main() -> None:
     from repro_torch.configs.registry import get_config
     from repro_torch.data import synthetic as D
     from repro_torch.fl import api
+    from repro_torch.kernels import blocked as B
     from repro_torch.kernels import build
     from repro_torch.kernels import gram as G
     from repro_torch.kernels import panel as P
+    from repro_torch.kernels import rank_update as R
     from repro_torch.kernels import ref
     from repro_torch.kernels import solve as S
     from repro_torch.launch import train
     from repro_torch.models import transformer as T
 
-    header(G, P, build)
+    # every kernel's wrapper, by name: each path's launches are counted on these
+    K = SimpleNamespace(G=G, P=P, B=B, R=R, ALL={
+        "gram_update": G.gram_update, "panel_factor": P.panel_factor,
+        "panel_tri_inv": P.panel_tri_inv, "panel_trsm": P.panel_trsm,
+        "panel_update": P.panel_update, "blocked_cholesky": B.blocked_cholesky,
+        "cholesky_solve": B.cholesky_solve, "multi_gamma_solve": B.multi_gamma_solve,
+        "chol_rank_update": R.chol_rank_update})
+    header(K, build)
     rows = {"gram_update": kernel_phase(G, ref)}
     rows.update(panel_phase(P, ref))
+    rows.update(blocked_phase(K, ref))
     streamed = streamed_phase(S, P)
     small_check(get_config, D, T, train, FLConfig)
-    gram_launches, server, x_te, y_te = slice_phase(G, get_config, D, T, train,
-                                                    FLConfig, api)
-    panel_launches = device_solve_phase(P, S, engine, api, server, x_te, y_te)
-    launches = dict(zip(("gram_update", "panel_factor", "panel_trsm", "panel_update",
-                         "panel_tri_inv"), [gram_launches, *panel_launches]))
+    slice_launches, server, x_te, y_te = slice_phase(K, get_config, D, T, train,
+                                                     FLConfig, api)
+    paths = [slice_launches,
+             device_solve_phase(K, S, engine, api, server, x_te, y_te),
+             sweep_phase(K, ref, S, engine, api, server, x_te, y_te),
+             narrow_phase(K, ref, engine, api, D),
+             rank_update_phase(K, engine, api, server, x_te, y_te, FLConfig(gamma=1.0))]
+    launches = {name: sum(p[name] for p in paths) for name in K.ALL}
+    if not all(launches.values()):
+        fail(f"a kernel of the path was never launched: {launches}")
 
     sources = {"gram_update": ("gram.cu", "gram.py:86"),
                "panel_factor": ("panel.cu", "solve.py:469"),
                "panel_tri_inv": ("panel.cu", "solve.py:491"),
                "panel_trsm": ("panel.cu", "solve.py:508"),
-               "panel_update": ("panel.cu", "solve.py:536")}
+               "panel_update": ("panel.cu", "solve.py:536"),
+               "blocked_cholesky": ("blocked.cu", "solve.py:253"),
+               "cholesky_solve": ("blocked.cu", "solve.py:295"),
+               "multi_gamma_solve": ("blocked.cu", "solve.py:346"),
+               "chol_rank_update": ("rank_update.cu", "solve.py:774")}
     kernels = []
     for name, (src, where) in sources.items():
         main_row = rows[name][0]          # the main path's shape comes first

@@ -16,14 +16,17 @@ Backends:
     A copy of the reference backend; ``fl.api.AFLServer`` solves with it.
   * ``torch`` — tensors on a device (CUDA unless ``device`` names another),
     f32 by default, with an optional Kahan-compensated accumulator.
-    ``use_kernel=True`` folds Gram updates through the hand-written CUDA
-    kernel (``kernels.ops.gram_update``), and factors and solves a system
-    at least ``STREAM_MIN_DIM`` = 2048 wide through the streamed panel
-    Cholesky and its four CUDA kernels (``kernels.ops.streamed_cholesky``
-    and ``streamed_cholesky_solve``). The kernels for narrower systems,
-    the γ sweep and the rank update are not ported yet: with
-    ``use_kernel=True`` those raise ``NotImplementedError`` rather than
-    quietly running ``torch.linalg``.
+    ``use_kernel=True`` runs every route through the hand-written CUDA
+    kernels, as the reference's jax backend runs its Pallas kernels: Gram
+    updates (``kernels.ops.gram_update``); the factor and solve of a
+    system at least ``STREAM_MIN_DIM`` = 2048 wide through the streamed
+    panel Cholesky (``streamed_cholesky``, ``streamed_cholesky_solve``) and
+    of a narrower one through ``blocked_cholesky`` / ``cholesky_solve``;
+    the γ sweep through ``multi_gamma_solve``; the rank update through
+    ``chol_rank_update``. On CPU tensors each takes its kernel's plain
+    version. No route falls back to ``torch.linalg``, except the
+    reference's own: a γ grid the fused sweep cannot answer (NaNs, or
+    weights past the pinv bound) goes to the eigendecomposition.
 
 Both backends pair a factorization handle (:meth:`AnalyticEngine.factor` /
 :meth:`AnalyticEngine.factor_solve`) with a rank update
@@ -40,6 +43,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as _kops
+from repro_torch.kernels import ref as _kref
 
 try:  # d²·C triangular solves for cached factors (vs np.linalg.solve's LU)
     from scipy.linalg import solve_triangular as _solve_triangular
@@ -57,13 +62,6 @@ __all__ = [
     "get_backend",
     "to_numpy",
 ]
-
-# Where the kernels that ``use_kernel=True`` would need are queued.
-_KERNEL_QUEUE = ("ROADMAP.md Queue 2: {} is not ported to CUDA yet, and "
-                 "use_kernel=True does not fall back to torch.linalg")
-_NARROW = ("{} (src/repro/kernels/solve.py:{}), which serves systems "
-           "narrower than STREAM_MIN_DIM = {}, d = {} here,")
-
 
 def to_numpy(a, dtype=np.float64) -> np.ndarray:
     """Host numpy copy of a tensor (any device) or array-like."""
@@ -278,14 +276,14 @@ class TorchBackend:
     The counterpart of the reference's jax backend. Without ``use_kernel``
     the factor and solves are ``torch.linalg`` (the counterpart of
     ``jax.scipy.linalg.cho_factor`` / ``cho_solve``), with the host
-    backend's pinv fallback when the system is not positive definite.
-    ``use_kernel=True`` routes the Gram update through the CUDA kernel,
-    and the factor and solve of a system at least ``STREAM_MIN_DIM`` wide
-    through the streamed panel Cholesky, as the reference's jax backend
-    does (CPU tensors take the kernels' plain versions). There is no pinv
-    fallback on that route: a system that is not positive definite comes
-    back as NaNs. Narrower systems, the γ sweep and the rank update raise
-    ``NotImplementedError`` until their kernels land (ROADMAP Queue 2).
+    backend's pinv fallback when the system is not positive definite, and
+    the rank update is the plain column sweep. ``use_kernel=True`` routes
+    the Gram update, the factor and solve (streamed at ``STREAM_MIN_DIM``
+    and wider, blocked below), the fused γ sweep and the rank update
+    through the CUDA kernels, as the reference's jax backend does (CPU
+    tensors take the kernels' plain versions). There is no pinv fallback
+    on that route: a system that is not positive definite comes back as
+    NaNs.
     """
 
     name = "torch"
@@ -313,8 +311,6 @@ class TorchBackend:
         x = x.reshape(-1, x.shape[-1])
         y = y.reshape(-1, y.shape[-1])
         if self.use_kernel:
-            from repro_torch.kernels import ops as _kops
-
             g, q = _kops.gram_update(x.contiguous(), y.contiguous())
             g = g.to(self.dtype)
             q = q.to(self.dtype)
@@ -323,33 +319,28 @@ class TorchBackend:
             q = x.T @ y
         return g, q, self.scalar(float(x.shape[0]))
 
-    def _no_kernel(self, what: str) -> None:
-        if self.use_kernel:
-            raise NotImplementedError(_KERNEL_QUEUE.format(what))
-
     def factor(self, a) -> Factorization:
         """Lower Cholesky factor L (A = LLᵀ); pinv fallback when A is not
         positive definite, as on the host backend. With ``use_kernel`` a
         system at least ``STREAM_MIN_DIM`` wide goes through
-        ``streamed_cholesky`` (NaNs when not positive definite)."""
+        ``streamed_cholesky``, a narrower one through ``blocked_cholesky``
+        (NaNs when not positive definite)."""
         if self.use_kernel:
-            from repro_torch.kernels import ops as _kops
-
-            d = a.shape[-1]
-            if d < _kops.STREAM_MIN_DIM:
-                self._no_kernel(_NARROW.format(
-                    "blocked_cholesky", 253, _kops.STREAM_MIN_DIM, d))
-            return Factorization(_kops.streamed_cholesky(a), backend=self)
+            if a.shape[-1] >= _kops.STREAM_MIN_DIM:
+                return Factorization(_kops.streamed_cholesky(a), backend=self)
+            return Factorization(_kops.blocked_cholesky(a[None])[0], backend=self)
         lower, info = torch.linalg.cholesky_ex(a)
         if int(info) != 0:
             return Factorization(None, a, backend=self)
         return Factorization(lower, backend=self)
 
     def rank_update(self, f: Factorization, xs) -> Factorization:
-        """Rank-k update of a lower factor: a column sweep on the device."""
-        self._no_kernel("chol_rank_update (src/repro/kernels/solve.py:774)")
+        """Rank-k update of a lower factor: one Householder column sweep,
+        the ``chol_rank_update`` kernel with ``use_kernel``."""
         xs = self.asarray(xs).reshape(-1, f.handle.shape[0])
-        return Factorization(_chol_rank_update_torch(f.handle, xs), backend=self)
+        if self.use_kernel:
+            return Factorization(_kops.chol_rank_update(f.handle, xs), backend=self)
+        return Factorization(_kref.chol_rank_update_ref(f.handle, xs), backend=self)
 
     def rank_update_many(self, f: Factorization, roots) -> Factorization:
         """The concatenated roots go through one rank-(Σk) sweep. Exact in
@@ -362,13 +353,9 @@ class TorchBackend:
     def factor_solve(self, f: Factorization, b):
         b = self.asarray(b)
         if self.use_kernel:
-            from repro_torch.kernels import ops as _kops
-
-            d = b.shape[0]
-            if d < _kops.STREAM_MIN_DIM:
-                self._no_kernel(_NARROW.format(
-                    "cholesky_solve", 295, _kops.STREAM_MIN_DIM, d))
-            return _kops.streamed_cholesky_solve(f.handle, b)
+            if f.handle.shape[-1] >= _kops.STREAM_MIN_DIM:
+                return _kops.streamed_cholesky_solve(f.handle, b)
+            return _kops.cholesky_solve(f.handle[None], b[None])[0]
         if f.handle is None:
             return torch.linalg.pinv(f.matrix, rtol=_PINV_RCOND) @ b
         return torch.cholesky_solve(b, f.handle)
@@ -377,10 +364,10 @@ class TorchBackend:
         return self.factor_solve(self.factor(a), b)
 
     def fused_sweep(self, a, b, gammas):
-        """Whole-γ-grid solve ``(a + γ_j I) W_j = b`` — the fused sweep
-        kernel, which is not ported yet."""
-        raise NotImplementedError(
-            _KERNEL_QUEUE.format("multi_gamma_solve (src/repro/kernels/solve.py:346)"))
+        """Whole-γ-grid solve ``(a + γ_j I) W_j = b`` through the fused
+        sweep kernel (kernel path only) → (n_g, d, c); singular γs come
+        back as NaNs."""
+        return _kops.multi_gamma_solve(a, b, gammas)
 
     def eigh(self, a):
         return torch.linalg.eigh(a)
@@ -450,29 +437,6 @@ def _chol_rank_update_grouped(R, roots):
             R[i, i + 1:] = row - (beta * amr) * t
             xt[i + 1:] -= (beta * t)[:, None] * w[None, :]
     return R
-
-
-def _chol_rank_update_torch(L, xs):
-    """Device twin of :func:`_chol_rank_update` on a lower factor: the same
-    Householder column sweep, column by column, with the tail of each
-    column (and of ``xsᵀ``) updated below the diagonal. No branch on the
-    data, so the loop never waits for the device."""
-    L = L.clone()
-    xt = xs.T.clone()                              # (d, k)
-    for i in range(L.shape[0]):
-        w = xt[i]
-        s = w @ w
-        s_ = torch.where(s > 0, s, torch.ones_like(s))   # w == 0 ⇒ t == 0
-        a = L[i, i]
-        r = torch.sqrt(a * a + s)
-        amr = -s / (r + a)
-        beta = (r + a) / (r * s_)
-        col = L[i + 1:, i]
-        t = amr * col + xt[i + 1:] @ w
-        L[i, i] = r
-        L[i + 1:, i] = col - (beta * amr) * t
-        xt[i + 1:] -= (beta * t)[:, None] * w[None, :]
-    return L
 
 
 def _factor_has_nan(f: Factorization) -> bool:
@@ -709,13 +673,22 @@ class AnalyticEngine:
         ``W(γ) = V (Λ+γ)^{-1} Vᵀ Q`` is then d²·C per γ. Eigenvalues with
         ``λ+γ <= rcond·λ_max`` are treated as zero (pinv semantics), so the
         γ=0 rank-deficient case matches the fallback of the direct solve.
-        With ``use_kernel=True`` the grid goes to the fused sweep kernel,
-        which is not ported yet and raises.
+
+        With ``use_kernel=True`` the whole grid goes through ONE fused
+        factor-and-solve kernel call (``kernels.ops.multi_gamma_solve``),
+        and falls back to the eigendecomposition only when a system in the
+        grid is singular: NaNs, or weights larger than the pinv truncation
+        allows (:func:`_cholesky_sweep_trustworthy`). That is a test on the
+        data; an error of the kernel itself raises.
         """
         gammas = [float(g) for g in gammas]
         if getattr(self.backend, "use_kernel", False) and gammas:
             base = stats.gram if use_ri else self.regularized_gram(stats)
-            return self.backend.fused_sweep(base, stats.moment, gammas)
+            ws = self.backend.fused_sweep(base, stats.moment, gammas)
+            ws_host = to_numpy(ws)
+            if (bool(np.isfinite(ws_host).all())
+                    and _cholesky_sweep_trustworthy(base, stats.moment, ws_host, rcond)):
+                return [ws[i] for i in range(len(gammas))]
         return self.sweep_solve(self.sweep_factor(stats, use_ri=use_ri),
                                 stats.moment, gammas, rcond=rcond)
 
@@ -764,6 +737,25 @@ class AnalyticEngine:
             coeff = inv_h[:, None] * vq_h - su @ np.linalg.solve(cap, rhs)
             out.append(to_numpy(vecs) @ coeff)
         return out
+
+
+def _cholesky_sweep_trustworthy(base, moment, ws_host, rcond) -> bool:
+    """Should a finite fused-Cholesky sweep be trusted, or does the grid
+    need the eigendecomposition/pinv path?
+
+    NaN catches exactly singular pivots, but rounding can leave a
+    rank-deficient system's smallest pivots tiny and positive: the factor
+    then succeeds with weights of norm ~1/λ_noise, where the pinv semantics
+    (eigenvalues ≤ rcond·λ_max treated as zero) would have truncated. For
+    any γ the pinv solution has ``‖W‖ ≤ ‖Q‖ / (rcond·λ_max)``, and
+    trace(base) ≥ λ_max for a PSD base, so a solution with
+    ``‖W‖·rcond·trace > ‖Q‖`` can only come from inverting spectrum the
+    truncation would have zeroed. Conservative by at most the d× gap
+    between trace and λ_max (an extra fallback is slower, never wrong)."""
+    scale = float(np.sum(to_numpy(torch.diagonal(base))))
+    q_norm = float(np.linalg.norm(to_numpy(moment)))
+    w_norm = float(max(np.linalg.norm(w) for w in ws_host))
+    return w_norm * float(rcond) * max(scale, np.finfo(np.float32).tiny) <= q_norm
 
 
 def _kahan_add(total, comp, upd):

@@ -1,0 +1,160 @@
+"""CUDA kernels: blocked Cholesky, batched solve and the fused γ sweep.
+
+The ports of the Pallas TPU kernels ``repro.kernels.solve.blocked_cholesky``,
+``cholesky_solve`` and ``multi_gamma_solve``, which serve systems narrower
+than the streamed path's ``STREAM_MIN_DIM`` and the whole γ grid at any
+width. Each is one launch, one block of the card per system (per γ).
+
+The kernels are ``csrc/blocked.cu`` (its header states the design and the
+bounds on an H100), built by ``kernels.build`` and bound with ``ctypes``.
+They take contiguous f32 CUDA tensors and read only the lower triangle of
+a system or factor. ``kernels.solve`` dispatches between these wrappers
+(CUDA tensors) and the plain versions in ``kernels.ref`` (CPU tensors).
+Each wrapper counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build as _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "blocked.cu"
+PANEL = 128              # the panel width compiled into the kernels (kPanel)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "afl_blocked_cholesky_f32": [_P, _P, _P, _I, _I, _P],
+    "afl_cholesky_solve_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "afl_multi_gamma_solve_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
+@functools.cache
+def build() -> _build.Build:
+    """Compile ``csrc/blocked.cu`` (once per source content), load it and
+    declare its entry points."""
+    built = _build.load(SOURCE)[0]
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(built.lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return built
+
+
+def _operand(name: str, t: torch.Tensor, shape: tuple[int, ...]) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: the blocked kernels need CUDA tensors, got {t.device} "
+                         "(kernels.solve takes the plain version for CPU tensors)")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the blocked kernels take f32, got {t.dtype}")
+    if tuple(t.shape) != shape or 0 in shape:
+        raise ValueError(f"{name}: expected a non-empty {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor, got strides {t.stride()}")
+
+
+def _systems(name: str, a: torch.Tensor) -> tuple[int, int]:
+    if a.dim() != 3 or a.shape[1] != a.shape[2]:
+        raise ValueError(f"{name}: expected (m, d, d) systems, got {tuple(a.shape)}")
+    return a.shape[0], a.shape[1]
+
+
+def _same_device(*ts: torch.Tensor) -> None:
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"blocked kernels need one device, got {[t.device for t in ts]}")
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+def _scratch(*shape: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
+
+
+def _inverses(n: int, d: int, like: torch.Tensor) -> torch.Tensor:
+    """Scratch for each system's inverse diagonal blocks, one per panel."""
+    return _scratch(n, -(-d // PANEL), PANEL, PANEL, like=like)
+
+
+def blocked_cholesky(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factors of (m, d, d) SPD systems, panels of 128;
+    clean lower triangles. Only the lower triangle of ``a`` is read. A
+    system that is not positive definite gives NaNs."""
+    m, d = _systems("blocked_cholesky", a)
+    _operand("blocked_cholesky a", a, (m, d, d))
+    lib = build().lib
+    out = torch.empty_like(a)
+    panels = _scratch(m, d, PANEL, like=a)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.afl_blocked_cholesky_f32(a.data_ptr(), out.data_ptr(), panels.data_ptr(),
+                                           m, d, stream)
+    _check(err, "blocked_cholesky")
+    blocked_cholesky.launches += 1
+    return out
+
+
+def cholesky_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``L Lᵀ x = b`` for lower factors ``l`` (m, d, d) (the upper triangle
+    is not read) and right-hand sides ``b`` (m, d, c) → x (m, d, c)."""
+    m, d = _systems("cholesky_solve", l)
+    _operand("cholesky_solve l", l, (m, d, d))
+    if b.dim() != 3:
+        raise ValueError(f"cholesky_solve: expected (m, d, c) right-hand sides, got "
+                         f"{tuple(b.shape)}")
+    c = b.shape[2]
+    _operand("cholesky_solve b", b, (m, d, c))
+    _same_device(l, b)
+    lib = build().lib
+    x = torch.empty_like(b)
+    zs = _inverses(m, d, like=l)
+    y = torch.empty_like(b)
+    with torch.cuda.device(l.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.afl_cholesky_solve_f32(l.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                         zs.data_ptr(), y.data_ptr(), m, d, c, stream)
+    _check(err, "cholesky_solve")
+    cholesky_solve.launches += 1
+    return x
+
+
+def multi_gamma_solve(c: torch.Tensor, q: torch.Tensor, gammas: torch.Tensor) -> torch.Tensor:
+    """The fused γ sweep: ``(C + γ_j I) W_j = Q`` for every γ of ``gammas``
+    (n_g,), C (d, d) (lower triangle read), Q (d, c) → W (n_g, d, c). The
+    wrapper allocates each γ's (d, d) work matrix; a γ whose system is not
+    positive definite gives NaNs in its W_j only."""
+    if c.dim() != 2 or q.dim() != 2 or gammas.dim() != 1:
+        raise ValueError(f"multi_gamma_solve: expected C (d, d), Q (d, c) and γ (n_g,), "
+                         f"got {tuple(c.shape)}, {tuple(q.shape)}, {tuple(gammas.shape)}")
+    d, n_cls = q.shape
+    n_g = gammas.shape[0]
+    _operand("multi_gamma_solve C", c, (d, d))
+    _operand("multi_gamma_solve Q", q, (d, n_cls))
+    _operand("multi_gamma_solve gammas", gammas, (n_g,))
+    _same_device(c, q, gammas)
+    lib = build().lib
+    work = _scratch(n_g, d, d, like=c)
+    zs = _inverses(n_g, d, like=c)
+    panels = _scratch(n_g, d, PANEL, like=c)
+    y = _scratch(n_g, d, n_cls, like=c)
+    w = _scratch(n_g, d, n_cls, like=c)
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.afl_multi_gamma_solve_f32(
+            c.data_ptr(), q.data_ptr(), gammas.data_ptr(), work.data_ptr(), zs.data_ptr(),
+            panels.data_ptr(), y.data_ptr(), w.data_ptr(), n_g, d, n_cls, stream)
+    _check(err, "multi_gamma_solve")
+    multi_gamma_solve.launches += 1
+    return w
+
+
+blocked_cholesky.launches = 0
+cholesky_solve.launches = 0
+multi_gamma_solve.launches = 0

@@ -16,7 +16,7 @@
 //
 // panel_factor / panel_tri_inv. On the TPU the whole (b, b) tile sits in
 // VMEM and a fori_loop sweeps its columns. Here one block of 1024 threads
-// does the same. At b = 256 an f32 tile is 256 KB: more than a block's
+// does the same, with the column loops of packed_tri.cuh. At b = 256 an f32 tile is 256 KB: more than a block's
 // 227 KB of shared memory, and the whole register file of the SM. Only the
 // lower triangle carries data (the upper half of the input is never read,
 // and the output's is zero), so the block keeps that triangle, packed by
@@ -59,80 +59,15 @@
 
 #include <cstddef>
 
+#include "packed_tri.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
 
 constexpr int kMaxPanel = 256;
 constexpr int kPanelThreads = 1024;
-constexpr int kPanelWarps = kPanelThreads / 32;
-constexpr int kColumnParts = kPanelThreads / kMaxPanel;  // 4 threads a column
 
-// Offset of row i in a lower triangle packed by rows.
-__device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
-
-__device__ void load_lower(const float* __restrict__ a, int lda, int b,
-                           float* s) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int i = warp; i < b; i += kPanelWarps)
-    for (int k = lane; k <= i; k += 32)
-      s[tri(i) + k] = a[static_cast<size_t>(i) * lda + k];
-}
-
-// Writes the packed triangle as a dense (b, b) matrix with a zero upper half.
-__device__ void store_lower(const float* s, int b, float* __restrict__ out) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int i = warp; i < b; i += kPanelWarps)
-    for (int k = lane; k < b; k += 32)
-      out[static_cast<size_t>(i) * b + k] = k <= i ? s[tri(i) + k] : 0.0f;
-}
-
-// Right-looking Cholesky of the packed triangle, in place.
-__device__ void factor_packed(float* s, float* col, int b) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int j = 0; j < b; ++j) {
-    const float pv = sqrtf(s[tri(j) + j]);
-    for (int t = j + 1 + threadIdx.x; t < b; t += kPanelThreads) {
-      const float c = s[tri(t) + j] / pv;
-      s[tri(t) + j] = c;
-      col[t] = c;
-    }
-    __syncthreads();
-    // The pivot is read by every thread above; nothing below reads it.
-    if (threadIdx.x == 0) s[tri(j) + j] = pv;
-    for (int i = j + 1 + warp; i < b; i += kPanelWarps) {
-      const float ci = col[i];
-      float* row = s + tri(i);
-      for (int k = j + 1 + lane; k <= i; k += 32)
-        row[k] = fmaf(-ci, col[k], row[k]);
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse of the packed lower triangle, in place, by forward substitution
-// on the identity: z_i = (e_i − Σ_{m<i} L[i][m] z_m) / L[i][i].
-__device__ void invert_packed(float* s, float* lrow, int b) {
-  const int c = threadIdx.x / kColumnParts;
-  const int part = threadIdx.x % kColumnParts;
-  for (int i = 0; i < b; ++i) {
-    for (int t = threadIdx.x; t <= i; t += kPanelThreads) lrow[t] = s[tri(i) + t];
-    __syncthreads();
-    float acc = 0.0f;
-    if (c <= i)
-      for (int m = c + part; m < i; m += kColumnParts)
-        acc = fmaf(lrow[m], s[tri(m) + c], acc);
-    // the four parts of a column are neighbouring lanes of one warp
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if (c <= i && part == 0)
-      s[tri(i) + c] = ((c == i ? 1.0f : 0.0f) - acc) / lrow[i];
-    __syncthreads();
-  }
-}
+using afl_tri::tri;
 
 template <bool kFactor>
 __global__ void __launch_bounds__(kPanelThreads)
@@ -141,15 +76,15 @@ panel_kernel(const float* __restrict__ a, int lda, int b,
   extern __shared__ float smem[];
   float* s = smem;               // tri(b) values: the packed lower triangle
   float* buf = smem + tri(b);    // kMaxPanel values: a column or a row of L
-  load_lower(a, lda, b, s);
+  afl_tri::load_lower<kPanelThreads>(a, lda, b, s);
   __syncthreads();
   if (kFactor) {
-    factor_packed(s, buf, b);
-    store_lower(s, b, l_out);
+    afl_tri::factor_packed<kPanelThreads>(s, buf, b);
+    afl_tri::store_lower<kPanelThreads>(s, b, l_out, b);
     __syncthreads();             // the inverse overwrites what was stored
   }
-  invert_packed(s, buf, b);
-  store_lower(s, b, z_out);
+  afl_tri::invert_packed<kPanelThreads, kMaxPanel>(s, buf, b);
+  afl_tri::store_lower<kPanelThreads>(s, b, z_out, b);
 }
 
 template <bool kFactor>

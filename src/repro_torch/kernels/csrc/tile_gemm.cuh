@@ -1,6 +1,6 @@
 // One 64×64 output tile of an f32 matrix product, computed by one block of
-// 256 threads: the tile loop shared by gram.cu (G = XᵀX, Q = XᵀY) and
-// panel.cu (A·Bᵀ and T − A·Bᵀ).
+// 256 threads: the tile loop shared by gram.cu (G = XᵀX, Q = XᵀY),
+// panel.cu (A·Bᵀ and T − A·Bᵀ) and blocked.cu (trsm and trailing update).
 //
 // The reduction runs kStep = 16 indices at a time. For each step the
 // caller's `load(a_tile, b_tile, k0)` stages, for reduction indices
@@ -29,11 +29,12 @@ constexpr int kLoadsPerThread = (kStep * kTile) / kThreads;      // 4
 
 using Stage = float (*)[kTile + kPad];   // one staged operand: [kStep][kTile + kPad]
 
+// The tile loop on staging buffers the caller provides (16-byte aligned,
+// kStep × (kTile + kPad) floats each), for a kernel that runs several
+// products on one pair of buffers.
 template <class Load, class Store>
-__device__ __forceinline__ void tile_gemm(int k, Load load, Store store) {
-  __shared__ __align__(16) float a_tile[kStep][kTile + kPad];
-  __shared__ __align__(16) float b_tile[kStep][kTile + kPad];
-
+__device__ __forceinline__ void tile_gemm(int k, Stage a_tile, Stage b_tile,
+                                          Load load, Store store) {
   const int tx = threadIdx.x % (kTile / kMicro);   // column group of the sub-tile
   const int ty = threadIdx.x / (kTile / kMicro);   // row group of the sub-tile
 
@@ -64,6 +65,14 @@ __device__ __forceinline__ void tile_gemm(int k, Load load, Store store) {
   for (int r = 0; r < kMicro; ++r)
 #pragma unroll
     for (int s = 0; s < kMicro; ++s) store(ty * kMicro + r, tx * kMicro + s, acc[r][s]);
+}
+
+// The tile loop on staging buffers of its own.
+template <class Load, class Store>
+__device__ __forceinline__ void tile_gemm(int k, Load load, Store store) {
+  __shared__ __align__(16) float a_tile[kStep][kTile + kPad];
+  __shared__ __align__(16) float b_tile[kStep][kTile + kPad];
+  tile_gemm(k, a_tile, b_tile, load, store);
 }
 
 }  // namespace afl_tile

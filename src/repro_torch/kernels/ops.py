@@ -14,7 +14,9 @@ import torch
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import ref
 from repro_torch.kernels.solve import (  # noqa: F401  (re-exported)
-    STREAM_MIN_DIM, panels, streamed_cholesky, streamed_cholesky_solve)
+    DEFAULT_BLOCK, DEFAULT_GAMMA_BLOCK, STREAM_MIN_DIM, blocked_cholesky,
+    chol_rank_update, cholesky_solve, multi_gamma_solve, panels, streamed_cholesky,
+    streamed_cholesky_solve)
 
 
 def gram_update(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -2,10 +2,11 @@
 
 The CPU takes these in place of the kernels (``kernels.ops``), and the
 tests and ``chip_smoke.py`` hold each kernel against its version here.
-The panel versions follow the reference's algorithm (its ``_factor_tile``
-and ``_tri_inv_tile`` column loops, then matrix products), not LAPACK, so
-the CPU route does the JAX package's arithmetic in the same order as far
-as torch allows.
+The solve versions follow the reference's algorithm (its ``_factor_tile``
+and ``_tri_inv_tile`` column loops, ``_factor_panels`` / ``_solve_panels``
+and ``_rank_update_kernel``'s sweep), not LAPACK, so the CPU route does
+the JAX package's arithmetic in the same order as far as torch allows.
+The tile loops take a batch of tiles on leading dimensions.
 """
 
 from __future__ import annotations
@@ -23,22 +24,23 @@ def gram_ref(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
 
 
 def factor_tile(tile: torch.Tensor) -> torch.Tensor:
-    """Unblocked lower Cholesky of one (m, m) SPD tile: a column sweep with
-    masked full-width updates, the upper triangle written as zeros. A tile
-    that is not positive definite gives NaNs (sqrt of a negative pivot)."""
+    """Unblocked lower Cholesky of (..., m, m) SPD tiles: a column sweep
+    with masked full-width updates, the upper triangle written as zeros. A
+    tile that is not positive definite gives NaNs (sqrt of a negative
+    pivot)."""
     s = tile.clone()
     rows = torch.arange(s.shape[-1], device=s.device)
+    zero = torch.zeros((), dtype=s.dtype, device=s.device)
     for j in range(s.shape[-1]):
-        pv = torch.sqrt(s[j, j])
-        colm = torch.where(rows > j, s[:, j] / pv, torch.zeros((), dtype=s.dtype,
-                                                               device=s.device))
-        s -= colm[:, None] * colm[None, :]
-        s[:, j] = torch.where(rows == j, pv, colm)
+        pv = torch.sqrt(s[..., j, j])[..., None]
+        colm = torch.where(rows > j, s[..., :, j] / pv, zero)
+        s -= colm[..., :, None] * colm[..., None, :]
+        s[..., :, j] = torch.where(rows == j, pv, colm)
     return s
 
 
 def tri_inv_tile(l: torch.Tensor) -> torch.Tensor:
-    """Inverse of one (m, m) lower-triangular tile by forward substitution
+    """Inverse of (..., m, m) lower-triangular tiles by forward substitution
     on the identity; the strict upper triangle of ``l`` is not read."""
     m = l.shape[-1]
     rows = torch.arange(m, device=l.device)
@@ -46,8 +48,9 @@ def tri_inv_tile(l: torch.Tensor) -> torch.Tensor:
     zero = torch.zeros((), dtype=l.dtype, device=l.device)
     z = torch.zeros_like(l)
     for i in range(m):
-        strict = torch.where(rows < i, l[i], zero)
-        z[i] = (eye[i] - strict @ z) / l[i, i]
+        strict = torch.where(rows < i, l[..., i, :], zero)
+        acc = (strict[..., None, :] @ z)[..., 0, :]
+        z[..., i, :] = (eye[i] - acc) / l[..., i, i][..., None]
     return z
 
 
@@ -72,3 +75,124 @@ def panel_update_ref(trail: torch.Tensor, lp: torch.Tensor, pt: torch.Tensor, *,
     """Plain version of ``kernels.panel.panel_update``: ``trail − lp @ ptᵀ``
     (into ``out`` when given, which may be ``trail`` itself)."""
     return torch.sub(trail, lp @ pt.T, out=out)
+
+
+BLOCK = 128              # panel width of the blocked path (the reference's DEFAULT_BLOCK)
+GAMMA_BLOCK = 8          # γs the plain sweep factors together, as the reference's grid steps
+
+
+def _panel_edges(d: int) -> list[tuple[int, int]]:
+    """(start, end) of each diagonal panel of a d-wide system: ``BLOCK``
+    wide, the last one ragged. The reference pads d with an identity tail
+    instead; the padded rows factor to I and never couple back, so the
+    entries kept are the same."""
+    return [(o, min(o + BLOCK, d)) for o in range(0, d, BLOCK)]
+
+
+def _t(a: torch.Tensor) -> torch.Tensor:
+    return a.transpose(-1, -2)
+
+
+def factor_panels(a: torch.Tensor) -> tuple[torch.Tensor, list]:
+    """Right-looking blocked Cholesky of (m, d, d) systems: the reference's
+    ``_factor_panels``. Returns the clean lower factors and each panel's
+    inverse diagonal block (which the solve reuses). Only the lower
+    triangle of ``a`` is read."""
+    d = a.shape[-1]
+    a = a.clone()
+    zs = []
+    for o, e in _panel_edges(d):
+        l11 = factor_tile(a[..., o:e, o:e])
+        z = tri_inv_tile(l11)
+        zs.append(z)
+        a[..., o:e, o:e] = l11
+        if e < d:
+            l21 = a[..., e:, o:e] @ _t(z)
+            a[..., e:, o:e] = l21
+            a[..., e:, e:] -= l21 @ _t(l21)
+    return torch.tril(a), zs
+
+
+def solve_panels(l: torch.Tensor, b: torch.Tensor,
+                 zs: Optional[list] = None) -> torch.Tensor:
+    """``L Lᵀ x = b`` for (m, d, d) lower factors and (m, d, c) right-hand
+    sides by blocked forward and backward substitution: the reference's
+    ``_solve_panels``. ``zs`` are the inverse diagonal blocks, computed
+    here when None."""
+    d = l.shape[-1]
+    edges = _panel_edges(d)
+    if zs is None:
+        zs = [tri_inv_tile(l[..., o:e, o:e]) for o, e in edges]
+    y = torch.zeros(b.shape, dtype=b.dtype, device=b.device)
+    for (o, e), z in zip(edges, zs):
+        rhs = b[..., o:e, :]
+        if o:
+            rhs = rhs - l[..., o:e, :o] @ y[..., :o, :]
+        y[..., o:e, :] = z @ rhs
+    x = torch.zeros_like(y)
+    for (o, e), z in reversed(list(zip(edges, zs))):
+        rhs = y[..., o:e, :]
+        if e < d:
+            rhs = rhs - _t(l[..., e:, o:e]) @ x[..., e:, :]
+        x[..., o:e, :] = _t(z) @ rhs
+    return x
+
+
+def blocked_cholesky_ref(a: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kernels.blocked.blocked_cholesky``: (m, d, d) SPD
+    → clean lower factors; NaNs where a system is not positive definite."""
+    return factor_panels(a)[0]
+
+
+def cholesky_solve_ref(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kernels.blocked.cholesky_solve``: ``L Lᵀ x = b``
+    for l (m, d, d) and b (m, d, c)."""
+    return solve_panels(l, b)
+
+
+def multi_gamma_solve_ref(c: torch.Tensor, q: torch.Tensor,
+                          gammas: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kernels.blocked.multi_gamma_solve``: ``(C + γ_j I)
+    W_j = Q`` for each γ, ``GAMMA_BLOCK`` systems factored together. Returns (n_g, d, c); a singular γ gives
+    NaNs."""
+    d, n_cls = q.shape
+    gammas = gammas.to(c.dtype)
+    eye = torch.eye(d, dtype=c.dtype, device=c.device)
+    out = torch.empty((gammas.shape[0], d, n_cls), dtype=c.dtype, device=c.device)
+    for g0 in range(0, gammas.shape[0], GAMMA_BLOCK):
+        g = gammas[g0:g0 + GAMMA_BLOCK]
+        l, zs = factor_panels(c[None] + g[:, None, None] * eye)
+        out[g0:g0 + g.shape[0]] = solve_panels(l, q.expand(g.shape[0], d, n_cls), zs)
+    return out
+
+
+def chol_rank_update_ref(l: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kernels.rank_update.chol_rank_update``:
+    ``chol(L Lᵀ + xsᵀ xs)`` for a lower factor ``l`` (d, d) and update rows
+    ``xs`` (k, d).
+
+    The reference's Householder column sweep: at column i one
+    (k+1)-reflection annihilates all k update entries, and the tails of
+    the column and of ``xsᵀ`` below the diagonal take its update. Zero
+    update rows are no-ops (the ``s_`` guard). Entries above the diagonal
+    are kept as they are. No branch on the data, so on the card the loop
+    never waits for the device.
+    """
+    if xs.shape[0] == 0:
+        return l
+    l = l.clone()
+    xt = xs.T.clone()                              # (d, k)
+    for i in range(l.shape[0]):
+        w = xt[i]
+        s = w @ w
+        s_ = torch.where(s > 0, s, torch.ones_like(s))   # w == 0 ⇒ t == 0
+        a = l[i, i]
+        r = torch.sqrt(a * a + s)
+        amr = -s / (r + a)                         # a − r without cancellation
+        beta = (r + a) / (r * s_)                  # 2 / uᵀu for u = [a − r; w]
+        col = l[i + 1:, i]
+        t = amr * col + xt[i + 1:] @ w
+        l[i, i] = r
+        l[i + 1:, i] = col - (beta * amr) * t
+        xt[i + 1:] -= (beta * t)[:, None] * w[None, :]
+    return l

@@ -1,13 +1,24 @@
-"""The streamed panel Cholesky: factor and solve of ONE wide SPD system.
+"""The device solve: the streamed panel Cholesky of one wide system, and
+the blocked factor, solve, γ sweep and rank update.
 
-The port of the tile-parallel / HBM-streamed section of
-``repro.kernels.solve``. A (d, d) system is factored panel by panel: the
-(b, b) diagonal block is factored and inverted (``panel_factor``), the
-full-height column slab is multiplied by the inverse (``panel_trsm``) and
-masked into the panel's column of L, and the trailing columns take the
-rank-b update (``panel_update``). The solve inverts each diagonal block of
-L (``panel_tri_inv``) and runs forward and backward substitution as
-products with those inverses.
+The port of ``repro.kernels.solve``, in two parts.
+
+**Blocked** (systems narrower than ``STREAM_MIN_DIM``, and the γ grid at
+any width): :func:`blocked_cholesky`, :func:`cholesky_solve`,
+:func:`multi_gamma_solve` and :func:`chol_rank_update` keep the
+reference's shapes in and out. A CUDA tensor launches the hand-written
+kernel (``kernels.blocked``, ``kernels.rank_update``), one launch per
+call; a CPU tensor takes the plain version in ``kernels.ref``. A system
+that is not positive definite gives NaNs; nothing here raises or falls
+back on that.
+
+**Streamed** (one system of at least ``STREAM_MIN_DIM``): a (d, d) system
+is factored panel by panel: the (b, b) diagonal block is factored and
+inverted (``panel_factor``), the full-height column slab is multiplied by
+the inverse (``panel_trsm``) and masked into the panel's column of L, and
+the trailing columns take the rank-b update (``panel_update``). The solve
+inverts each diagonal block of L (``panel_tri_inv``) and runs forward and
+backward substitution as products with those inverses.
 
 The schedules :func:`tile_cholesky_factor` and :func:`tile_cholesky_solve`
 keep the reference's signatures: each takes one shard's (r, d) row tile of
@@ -24,8 +35,7 @@ schedules and ``kernels.ops``: the CUDA kernels of ``kernels.panel`` for
 tensors on a CUDA device when ``use_kernel=True``, else their plain
 versions in ``kernels.ref`` (CPU tensors, or ``use_kernel=False`` on any
 device). The substitution products of the solve are not panel kernels in
-the reference either, and stay ``torch.matmul``. A system that is not
-positive definite gives NaNs; nothing here raises or falls back on that.
+the reference either, and stay ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -34,20 +44,28 @@ from types import SimpleNamespace
 
 import torch
 
-from repro_torch.kernels import panel, ref
+from repro_torch.kernels import blocked, panel, rank_update, ref
 
 __all__ = [
+    "blocked_cholesky",
+    "cholesky_solve",
+    "multi_gamma_solve",
+    "chol_rank_update",
     "panels",
     "panel_width",
     "tile_cholesky_factor",
     "tile_cholesky_solve",
     "streamed_cholesky",
     "streamed_cholesky_solve",
+    "DEFAULT_BLOCK",
+    "DEFAULT_GAMMA_BLOCK",
     "DEFAULT_STREAM_BLOCK",
     "DEFAULT_UPDATE_BLOCK",
     "STREAM_MIN_DIM",
 ]
 
+DEFAULT_BLOCK = ref.BLOCK    # 128: panel width of the blocked path
+DEFAULT_GAMMA_BLOCK = ref.GAMMA_BLOCK   # γs the plain sweep factors together
 DEFAULT_STREAM_BLOCK = 256   # panel width for the streamed single-system path
 DEFAULT_UPDATE_BLOCK = 256   # row/col tile edge of the reference's syrk grid
 STREAM_MIN_DIM = 2048        # the engine routes single systems this wide here
@@ -215,3 +233,52 @@ def streamed_cholesky_solve(l: torch.Tensor, b: torch.Tensor, *,
         gather=lambda v: v[None], psum=lambda v: v, block=bs,
         use_kernel=use_kernel)
     return x[:d]
+
+
+# --- the blocked path --------------------------------------------------------
+
+
+def blocked_cholesky(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factors of (m, d, d) SPD systems, panels of
+    ``DEFAULT_BLOCK`` (the last one ragged); clean lower triangles, NaNs
+    where a system is not positive definite."""
+    m, d, _ = a.shape
+    if m == 0:
+        return torch.zeros((0, d, d), dtype=a.dtype, device=a.device)
+    if a.is_cuda:
+        return blocked.blocked_cholesky(a.contiguous())
+    return ref.blocked_cholesky_ref(a)
+
+
+def cholesky_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``L Lᵀ x = b`` for lower factors from :func:`blocked_cholesky`:
+    ``l`` (m, d, d), ``b`` (m, d, c) → x (m, d, c)."""
+    m, d, _ = l.shape
+    if m == 0:
+        return torch.zeros((0, d, b.shape[-1]), dtype=b.dtype, device=b.device)
+    if l.is_cuda:
+        return blocked.cholesky_solve(l.contiguous(), b.contiguous())
+    return ref.cholesky_solve_ref(l, b)
+
+
+def multi_gamma_solve(c: torch.Tensor, q: torch.Tensor, gammas) -> torch.Tensor:
+    """The fused γ sweep: ``(C + γ_j I) W_j = Q`` for the whole grid →
+    (n_g, d, c). A γ whose system is singular comes back as NaNs (the
+    engine then reroutes the grid to the eigendecomposition)."""
+    gammas = torch.as_tensor(gammas, dtype=c.dtype, device=c.device)
+    if gammas.shape[0] == 0:
+        return torch.zeros((0, *q.shape), dtype=c.dtype, device=c.device)
+    if c.is_cuda:
+        return blocked.multi_gamma_solve(c.contiguous(), q.contiguous(), gammas)
+    return ref.multi_gamma_solve_ref(c, q, gammas)
+
+
+def chol_rank_update(l: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """``chol(L Lᵀ + xsᵀ xs)`` for a lower factor ``l`` (d, d) and update
+    rows ``xs`` (k, d); ``l`` itself when k = 0."""
+    if xs.shape[0] == 0:
+        return l
+    xs = xs.to(l.dtype)
+    if l.is_cuda:
+        return rank_update.chol_rank_update(l.contiguous(), xs.contiguous())
+    return ref.chol_rank_update_ref(l, xs)

@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.engine import AnalyticEngine
+from repro_torch.core.engine import AnalyticEngine, SuffStats
+from repro_torch.kernels import blocked as B
 from repro_torch.kernels import gram as G
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import panel as P
+from repro_torch.kernels import rank_update as R
 from repro_torch.kernels import solve as S
 
 TOL = {torch.float32: (2e-4, 2e-3), torch.bfloat16: (2e-2, 2e-1)}
@@ -234,8 +236,6 @@ def test_engine_streamed_solve_at_minicpm_width(cuda):
     """d = 2304 through AnalyticEngine(use_kernel=True): 9 panels, so one
     factor and solve launch the panel kernels 9 / 9 / 8 / 9 times, and the
     weight matches the plain route on the card and the host f64 engine."""
-    from repro_torch.core.engine import SuffStats
-
     d, c = 2304, 16
     x, y = _data(7, 4 * d, d, c, torch.float32, cuda)
     g, q = ref.gram_ref(x, y)
@@ -256,3 +256,186 @@ def test_engine_streamed_solve_at_minicpm_width(cuda):
                              q.double().cpu().numpy())
     assert _rel(w.cpu(), torch.from_numpy(w_host)) < 1e-4
     assert counts() == [n + k for n, k in zip(before, [9, 9, 8, 9])]   # plain launches none
+
+
+# --- the blocked kernels and the rank update -----------------------------------
+#
+# Each is held to its plain version (the reference's algorithm in torch) at
+# relative 1e-4 of the largest entry, the f32 bar of
+# tests/test_distributed_cholesky.py: the same algorithm with sums in
+# another order, on systems with condition numbers near 10.
+
+REL = 1e-4
+
+
+def _blocked_counts():
+    return [f.launches for f in (B.blocked_cholesky, B.cholesky_solve,
+                                 B.multi_gamma_solve, R.chol_rank_update)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(1, 1536), (1, 128), (3, 130)])   # path, path, ragged
+def test_blocked_cholesky_matches_plain(cuda, m, d):
+    a = torch.stack([_spd_block(d + i, d, cuda) for i in range(m)])
+    before = B.blocked_cholesky.launches
+    l = ops.blocked_cholesky(a)
+    torch.cuda.synchronize()
+    assert B.blocked_cholesky.launches == before + 1
+    assert l.shape == (m, d, d) and torch.isfinite(l).all()
+    assert not torch.triu(l, 1).any()
+    assert _rel(l, ref.blocked_cholesky_ref(a)) < REL
+    # the upper triangle of the input is not read
+    garbage = a + torch.triu(torch.full_like(a, 7.0), 1)
+    assert torch.equal(ops.blocked_cholesky(garbage), l)
+
+
+@pytest.mark.cuda
+def test_blocked_cholesky_non_pd_gives_nan_in_that_system_only(cuda):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((3, 200))).to(cuda, torch.float32)
+    a = torch.stack([_spd_block(1, 200, cuda), x.T @ x])       # PD, rank 3
+    l = ops.blocked_cholesky(a)
+    torch.cuda.synchronize()
+    assert torch.isfinite(l[0]).all() and torch.isnan(l[1]).any()
+    assert torch.isnan(ref.blocked_cholesky_ref(a[1:])).any()
+    assert not torch.triu(l, 1).any()
+    assert _rel(l[0], ref.blocked_cholesky_ref(a[:1])[0]) < REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,c", [(1, 1536, 16), (1, 128, 40), (2, 130, 7)])
+def test_cholesky_solve_matches_plain(cuda, m, d, c):
+    rng = np.random.default_rng(d + c)
+    a = torch.stack([_spd_block(d + i, d, cuda) for i in range(m)])
+    l = ref.blocked_cholesky_ref(a)
+    b = torch.from_numpy(rng.standard_normal((m, d, c))).to(cuda, torch.float32)
+    before = B.cholesky_solve.launches
+    x = ops.cholesky_solve(l, b)
+    torch.cuda.synchronize()
+    assert B.cholesky_solve.launches == before + 1
+    assert x.shape == (m, d, c)
+    assert _rel(x, ref.cholesky_solve_ref(l, b)) < REL
+    want = torch.linalg.solve(a.double(), b.double())
+    assert _rel(x, want) < REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,c,n_g", [(2304, 16, 16), (130, 7, 11)])   # path, ragged
+def test_multi_gamma_solve_matches_plain(cuda, d, c, n_g):
+    rng = np.random.default_rng(d)
+    a = _spd_block(d, d, cuda)
+    q = torch.from_numpy(rng.standard_normal((d, c))).to(cuda, torch.float32)
+    gammas = torch.logspace(-4, 0, n_g, device=cuda) * float(torch.trace(a)) / d
+    before = B.multi_gamma_solve.launches
+    w = ops.multi_gamma_solve(a, q, gammas)
+    torch.cuda.synchronize()
+    assert B.multi_gamma_solve.launches == before + 1
+    assert w.shape == (n_g, d, c) and torch.isfinite(w).all()
+    plain = ref.multi_gamma_solve_ref(a, q, gammas)
+    for j in range(n_g):
+        assert _rel(w[j], plain[j]) < REL
+
+
+@pytest.mark.cuda
+def test_multi_gamma_solve_singular_gamma_gives_nan_in_that_gamma_only(cuda):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((5, 64))).to(cuda, torch.float32)
+    q = torch.from_numpy(rng.standard_normal((64, 3))).to(cuda, torch.float32)
+    w = ops.multi_gamma_solve(x.T @ x, q, [0.0, 1.0])          # rank 5 at γ = 0
+    torch.cuda.synchronize()
+    assert not torch.isfinite(w[0]).all() and torch.isfinite(w[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(2304, 64), (130, 3)])   # path, ragged
+def test_chol_rank_update_matches_plain(cuda, d, k):
+    rng = np.random.default_rng(d + k)
+    a = _spd_block(d, d, cuda)
+    l = torch.linalg.cholesky(a)
+    xs = torch.from_numpy(rng.standard_normal((k, d))).to(cuda, torch.float32)
+    xs[k // 2] = 0.0                                  # a zero update row is a no-op
+    before = R.chol_rank_update.launches
+    out = ops.chol_rank_update(l, xs)
+    torch.cuda.synchronize()
+    assert R.chol_rank_update.launches == before + 1
+    assert torch.isfinite(out).all() and not torch.triu(out, 1).any()
+    assert _rel(out, ref.chol_rank_update_ref(l, xs)) < REL
+    want = torch.linalg.cholesky(a.double() + xs.double().T @ xs.double())
+    assert _rel(out, want) < REL
+    assert ops.chol_rank_update(l, xs[:0]) is l       # k = 0: no launch
+    assert R.chol_rank_update.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_chol_rank_update_carries_nan(cuda):
+    l = torch.eye(40, device=cuda)
+    xs = torch.ones((2, 40), device=cuda)
+    xs[1, 7] = float("nan")
+    out = ops.chol_rank_update(l, xs)
+    torch.cuda.synchronize()
+    assert torch.isnan(out).any() and torch.isfinite(out[:7, :7]).all()
+
+
+@pytest.mark.cuda
+def test_blocked_kernels_reject_bad_inputs(cuda):
+    a = _spd_block(0, 32, cuda)[None]
+    q = torch.ones((32, 2), device=cuda)
+    before = _blocked_counts()
+    with pytest.raises(TypeError):
+        B.blocked_cholesky(a.double())
+    with pytest.raises(ValueError, match="CUDA"):
+        B.blocked_cholesky(a.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        B.blocked_cholesky(a.transpose(1, 2))
+    with pytest.raises(ValueError):
+        B.blocked_cholesky(a[:, :, :31])                 # not square
+    with pytest.raises(ValueError):
+        B.cholesky_solve(a, q[None, :31])                # b not (m, d, c)
+    with pytest.raises(TypeError):
+        B.cholesky_solve(a, q[None].double())
+    with pytest.raises(ValueError, match="CUDA"):
+        B.multi_gamma_solve(a[0], q, torch.ones(2))      # γ on the CPU
+    with pytest.raises(TypeError):
+        B.multi_gamma_solve(a[0], q, torch.ones(2, device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        R.chol_rank_update(a[0].double(), q.T.double())
+    with pytest.raises(ValueError, match="CUDA"):
+        R.chol_rank_update(a[0].cpu(), q.T.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        R.chol_rank_update(a[0], q.T)                    # a transposed view
+    with pytest.raises(ValueError):
+        R.chol_rank_update(a[0], q.T.contiguous()[:, :31])
+    assert _blocked_counts() == before
+
+
+@pytest.mark.cuda
+def test_engine_narrow_sweep_and_rank_update_on_card(cuda):
+    """AnalyticEngine(use_kernel=True) below STREAM_MIN_DIM: one
+    blocked_cholesky and one cholesky_solve launch per solve, one
+    multi_gamma_solve launch per γ grid, one chol_rank_update launch per
+    factor update; each answer agrees with the host f64 engine."""
+    rng = np.random.default_rng(21)
+    d, c, n = 300, 5, 1200
+    x = rng.standard_normal((n, d))
+    y = np.eye(c)[rng.integers(0, c, n)]
+    eng = AnalyticEngine("torch", device=cuda, use_kernel=True)
+    host = AnalyticEngine("numpy_f64")
+    s = eng.client_stats(x[:-8], y[:-8])
+    s_h = host.client_stats(x[:-8], y[:-8])
+    before = _blocked_counts()
+    w = eng.solve(s, target_gamma=1.0)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_blocked_counts(), before)] == [1, 1, 0, 0]
+    assert _rel(w.cpu(), torch.from_numpy(host.solve(s_h, target_gamma=1.0))) < REL
+    gammas = [0.1, 1.0, 10.0]
+    ws = eng.solve_multi_gamma(s, gammas)
+    assert [a - b for a, b in zip(_blocked_counts(), before)] == [1, 1, 1, 0]
+    for w, w_h in zip(ws, host.solve_multi_gamma(s_h, gammas)):
+        assert _rel(w.cpu(), torch.from_numpy(w_h)) < REL
+    f = eng.factor(s, target_gamma=1.0)
+    s2 = eng.merge(s, eng.client_stats(x[-8:], y[-8:]))
+    f2 = eng.factor_update(f, s2, x[-8:], target_gamma=1.0)
+    assert [a - b for a, b in zip(_blocked_counts(), before)] == [2, 1, 1, 1]
+    s2_h = host.merge(s_h, host.client_stats(x[-8:], y[-8:]))
+    want = host.solve(s2_h, target_gamma=1.0)
+    assert _rel(eng.factor_solve(f2, s2.moment).cpu(), torch.from_numpy(want)) < REL

@@ -167,25 +167,35 @@ def test_kahan_update_matches_plain_sum_in_f64():
 
 
 @pytest.mark.parametrize("call", ["factor", "solve", "solve_multi_gamma", "rank_update"])
-def test_kernel_path_solves_raise_until_ported(call):
-    """use_kernel=True at d = 16: the factor and solve of a system this
-    narrow (blocked_cholesky, cholesky_solve), the γ sweep and the rank
-    update are not ported, and raise instead of quietly running
-    torch.linalg. Systems of STREAM_MIN_DIM and wider are solved
-    (tests/test_torch_solve.py)."""
-    eng = AnalyticEngine("torch", dtype=torch.float32, device="cpu", use_kernel=True)
-    plain = AnalyticEngine("torch", dtype=torch.float32, device="cpu")
+def test_kernel_path_solves_match_reference(call):
+    """use_kernel=True at d = 16 in f64: the factor and solve of a system
+    this narrow (blocked_cholesky, cholesky_solve), the γ sweep
+    (multi_gamma_solve) and the rank update (chol_rank_update), each in
+    its plain version on the CPU, against the numpy_f64 engine at 1e-10,
+    the bar the reference holds its kernel solves to under x64. Systems of
+    STREAM_MIN_DIM and wider are tests/test_torch_solve.py's."""
+    ref, _ = _engines()
+    eng = AnalyticEngine("torch", dtype=torch.float64, device="cpu", use_kernel=True)
     (x, y), = _shards(10, sizes=(40,))
-    s = eng.client_stats(x, y)          # the Gram update itself runs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "factor":
-            eng.factor(s)
-        elif call == "solve":
-            eng.solve(s)
-        elif call == "solve_multi_gamma":
-            eng.solve_multi_gamma(s, [0.1, 1.0])
-        else:
-            eng.backend.rank_update(plain.factor(s), x[:2])
+    s_ref = ref.client_stats(x, y)
+    # the reference's f64 statistics: the kernel route folds Gram updates in f32
+    s = s_ref._replace(**{k: eng.backend.asarray(getattr(s_ref, k))
+                          for k in ("gram", "moment", "count", "clients")})
+    kernel_tol = dict(rtol=1e-10, atol=1e-10)
+    if call == "factor":
+        f, f_ref = eng.factor(s, target_gamma=0.5), ref.factor(s_ref, target_gamma=0.5)
+        np.testing.assert_allclose(to_numpy(f.handle), f_ref.handle.T, **kernel_tol)
+        got, want = eng.factor_solve(f, s.moment), ref.factor_solve(f_ref, s_ref.moment)
+    elif call == "solve":
+        got, want = eng.solve(s, use_ri=False), ref.solve(s_ref, use_ri=False)
+    elif call == "solve_multi_gamma":
+        got = np.stack([to_numpy(w) for w in eng.solve_multi_gamma(s, [0.1, 1.0])])
+        want = np.stack(ref.solve_multi_gamma(s_ref, [0.1, 1.0]))
+    else:
+        f, f_ref = eng.factor(s), ref.factor(s_ref)
+        got = eng.backend.rank_update(f, x[:2]).handle
+        want = ref.backend.rank_update(f_ref, x[:2]).handle.T
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), **kernel_tol)
 
 
 def test_torch_backend_needs_explicit_cpu_without_gpu():

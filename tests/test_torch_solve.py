@@ -233,24 +233,34 @@ def test_engine_kernel_route_non_pd_gives_nan_without_fallback():
 
 
 @pytest.mark.parametrize("call", ["factor", "factor_solve", "solve", "ri_restore"])
-def test_engine_kernel_route_below_stream_width_raises(call):
-    """Below STREAM_MIN_DIM the reference takes blocked_cholesky and
-    cholesky_solve, which are not ported: the route names them and raises."""
+def test_engine_kernel_route_below_stream_width_matches_numpy(call):
+    """Below STREAM_MIN_DIM the kernel route takes blocked_cholesky and
+    cholesky_solve, as the reference does (d = 300: two panels of 128 and
+    a ragged one), and agrees with the numpy_f64 engine at 1e-10 in f64."""
     rng = np.random.default_rng(14)
-    d = _D - 8
-    eng = AnalyticEngine("torch", dtype=torch.float32, device="cpu", use_kernel=True)
-    plain = AnalyticEngine("torch", dtype=torch.float32, device="cpu")
-    s = eng.client_stats(rng.standard_normal((8, d)), np.eye(2)[rng.integers(0, 2, 8)])
-    name = "cholesky_solve" if call == "factor_solve" else "blocked_cholesky"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{name}"):
-        if call == "factor":
-            eng.factor(s)
-        elif call == "factor_solve":
-            eng.factor_solve(plain.factor(s, target_gamma=1.0), s.moment)
-        elif call == "solve":
-            eng.solve(s)
-        else:
-            eng.ri_restore(s.moment, s.gram + torch.eye(d), 1)
+    d = 300
+    x = rng.standard_normal((400, d))
+    y = np.eye(2)[rng.integers(0, 2, 400)]
+    ref = RefEngine("numpy_f64", gamma=1.0)
+    eng = AnalyticEngine("torch", gamma=1.0, dtype=torch.float64, device="cpu",
+                         use_kernel=True)
+    s_ref = ref.client_stats(x, y)
+    s = SuffStats(*(eng.backend.asarray(v) for v in s_ref[:4]))
+    if call == "factor":
+        f, f_ref = eng.factor(s), ref.factor(s_ref)
+        assert not torch.triu(f.handle, 1).any()
+        got, want = f.handle, f_ref.handle.T
+    elif call == "factor_solve":
+        f, f_ref = eng.factor(s, target_gamma=1.0), ref.factor(s_ref, target_gamma=1.0)
+        got, want = eng.factor_solve(f, s.moment), ref.factor_solve(f_ref, s_ref.moment)
+    elif call == "solve":
+        got, want = eng.solve(s), ref.solve(s_ref)
+    else:
+        c_r = ref.regularized_gram(s_ref)
+        w_r = np.linalg.solve(c_r, s_ref.moment)
+        got = eng.ri_restore(torch.from_numpy(w_r), torch.from_numpy(c_r), 1)
+        want = ref.ri_restore(w_r, c_r, 1)
+    assert _rel(got, want) < 1e-10
 
 
 def test_panel_kernel_wrappers_refuse_cpu_tensors():
