@@ -11,24 +11,25 @@ without the repository around it. Phases, each fatal on failure:
 
   1. header: the card's name and power limit (nvidia-smi), the TF32
      switches (must be off), and the build of every kernel of the path
-     (one nvcc for each of the four sources, all at once), with registers
+     (one nvcc for each of the five sources, all at once), with registers
      and spills;
   2. kernels: ``gram_update``, the four panel kernels of the streamed
      Cholesky, ``blocked_cholesky``, ``cholesky_solve``,
-     ``multi_gamma_solve`` and ``chol_rank_update`` against their plain
-     versions on the card, at the shapes of the main path, a ragged shape
-     and (the factors and the sweep) an input that is not positive
-     definite; each timed beside the plain version, one library call that
-     computes the same function, and the card's bound;
+     ``multi_gamma_solve``, ``chol_rank_update`` and ``flash_attention``
+     against their plain versions on the card, at the shapes of the main
+     paths, ragged shapes and (the factors and the sweep) an input that is
+     not positive definite; each timed beside the plain version, one
+     library call that computes the same function, and the card's bound;
   3. streamed factor and solve of one SPD system at d = 6144 (the width
      of nemotron4_15b and grok1): the kernel route against the plain
      route on the card, timed beside torch.linalg, and an indefinite
      system that must come back as NaNs;
-  4. small check: a reduced ``run_analytic`` on the card (kernel) against
+  4. small check: a reduced ``run_analytic`` on the card (kernels) against
      the same run on the CPU (plain versions), same weights;
   5. slice: ``run_analytic`` at the full width of minicpm_2b (all 40
-     layers, random f32 weights from a seed), with the Gram kernel's
-     launches counted over exactly that run; then, at the same width, the
+     layers, random f32 weights from a seed), with the Gram kernel's and
+     the flash kernel's launches counted over exactly that run; then, at
+     the same width, the
      kernel's fold of a real batch against the plain fold, the card's
      pooled embeddings against the CPU's, the same aggregate solved at
      γ > 0 on the host, and a no-layer control of how much signal the data
@@ -50,16 +51,27 @@ without the repository around it. Phases, each fatal on failure:
      ``blocked_cholesky`` and one ``cholesky_solve`` launch per solve;
   9. rank update: a straggler's 64-row root folded into the cached factor
      of the slice's aggregate by one ``chol_rank_update`` launch, against
-     the refactor on the card and host f64.
+     the refactor on the card and host f64;
+ 10. serve, after the minicpm weights are freed: ``launch.serve.serve`` of
+     gemma3_12b at full width (all 48 layers, random f32 weights from a
+     seed), a prefill of 4 × 2048 tokens and 15 greedy decode steps
+     against a 2064-slot KV cache, with the flash kernel's launches
+     counted over exactly that run (48 + 48 × 15); then a teacher-forced
+     forward over the prompt and the generated tokens that must give the
+     logits decode gave, layers 0 (local) and 5 (global) of the prefill
+     through the kernel against the plain version on their real q, k, v,
+     and a reduced gemma3 serve on the card against the same run on the
+     CPU.
 
 Each path's launches are counted from zero just before it runs. It then
-prints the kernels' JSON line (nine kernels), and last the device line
+prints the kernels' JSON line (ten kernels), and last the device line
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -162,7 +174,7 @@ def header(K, build):
     if tf32:
         fail("TF32 matmuls are on; the f32 references need them off")
     t0 = time.perf_counter()
-    modules = (K.G, K.P, K.B, K.R)
+    modules = (K.G, K.P, K.B, K.R, K.FA)
     for built in build.load(*(m.SOURCE for m in modules)):
         log(f"build: {built.path.name} in {built.seconds:.2f} s")
         for line in built.log.splitlines():
@@ -469,6 +481,8 @@ def slice_phase(K, get_config, D, T, train, FLConfig, api):
         f"init {t_init:.2f} s; data {len(tr)} train / {len(te)} test x seq "
         f"{SLICE['seq']} made in {t_data:.2f} s")
     expected = len(tr) // SLICE["batch"]
+    # one forward per batch: the train set's, then the test set's
+    forwards = expected + len(te) // SLICE["batch"]
     fl = FLConfig(gamma=1.0)
     server = api.AFLServer(cfg.d_model, cfg.num_classes, gamma=fl.gamma)
     torch.cuda.reset_peak_memory_stats()
@@ -481,10 +495,13 @@ def slice_phase(K, get_config, D, T, train, FLConfig, api):
     wall = time.perf_counter() - t0
     launches = _read(K)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {"gram_update": expected, "flash_attention": cfg.num_layers * forwards}
     log(f"slice: run_analytic acc={acc:.4f} train_s={train_s:.3f} wall_s={wall:.3f} "
         f"gram_update launches={launches['gram_update']} (expected {expected}) "
+        f"flash_attention launches={launches['flash_attention']} (expected "
+        f"{cfg.num_layers} layers x {forwards} forwards = {want['flash_attention']}) "
         f"peak_mem={peak:.2f} GB")
-    _only(launches, {"gram_update": expected}, "run_analytic")
+    _only(launches, want, "run_analytic")
     if not (math.isfinite(acc) and 0.0 <= acc <= 1.0):
         fail(f"accuracy {acc} is not a fraction")
     x_te = slice_checks(cfg, params, tr, te, server, acc, train, fl, api)
@@ -1099,6 +1116,308 @@ def rank_update_phase(K, engine, api, server, x_te, y_te, fl):
     return launches
 
 
+# --- flash attention: kernel phase ----------------------------------------------
+
+# tests/test_kernels_attention.py's tolerances: (rtol, atol)
+ATTN_TOL = {torch.float32: (2e-5, 4e-4), torch.bfloat16: (2e-2, 0.4)}
+# (name, (B, Hq, Hkv, Sq, Skv, D), kw, dtype): the serve path's prefill and
+# decode step first (gemma3_12b, window 1024 on local layers), then slice
+# 1's trainer forward (minicpm_2b), then the reference tests' ragged cases
+ATTN_SHAPES = [
+    ("serve prefill, local", (4, 16, 8, 2048, 2048, 256), dict(window=1024), torch.float32),
+    ("serve prefill, global", (4, 16, 8, 2048, 2048, 256), dict(), torch.float32),
+    ("serve decode, local", (4, 16, 8, 1, 2064, 256), dict(window=1024, q_offset=2048),
+     torch.float32),
+    ("serve decode, global", (4, 16, 8, 1, 2064, 256), dict(q_offset=2048), torch.float32),
+    ("trainer forward", (64, 36, 36, 32, 32, 64), dict(), torch.float32),
+    ("MQA, ragged S and D", (1, 4, 1, 96, 96, 80), dict(), torch.float32),
+    ("window 100", (1, 4, 2, 192, 192, 64), dict(window=100), torch.float32),
+    ("non-causal 64 x 200", (1, 4, 4, 64, 200, 64), dict(causal=False), torch.float32),
+    ("bf16 GQA", (2, 8, 2, 128, 128, 64), dict(), torch.bfloat16),
+    ("bf16 MQA, ragged", (1, 4, 1, 96, 96, 80), dict(), torch.bfloat16),
+]
+
+
+def _mask_kw(kw) -> dict:
+    return {n: kw[n] for n in ("causal", "window", "q_offset") if n in kw}
+
+
+def attention_bound(ref, shape, kw, dtype):
+    """Least milliseconds for attention at ``shape``: 4·D flops for each
+    visible (query, key) pair of each query head at the type's peak,
+    against q and o and the keys and values some row sees, each moved once."""
+    b, hq, hkv, sq, skv, d = shape
+    mask = ref.attention_mask(sq, skv, **_mask_kw(kw), device="cpu")
+    pairs = int(mask.sum())
+    keys = int(mask.any(0).sum())
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    flops = 4 * b * hq * d * pairs
+    nbytes = itemsize * d * (2 * b * hq * sq + 2 * b * hkv * keys)
+    return (*_bound(flops, nbytes, dtype), flops, nbytes)
+
+
+def _sdpa_library(ref, q, k, v, kw):
+    """One PyTorch call for the same function (a yardstick; the port never
+    calls it): scaled_dot_product_attention with the same mask and GQA."""
+    mask = ref.attention_mask(q.shape[2], k.shape[2], **_mask_kw(kw), device=q.device)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=kw.get("scale"), enable_gqa=True)
+
+
+def check_attention(FA, ref, q, k, v, kw, what):
+    """The kernel against the plain version at the f32/bf16 tolerances;
+    returns (plain output, max |err|)."""
+    out = FA.flash_attention(q, k, v, **kw)
+    want = ref.mha_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    rtol, atol = ATTN_TOL[q.dtype]
+    err = float((out.float() - want.float()).abs().max())
+    try:
+        torch.testing.assert_close(out.float(), want.float(), rtol=rtol, atol=atol)
+    except AssertionError as exc:
+        fail(f"flash_attention {what}: {exc}")
+    return want, err
+
+
+def attention_phase(FA, ref):
+    rows = []
+    for i, (what, shape, kw, dtype) in enumerate(ATTN_SHAPES):
+        b, hq, hkv, sq, skv, d = shape
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(100 + i)
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+                   for s in [(b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)])
+        _, err = check_attention(FA, ref, q, k, v, kw, f"{what} {shape}")
+        ms = time_auto(lambda: FA.flash_attention(q, k, v, **kw))
+        plain_ms = time_auto(lambda: ref.mha_ref(q, k, v, **kw))
+        library_ms = time_auto(_sdpa_library(ref, q, k, v, kw))
+        bound_ms, bound_by, flops, nbytes = attention_bound(ref, shape, kw, dtype)
+        dt = str(dtype).removeprefix("torch.")
+        rtol, atol = ATTN_TOL[dtype]
+        rows.append(dict(case=what, shape=list(shape), kw=kw, dtype=dt, max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, flops=flops, bytes=nbytes))
+        log(f"flash_attention {what} (B, Hq, Hkv, Sq, Skv, D)={shape} {kw} {dt}: "
+            f"max|err|={err:.3e} (rtol {rtol} atol {atol}) kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) "
+            f"= {100 * bound_ms / ms:.2f}% of bound")
+    return rows
+
+
+# --- serve: gemma3_12b at full width ---------------------------------------------
+
+SERVE = dict(arch="gemma3_12b", batch=4, prompt=2048, gen=16, seed=0)
+# decode's logits against a teacher-forced forward over the same tokens:
+# largest difference relative to the row's largest |logit| (f32 through 48
+# layers with sums in another order, attention over the cache by the
+# decode shape of the kernel against one prefill-shaped call)
+SERVE_TF_REL = 1e-3
+# reduced gemma3 serve, card against CPU: rtol and atol relative to the
+# largest |logit|, as the CPU parity tests hold the port to the reference
+SERVE_SMALL = dict(batch=2, prompt=80, gen=8)
+SERVE_SMALL_REL = 1e-4
+
+
+PROFILE_DECODE_STEPS = 4
+
+
+def _kernel_category(name: str) -> str:
+    if "flash_kernel" in name:
+        return "flash_attention"
+    if any(t in name.lower() for t in ("gemm", "gemv", "cutlass")):
+        return "matmul"
+    return "other"
+
+
+def profile_window(fn) -> dict:
+    """``fn`` under torch.profiler: host wall to a synchronised end, the
+    card's kernel time by category, the union of kernel intervals (busy)
+    and the idle share. None where the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    by = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    busy, reach = 0.0, -math.inf
+    for start, end, name in spans:
+        by[_kernel_category(name)] += (end - start) / 1e3
+        if end > reach:
+            busy += (end - max(start, reach)) / 1e3
+            reach = end
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
+                kernels=len(spans), by_ms=by)
+
+
+def serve_profile(ST, cfg, params, out, p, g) -> dict:
+    """Where the serve path's time goes, after the counted run: a prefill
+    and two warm-up decode steps, then four steps timed one by one to a
+    synchronised end, all before any profiling; then PROFILE_DECODE_STEPS
+    steps under the profiler, and one more prefill under it."""
+    prefill = ST.make_prefill_step(cfg, p + g)
+    decode = ST.make_serve_step(cfg)
+    batch = {"tokens": torch.from_numpy(out[:, :p]).cuda()}
+    state = {}
+    pos = p
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill(params, batch)
+
+    def step():
+        nonlocal pos
+        tok = state["logits"].argmax(-1)
+        state["logits"], state["cache"] = decode(params, state["cache"], tok, pos)
+        pos += 1
+
+    def steps():
+        for _ in range(PROFILE_DECODE_STEPS):
+            step()
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    timed(run_prefill)
+    step_ms = [timed(step) for _ in range(2 + 4)]
+    dec = profile_window(steps)
+    pre = profile_window(run_prefill)
+    del state
+    for name, r, n in (("prefill", pre, 1), ("decode", dec, PROFILE_DECODE_STEPS)):
+        if r is None:
+            log(f"serve profile: {name}: the profiler saw no device activity (not measured)")
+            continue
+        log(f"serve profile: {name}, per {'call' if n == 1 else 'step'}: wall {r['wall_ms'] / n:.2f} ms, "
+            f"card busy {r['busy_ms'] / n:.2f} ms (idle share {r['idle_share']:.3f}), "
+            f"{r['kernels'] / n:.0f} kernels; kernel time flash_attention "
+            f"{r['by_ms']['flash_attention'] / n:.2f} ms, matmul {r['by_ms']['matmul'] / n:.2f} ms, "
+            f"other {r['by_ms']['other'] / n:.2f} ms")
+    log(f"serve profile: decode steps one by one to a synchronised end, before any "
+        f"profiling (2 warm-up first): "
+        f"{', '.join(f'{t:.2f}' for t in step_ms)} ms")
+    return dict(prefill=pre, decode=dec, decode_steps=PROFILE_DECODE_STEPS,
+                decode_step_ms=step_ms)
+
+
+def serve_phase(K, get_config, T, L, serve_mod, ST, ref):
+    FA = K.FA
+    cfg = get_config(SERVE["arch"])
+    b, p, g = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SERVE["seed"], device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    window, theta = T.layer_meta(cfg, cfg.num_layers)
+    n_global = int((window == 0).sum())
+    kv_gb = 2 * cfg.num_layers * b * cfg.num_kv_heads * (p + g) * cfg.resolved_head_dim * 4 / 1e9
+    log(f"serve: {cfg.name} full width d={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} layers={cfg.num_layers} ({cfg.num_layers - n_global} local "
+        f"window {cfg.window}, {n_global} global) (no cut); {n_params / 1e9:.3f}B params "
+        f"{cfg.dtype} ({4 * n_params / 1e9:.2f} GB) init {t_init:.2f} s; batch {b}, prompt "
+        f"{p}, gen {g}, KV cache {kv_gb:.2f} GB")
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    _zero(K)
+    out, prefill_s, decode_s = serve_mod.serve(
+        cfg, b, p, g, seed=SERVE["seed"], device="cuda", params=params,
+        on_step=lambda i, logits: steps.append(logits))
+    torch.cuda.synchronize()
+    launches = _read(K)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = cfg.num_layers * g                      # one prefill, g - 1 decode steps
+    log(f"serve: prefill_s={prefill_s:.3f} decode {1e3 * decode_s / (g - 1):.2f} ms/token "
+        f"({b * (g - 1) / decode_s:.1f} tok/s over {g - 1} steps of batch {b}) "
+        f"peak_mem={peak:.2f} GB flash_attention launches={launches['flash_attention']} "
+        f"(expected {cfg.num_layers} prefill + {cfg.num_layers} x {g - 1} decode = {want})")
+    _only(launches, {"flash_attention": want}, "serve")
+    dec = torch.stack(steps, 1)                    # (B, g, V)
+    if out.shape != (b, p + g) or not torch.isfinite(dec).all():
+        fail(f"serve gave tokens {out.shape} and finite logits {bool(torch.isfinite(dec).all())}")
+    if not ((out >= 0) & (out < cfg.vocab_size)).all():
+        fail("serve produced tokens outside the vocabulary")
+
+    # teacher-forced: one forward over the prompt and the fed tokens
+    toks = torch.from_numpy(out[:, :p + g - 1]).cuda()
+    hidden = T.forward(params, cfg, {"tokens": toks})
+    tf = T.lm_logits(params, cfg, hidden[:, p - 1:])
+    del hidden
+    rel = float(((tf - dec).abs().amax(-1) / tf.abs().amax(-1)).max())
+    agree = float((tf.argmax(-1) == dec.argmax(-1)).float().mean())
+    log(f"serve check: decode logits vs a teacher-forced forward over {p + g - 1} tokens: "
+        f"largest |diff| / row max|logit| = {rel:.3e} (limit {SERVE_TF_REL:g}; max|logit| "
+        f"{float(tf.abs().max()):.3f}); greedy token agreement {agree:.4f}; tail of sequence 0 "
+        f"{out[0, -8:].tolist()}")
+    if not rel <= SERVE_TF_REL:
+        fail(f"serve: decode logits {rel:.3e} from the teacher-forced forward")
+    del tf, dec, steps
+
+    breakdown = serve_profile(ST, cfg, params, out, p, g)
+
+    # layers 0 (local) and 5 (global) of the prefill: real q, k, v
+    batch = {"tokens": torch.from_numpy(out[:, :p]).cuda()}
+    x, positions = T.embed_inputs(params, cfg, batch)
+    dims = T._attn_dims(cfg)
+    layer_rows = []
+    with torch.no_grad():
+        for i in range(6):
+            lp = params["layers"][i]
+            w, th = int(window[i]), float(theta[i])
+            if i in (0, 5):
+                h = L.norm_apply(lp["ln1"], x, cfg.norm_eps, cfg.norm)
+                q, k, v = L.qkv_project(lp["attn"], dims, h, positions, th, cfg.norm_eps)
+                kw = dict(window=w or None)
+                want, err = check_attention(FA, ref, q, k, v, kw, f"serve layer {i}")
+                ms = time_auto(lambda: FA.flash_attention(q, k, v, **kw))
+                layer_rows.append(dict(layer=i, window=w, max_abs_err=err, ms=ms))
+                log(f"serve check: layer {i} ({'local' if w else 'global'}, theta {th:g}) "
+                    f"prefill attention on its real q, k, v {tuple(q.shape)}: kernel vs plain "
+                    f"max|err|={err:.3e} (max|out| {float(want.abs().max()):.3f}), kernel "
+                    f"{ms:.4f} ms")
+                del h, q, k, v, want
+            x, _ = T._block_fwd(lp, cfg, x, positions, w, th)
+    del x, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # reduced gemma3: the same serve on the card and on the CPU
+    small = get_config(SERVE["arch"]).reduced()
+    p_cpu = T.init_params(small, seed=1, device="cpu")
+    runs = {}
+    for dev, prm in (("cuda", _params_to(p_cpu, "cuda")), ("cpu", p_cpu)):
+        seen = []
+        toks_s, _, _ = serve_mod.serve(small, SERVE_SMALL["batch"], SERVE_SMALL["prompt"],
+                                       SERVE_SMALL["gen"], seed=1, device=dev, params=prm,
+                                       on_step=lambda i, lg: seen.append(lg.cpu()))
+        runs[dev] = (toks_s, torch.stack(seen, 1))
+    (tg, lg_g), (tc, lg_c) = runs["cuda"], runs["cpu"]
+    err_small = float((lg_g - lg_c).abs().max())
+    top = float(lg_c.abs().max())
+    log(f"serve check: reduced {small.name} (window {small.window}, global_every "
+        f"{small.global_every}, heads {small.num_heads}/{small.num_kv_heads}) serve of "
+        f"{SERVE_SMALL}: card vs CPU tokens equal {bool((tg == tc).all())}, logits "
+        f"max|diff| {err_small:.3e} (max|logit| {top:.3f}; rtol {SERVE_SMALL_REL:g}, atol "
+        f"{SERVE_SMALL_REL:g}·max|logit|)")
+    if not (tg == tc).all():
+        fail("reduced serve: the card's tokens differ from the CPU's")
+    torch.testing.assert_close(lg_g, lg_c, rtol=SERVE_SMALL_REL, atol=SERVE_SMALL_REL * top)
+    return launches, dict(prefill_s=prefill_s, decode_ms_per_token=1e3 * decode_s / (g - 1),
+                          tok_s=b * (g - 1) / decode_s, peak_gb=peak, tf_rel=rel,
+                          tf_token_agreement=agree, layers=layer_rows, profile=breakdown)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1128,25 +1447,30 @@ def main() -> None:
     from repro_torch.fl import api
     from repro_torch.kernels import blocked as B
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gram as G
     from repro_torch.kernels import panel as P
     from repro_torch.kernels import rank_update as R
     from repro_torch.kernels import ref
     from repro_torch.kernels import solve as S
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import steps as ST
     from repro_torch.launch import train
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
     # every kernel's wrapper, by name: each path's launches are counted on these
-    K = SimpleNamespace(G=G, P=P, B=B, R=R, ALL={
+    K = SimpleNamespace(G=G, P=P, B=B, R=R, FA=FA, ALL={
         "gram_update": G.gram_update, "panel_factor": P.panel_factor,
         "panel_tri_inv": P.panel_tri_inv, "panel_trsm": P.panel_trsm,
         "panel_update": P.panel_update, "blocked_cholesky": B.blocked_cholesky,
         "cholesky_solve": B.cholesky_solve, "multi_gamma_solve": B.multi_gamma_solve,
-        "chol_rank_update": R.chol_rank_update})
+        "chol_rank_update": R.chol_rank_update, "flash_attention": FA.flash_attention})
     header(K, build)
     rows = {"gram_update": kernel_phase(G, ref)}
     rows.update(panel_phase(P, ref))
     rows.update(blocked_phase(K, ref))
+    rows["flash_attention"] = attention_phase(FA, ref)
     streamed = streamed_phase(S, P)
     small_check(get_config, D, T, train, FLConfig)
     slice_launches, server, x_te, y_te = slice_phase(K, get_config, D, T, train,
@@ -1156,6 +1480,11 @@ def main() -> None:
              sweep_phase(K, ref, S, engine, api, server, x_te, y_te),
              narrow_phase(K, ref, engine, api, D),
              rank_update_phase(K, engine, api, server, x_te, y_te, FLConfig(gamma=1.0))]
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_launches, served = serve_phase(K, get_config, T, L, serve_mod, ST, ref)
+    paths.append(serve_launches)
     launches = {name: sum(p[name] for p in paths) for name in K.ALL}
     if not all(launches.values()):
         fail(f"a kernel of the path was never launched: {launches}")
@@ -1168,7 +1497,8 @@ def main() -> None:
                "blocked_cholesky": ("blocked.cu", "solve.py:253"),
                "cholesky_solve": ("blocked.cu", "solve.py:295"),
                "multi_gamma_solve": ("blocked.cu", "solve.py:346"),
-               "chol_rank_update": ("rank_update.cu", "solve.py:774")}
+               "chol_rank_update": ("rank_update.cu", "solve.py:774"),
+               "flash_attention": ("flash_attention.cu", "flash_attention.py:106")}
     kernels = []
     for name, (src, where) in sources.items():
         main_row = rows[name][0]          # the main path's shape comes first
@@ -1183,6 +1513,7 @@ def main() -> None:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shapes=rows[name]))
     log(json.dumps({"streamed": streamed}))
+    log(json.dumps({"serve": served}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import ref
 from repro_torch.kernels.solve import (  # noqa: F401  (re-exported)
@@ -45,3 +46,14 @@ def panel_update(trail: torch.Tensor, lp: torch.Tensor, pt: torch.Tensor, *,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Trailing update ``trail − lp @ ptᵀ``: the kernel on the card."""
     return panels(trail.device).panel_update(trail, lp, pt, out=out)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None, q_offset: int = 0) -> torch.Tensor:
+    """Causal / GQA / sliding-window attention: the CUDA kernel on the card,
+    else the plain ``ref.mha_ref``."""
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+    if q.is_cuda:
+        return _fa.flash_attention(q, k, v, **kw)
+    return ref.mha_ref(q, k, v, **kw)

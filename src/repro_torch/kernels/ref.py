@@ -23,6 +23,45 @@ def gram_ref(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
     return xf.T @ xf, xf.T @ yf
 
 
+def attention_mask(sq: int, skv: int, *, causal: bool = True, window: Optional[int] = None,
+                   q_offset: int = 0, device=None) -> torch.Tensor:
+    """(Sq, Skv) bool: True where query row s (at position q_offset + s)
+    sees key j, as ``mha_ref`` and the flash kernel mask."""
+    q_pos = torch.arange(sq, device=device)[:, None] + q_offset
+    k_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+            window: Optional[int] = None, scale: Optional[float] = None,
+            q_offset: int = 0) -> torch.Tensor:
+    """Plain version of ``kernels.flash_attention.flash_attention``.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) with Hq % Hkv == 0 (GQA).
+    ``q_offset``: absolute position of q[0] (decode: Skv - Sq).
+    ``window``: query at position t attends to keys in [t - window + 1, t]
+    (None = unbounded). The logits are materialized, in f32 throughout; a
+    fully masked row gives zeros.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qf = (q.to(torch.float32) * scale).reshape(b, hkv, group, sq, d)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(torch.float32))
+    mask = attention_mask(sq, skv, causal=causal, window=window, q_offset=q_offset,
+                          device=q.device)
+    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
+    probs = torch.nan_to_num(probs, nan=0.0)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.to(torch.float32))
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
 def factor_tile(tile: torch.Tensor) -> torch.Tensor:
     """Unblocked lower Cholesky of (..., m, m) SPD tiles: a column sweep
     with masked full-width updates, the upper triangle written as zeros. A

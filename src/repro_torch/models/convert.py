@@ -9,7 +9,7 @@ parameters over as numpy arrays. This module takes that tree as plain numpy
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -49,4 +49,22 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None) -> P
         raise ValueError(f"tree has {n} layers, config {cfg.num_layers}")
     out = _to_torch({k: v for k, v in tree.items() if k != "layers"}, dev)
     out["layers"] = [_to_torch(_layer(stacked, i), dev) for i in range(n)]
+    return out
+
+
+def cache_from_jax(cache: Mapping[str, Any], cfg: ModelConfig, device=None) -> Dict[str, torch.Tensor]:
+    """The reference's dense-family KV cache (numpy leaves ``k`` and ``v``,
+    each (L, B, Hkv, S, hd)) → the port's, the same layout, as fresh
+    tensors on ``device`` that ``decode_step`` may write in place."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"cache_from_jax covers the dense family, not {cfg.arch_type!r}")
+    want = (cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim)
+    out = {}
+    for name in ("k", "v"):
+        shape = np.shape(cache[name])
+        if len(shape) != 5 or (shape[0], shape[2], shape[4]) != want:
+            raise ValueError(f"cache[{name!r}] has shape {shape}, expected "
+                             f"(L, B, Hkv, S, hd) with (L, Hkv, hd) = {want}")
+        out[name] = _to_torch(cache[name], resolve_device(device))
     return out

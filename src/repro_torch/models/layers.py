@@ -17,6 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
+
 BIG_WINDOW = 1 << 30
 MASKED = -1e30
 
@@ -55,12 +57,14 @@ def apply_rope(x, positions, theta):
     """x: (B, H, S, D); positions: (B, S) or (S,); theta: python scalar.
 
     Rotates the two halves of each head (not interleaved pairs), with
-    ``theta ** -(i / half)`` in f32.
+    ``theta ** -(i / half)`` in f32. ``theta`` stays a Python number: a
+    device tensor made from it would be a host-to-device copy, which
+    synchronises the host with the card at every call.
     """
     d = x.shape[-1]
     half = d // 2
     freq_exp = torch.arange(half, dtype=torch.float32, device=x.device) / half
-    inv_freq = torch.tensor(theta, dtype=torch.float32, device=x.device) ** -freq_exp
+    inv_freq = float(theta) ** -freq_exp
     pos = torch.as_tensor(positions, device=x.device).to(torch.float32)
     if pos.dim() == 1:
         pos = pos[None]
@@ -125,15 +129,24 @@ def _mask(qpos, kpos, win, causal):
 
 def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, softcap=0.0,
          q_chunk=256, kv_chunk=1024):
-    """Scaled dot-product attention in plain torch.
+    """Scaled dot-product attention.
 
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), query heads grouped
-    ``(hkv, group)`` for GQA. Products run in f32; masked logits are
-    ``-1e30``. Up to ``Sq·Skv = 2²²`` the logits are materialized; past
-    that an online softmax walks ``q_chunk × kv_chunk`` blocks, so
-    prefill-length logits never exist at once. The hand-written flash
-    kernel takes this function's place in a later part of the port.
+    ``(hkv, group)`` for GQA; query row ``s`` sits at position ``q_offset +
+    s``; ``window`` None or <= 0 means no window. On CUDA tensors this is
+    the hand-written flash kernel (``kernels.ops.flash_attention``), which
+    has no logit softcap. On the CPU it is plain torch: products in f32,
+    masked logits ``-1e30``; up to ``Sq·Skv = 2²²`` the logits are
+    materialized, past that an online softmax walks ``q_chunk × kv_chunk``
+    blocks, so prefill-length logits never exist at once.
     """
+    if q.is_cuda:
+        if softcap:
+            raise NotImplementedError(
+                "a logit softcap is not ported to the card: the flash kernel has none "
+                "(ROADMAP Queue 1, item 8: grok1 is the only config with one)")
+        win = None if window is None or window <= 0 else int(window)
+        return ops.flash_attention(q, k, v, causal=causal, window=win, q_offset=q_offset)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv

@@ -11,6 +11,13 @@ Public entry points:
   forward(params, cfg, batch)            → final hidden states (B, S, D)
   pool(hidden)                           → (B, D) embedding for the AFL head
   lm_logits(params, cfg, hidden)         → (B, S, vocab)
+  init_cache(cfg, batch, max_seq)        → KV cache {"k", "v"}: (L, B, Hkv, max_seq, hd)
+  prefill(params, cfg, batch, max_seq)   → (hidden, cache)
+  decode_step(params, cfg, tok, cache, pos) → (hidden (B, 1, D), cache)
+
+The cache is written in place: ``decode_step`` updates the one slot of
+each layer it writes and returns the same tensors (the reference's arrays
+are immutable and its decode returns new ones).
 
 ``batch`` is a dict: tokens (B, S) integer and, for VLM archs, the modality
 stub prefix_embeds (B, P, D), consumed as prefix tokens.
@@ -86,15 +93,38 @@ def _block_ffn(p, cfg: ModelConfig, x):
     return x + out
 
 
-def _block_fwd(p, cfg: ModelConfig, x, positions, window, theta, *, causal=True):
-    """One attention block without a KV cache."""
+def _block_fwd(p, cfg: ModelConfig, x, positions, window, theta, *, causal=True,
+               kv_cache=None, pos=None):
+    """One attention block. Returns (x, (k, v)): this block's keys and values
+    without a cache, else the cache ``(ck, cv)`` (B, Hkv, clen, hd) after
+    this block's keys and values were written into it in place.
+
+    Ring semantics, as the reference's: the tokens go to slot ``pos %
+    clen`` (the start clamped so that they fit, as ``dynamic_update_slice``
+    does), keys stored rope'd at their absolute positions. When the cache
+    is no longer than the window, the ring itself keeps exactly the last
+    ``clen`` positions, so the window mask is turned off and causality
+    (slot <= pos) masks the slots not yet written.
+    """
     dims = _attn_dims(cfg)
     h = L.norm_apply(p["ln1"], x, cfg.norm_eps, cfg.norm)
     q, k, v = L.qkv_project(p["attn"], dims, h, positions, theta, cfg.norm_eps)
-    attn = L.sdpa(q, k, v, causal=causal, window=window,
-                  softcap=cfg.logit_softcap)
+    if kv_cache is None:
+        attn = L.sdpa(q, k, v, causal=causal, window=window,
+                      softcap=cfg.logit_softcap)
+        new_kv = (k, v)
+    else:
+        ck, cv = kv_cache
+        clen, s = ck.shape[2], k.shape[2]
+        slot = min(int(pos) % clen, clen - s)
+        win = 0 if 0 < window and clen <= window else window
+        ck[:, :, slot:slot + s] = k
+        cv[:, :, slot:slot + s] = v
+        attn = L.sdpa(q, ck, cv, causal=True, window=win, q_offset=int(pos),
+                      softcap=cfg.logit_softcap)
+        new_kv = (ck, cv)
     x = x + L.attn_out(p["attn"], attn)
-    return _block_ffn(p, cfg, x)
+    return _block_ffn(p, cfg, x), new_kv
 
 
 # ------------------------------------------------------------ embedding etc.
@@ -148,8 +178,41 @@ def _init_dense(gen, cfg: ModelConfig, device):
 def _dense_forward(params, cfg, x, positions, causal=True):
     window, theta = layer_meta(cfg, cfg.num_layers)
     for lp, w, th in zip(params["layers"], window, theta):
-        x = _block_fwd(lp, cfg, x, positions, int(w), float(th), causal=causal)
+        x, _ = _block_fwd(lp, cfg, x, positions, int(w), float(th), causal=causal)
     return L.norm_apply(params["final_norm"], x, cfg.norm_eps, cfg.norm)
+
+
+def _dense_cache(cfg, batch, max_seq, dtype, device):
+    hk, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (cfg.num_layers, batch, hk, max_seq, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _dense_prefill(params, cfg, x, positions, max_seq):
+    """The forward pass over the prompt, each layer's keys and values
+    written to slots [0, S) of a zeroed cache of ``max_seq`` slots."""
+    b, s, _ = x.shape
+    if s > max_seq:
+        raise ValueError(f"prompt of {s} tokens does not fit a cache of {max_seq}")
+    window, theta = layer_meta(cfg, cfg.num_layers)
+    cache = _dense_cache(cfg, b, max_seq, x.dtype, x.device)
+    for i, (lp, w, th) in enumerate(zip(params["layers"], window, theta)):
+        x, (k, v) = _block_fwd(lp, cfg, x, positions, int(w), float(th))
+        cache["k"][i, :, :, :s] = k
+        cache["v"][i, :, :, :s] = v
+    return L.norm_apply(params["final_norm"], x, cfg.norm_eps, cfg.norm), cache
+
+
+def _dense_decode(params, cfg, x, cache, pos):
+    """One-token decode: each layer writes its key and value into its slice
+    of the stacked cache (slot ``pos % max_seq``) and attends over it."""
+    window, theta = layer_meta(cfg, cfg.num_layers)
+    positions = torch.full((x.shape[0], 1), int(pos), dtype=torch.int32, device=x.device)
+    for i, (lp, w, th) in enumerate(zip(params["layers"], window, theta)):
+        x, _ = _block_fwd(lp, cfg, x, positions, int(w), float(th),
+                          kv_cache=(cache["k"][i], cache["v"][i]), pos=pos)
+    return L.norm_apply(params["final_norm"], x, cfg.norm_eps, cfg.norm), cache
 
 
 # =====================================================================
@@ -174,3 +237,33 @@ def forward(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
         raise NotImplementedError(_NOT_PORTED.format(cfg.arch_type))
     x, positions = embed_inputs(params, cfg, batch)
     return _dense_forward(params, cfg, x, positions)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device=None):
+    """A zeroed KV cache {"k", "v"}, each (L, B, Hkv, max_seq, hd), on
+    ``device`` (CUDA unless named)."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(_NOT_PORTED.format(cfg.arch_type))
+    return _dense_cache(cfg, batch, max_seq, dtype or cfg.param_dtype,
+                        resolve_device(device))
+
+
+@torch.no_grad()
+def prefill(params: Params, cfg: ModelConfig, batch, max_seq: int):
+    """The prompt's forward pass → (final hidden (B, S, D), cache with the
+    prompt in slots [0, S) of ``max_seq``)."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(_NOT_PORTED.format(cfg.arch_type))
+    x, positions = embed_inputs(params, cfg, batch)
+    return _dense_prefill(params, cfg, x, positions, max_seq)
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: ModelConfig, token, cache, pos: int):
+    """token: (B,) integer, at position ``pos``. → (hidden (B, 1, D), cache),
+    the cache updated in place."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(_NOT_PORTED.format(cfg.arch_type))
+    emb = params["embed"]
+    x = emb[torch.as_tensor(token, device=emb.device).long()[:, None]]
+    return _dense_decode(params, cfg, x, cache, pos)

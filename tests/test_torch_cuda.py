@@ -7,7 +7,9 @@ machine without it:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances are those of tests/test_kernels_gram.py: rtol 2e-4 / atol 2e-3
-for f32 (sums in another order), 2e-2 / 2e-1 for bf16.
+for f32 (sums in another order), 2e-2 / 2e-1 for bf16; the flash-attention
+kernel's those of tests/test_kernels_attention.py: rtol 2e-5 / atol 4e-4
+for f32, 2e-2 / 0.4 for bf16.
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.core.engine import AnalyticEngine, SuffStats
 from repro_torch.kernels import blocked as B
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import gram as G
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import panel as P
@@ -439,3 +442,151 @@ def test_engine_narrow_sweep_and_rank_update_on_card(cuda):
     s2_h = host.merge(s_h, host.client_stats(x[-8:], y[-8:]))
     want = host.solve(s2_h, target_gamma=1.0)
     assert _rel(eng.factor_solve(f2, s2.moment).cpu(), torch.from_numpy(want)) < REL
+
+
+# --- flash attention ----------------------------------------------------------
+
+ATTN_TOL = {torch.float32: (2e-5, 4e-4), torch.bfloat16: (2e-2, 0.4)}
+
+
+def _attn_inputs(seed, b, hq, hkv, sq, skv, d, dtype, device):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 .to(device, dtype)
+                 for shape in [(b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)])
+
+
+def _attn_check(q, k, v, **kw):
+    before = FA.flash_attention.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    want = ref.mha_ref(q, k, v, **kw)
+    assert out.shape == want.shape and out.dtype == want.dtype
+    rtol, atol = ATTN_TOL[q.dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol, atol=atol)
+
+
+# the cases of tests/test_kernels_attention.py: (b, hq, hkv, sq, skv, d), kw
+ATTN_CASES = [
+    ((1, 4, 4, 128, 128, 64), dict(causal=True)),            # MHA
+    ((2, 8, 2, 128, 128, 64), dict(causal=True)),            # GQA 4:1
+    ((1, 4, 1, 96, 96, 80), dict(causal=True)),              # MQA, ragged seq and head dim
+    ((1, 2, 2, 256, 256, 128), dict(causal=True)),
+    ((1, 4, 4, 128, 128, 64), dict(causal=False)),
+    ((1, 4, 2, 192, 192, 64), dict(causal=True, window=32)),
+    ((1, 4, 2, 192, 192, 64), dict(causal=True, window=64)),
+    ((1, 4, 2, 192, 192, 64), dict(causal=True, window=100)),
+    ((2, 8, 2, 1, 256, 64), dict(causal=True, q_offset=255)),              # decode
+    ((1, 4, 4, 1, 300, 64), dict(causal=True, window=128, q_offset=299)),  # decode, window
+    ((1, 4, 4, 64, 200, 64), dict(causal=False)),            # cross attention, rectangular
+    ((1, 2, 2, 64, 64, 64), dict(causal=True, scale=0.25)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kw", ATTN_CASES)
+def test_flash_attention_matches_plain(cuda, shape, kw, dtype):
+    _attn_check(*_attn_inputs(7, *shape, dtype, cuda), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", [
+    ((4, 16, 8, 2048, 2048, 256), dict(window=1024)),         # gemma3_12b prefill, local
+    ((4, 16, 8, 2048, 2048, 256), dict()),                    # and global
+    ((4, 16, 8, 1, 2064, 256), dict(window=1024, q_offset=2048)),   # its decode step
+    ((4, 16, 8, 1, 2064, 256), dict(q_offset=2048)),
+    ((64, 36, 36, 32, 32, 64), dict()),                       # minicpm_2b trainer forward
+    ((1, 8, 2, 77, 77, 256), dict(window=20)),                # ragged at D = 256
+    ((2, 4, 4, 5, 40, 200), dict(q_offset=100, window=50)),   # rows past every key: zeros
+])
+def test_flash_attention_main_path_shapes(cuda, shape, kw):
+    _attn_check(*_attn_inputs(8, *shape, torch.float32, cuda), **kw)
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_heads(cuda):
+    """The head views of models.layers (a transposed (B, S, H, D)) go in
+    without a copy and give what their contiguous copies give."""
+    rng = np.random.default_rng(9)
+    b, s, hq, hkv, d = 2, 70, 8, 4, 128
+    x = [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32)).to(cuda)
+         for h in (hq, hkv, hkv)]
+    q, k, v = (t.transpose(1, 2) for t in x)
+    assert not q.is_contiguous()
+    out = FA.flash_attention(q, k, v, window=33)
+    want = FA.flash_attention(*(t.contiguous() for t in (q, k, v)), window=33)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    _attn_check(q, k, v, window=33)
+    _attn_check(q[:, :, 1:], k, v, q_offset=1)          # an offset view: scalar loads
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_bad_inputs(cuda):
+    q, k, v = _attn_inputs(10, 1, 4, 2, 8, 8, 64, torch.float32, cuda)
+    before = FA.flash_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):
+        FA.flash_attention(q[:, :3], k, v)                 # 3 query heads over 2 kv heads
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    big = torch.zeros((1, 2, 2, 320), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        FA.flash_attention(big, big, big)
+    assert FA.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_sdpa_on_card_is_the_kernel(cuda):
+    """models.layers.sdpa on CUDA tensors goes through the kernel (window <= 0
+    meaning none) and refuses a logit softcap."""
+    from repro_torch.models import layers as L
+    q, k, v = _attn_inputs(11, 2, 4, 2, 24, 24, 32, torch.float32, cuda)
+    before = FA.flash_attention.launches
+    for window, want_window in [(0, None), (None, None), (7, 7)]:
+        out = L.sdpa(q, k, v, window=window)
+        torch.testing.assert_close(out, ref.mha_ref(q, k, v, window=want_window),
+                                   rtol=2e-5, atol=4e-4)
+    assert FA.flash_attention.launches == before + 3
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        L.sdpa(q, k, v, softcap=30.0)
+
+
+@pytest.mark.cuda
+def test_reduced_serve_on_card_matches_cpu(cuda):
+    """launch.serve.serve of reduced gemma3_12b (a local layer with window 32
+    and a global one, GQA, qk-norm, a prompt of twice the window): the card
+    (every attention call the kernel, 2 prefill + 2 × 7 decode launches)
+    gives the CPU's tokens, and logits within rtol 1e-4 / atol 1e-4 of the
+    largest |logit|."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("gemma3_12b").reduced()
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(cuda)
+
+    p_cpu = T.init_params(cfg, seed=3, device="cpu")
+    p_gpu = to(p_cpu)
+    runs = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        seen = []
+        before = FA.flash_attention.launches
+        toks, _, _ = SV.serve(cfg, 2, 64, 8, seed=3, device=dev, params=params,
+                              on_step=lambda i, lg: seen.append(lg.cpu()))
+        runs[dev] = (toks, torch.stack(seen, 1), FA.flash_attention.launches - before)
+    (tg, lg, ng), (tc, lc, nc) = runs["cuda"], runs["cpu"]
+    assert (ng, nc) == (cfg.num_layers * 8, 0)
+    np.testing.assert_array_equal(tg, tc)
+    top = float(lc.abs().max())
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4 * top)
