@@ -18,8 +18,10 @@ without the repository around it. Phases, each fatal on failure:
      ``multi_gamma_solve``, ``chol_rank_update`` and ``flash_attention``
      against their plain versions on the card, at the shapes of the main
      paths, ragged shapes and (the factors and the sweep) an input that is
-     not positive definite; each timed beside the plain version, one
-     library call that computes the same function, and the card's bound;
+     not positive definite; then the f64 instance of each solve-side kernel
+     at its f64 path's shape against its f64 plain version (relative
+     1e-10); each timed beside the plain version, one library call that
+     computes the same function, and the card's bound;
   3. streamed factor and solve of one SPD system at d = 6144 (the width
      of nemotron4_15b and grok1): the kernel route against the plain
      route on the card, timed beside torch.linalg, and an indefinite
@@ -50,9 +52,15 @@ without the repository around it. Phases, each fatal on failure:
      engine's ``solve`` and ``factor`` / ``factor_solve``, one
      ``blocked_cholesky`` and one ``cholesky_solve`` launch per solve;
   9. rank update: a straggler's 64-row root folded into the cached factor
-     of the slice's aggregate by one ``chol_rank_update`` launch, against
+     of the slice's aggregate by one ``chol_rank_update`` call, against
      the refactor on the card and host f64;
- 10. serve, after the minicpm weights are freed: ``launch.serve.serve`` of
+ 10. f64 device engine: ``AnalyticEngine("torch", dtype=torch.float64,
+     use_kernel=True)`` on the slice's aggregate: the streamed solve at
+     panels of 128, a narrow d = 1536 solve, the 16-ridge sweep and the
+     straggler's rank update, each route's launches counted, each answer
+     within 10·κ·u64 of the numpy_f64 engine, each timed beside
+     torch.linalg in f64;
+ 11. serve, after the minicpm weights are freed: ``launch.serve.serve`` of
      gemma3_12b at full width (all 48 layers, random f32 weights from a
      seed), a prefill of 4 × 2048 tokens and 15 greedy decode steps
      against a 2064-slot KV cache, with the flash kernel's launches
@@ -92,7 +100,8 @@ import torch.nn.functional as F  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,      # f32 outside the tensor cores
-              torch.bfloat16: 989e12}
+              torch.bfloat16: 989e12,
+              torch.float64: 67e12}      # f64 in the tensor cores (34 outside them)
 # tests/test_kernels_gram.py's tolerances: (rtol, atol)
 GRAM_TOL = {torch.float32: (2e-4, 2e-3), torch.bfloat16: (2e-2, 2e-1)}
 # (N, d, C, dtype): the main path's per-batch shape first
@@ -256,14 +265,16 @@ def _slab(gen, rows, cols, width):
     return work[:, width - cols:]
 
 
-def _kernel_row(name, shape, err, rel, ms, plain_ms, library_ms, flops, nbytes, note=""):
-    bound_ms, bound_by = _bound(flops, nbytes)
+def _kernel_row(name, shape, err, rel, ms, plain_ms, library_ms, flops, nbytes, note="",
+                dtype=torch.float32):
+    bound_ms, bound_by = _bound(flops, nbytes, dtype)
     lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
-    log(f"{name} {shape}: max|err|={err:.3e} (relative {rel:.2e}) kernel {ms:.4f} ms, "
+    dt = str(dtype).removeprefix("torch.")
+    log(f"{name} {shape} {dt}: max|err|={err:.3e} (relative {rel:.2e}) kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library {lib}, bound {bound_ms:.5f} ms ({bound_by}; "
         f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB) = {100 * bound_ms / ms:.2f}% "
         f"of bound{note}")
-    return dict(shape=list(shape), max_abs_err=err, rel_err=rel, ms=ms,
+    return dict(shape=list(shape), dtype=dt, max_abs_err=err, rel_err=rel, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, flops=flops, bytes=nbytes)
 
@@ -728,7 +739,7 @@ BLOCKED_REL = 1e-4
 FACTOR_SHAPES = [(1, 1536), (1, 128), (3, 130)]           # (m, d)
 SOLVE_SHAPES = [(1, 1536, 16), (1, 128, 40)]              # (m, d, c)
 SWEEP_SHAPES = [(2304, 16, 16), (130, 7, 11)]             # (d, c, n_g)
-RANK_SHAPES = [(2304, 64), (130, 3)]                      # (d, k)
+RANK_SHAPES = [(2304, 64), (2304, 144), (130, 3)]         # (d, k); 144 = d//16
 
 
 def time_auto(fn) -> float:
@@ -847,7 +858,139 @@ def blocked_phase(K, ref):
             time_auto(lambda: ref.chol_rank_update_ref(l, xs)),
             time_auto(lambda: torch.linalg.cholesky(l @ l.T + xs.T @ xs)),
             2 * k * d * d, 4 * (2 * d * d + k * d),
-            f"; library torch.linalg.cholesky(L·Lᵀ + xsᵀ·xs); {d} sequential columns"))
+            f"; library torch.linalg.cholesky(L·Lᵀ + xsᵀ·xs); {d} sequential columns in "
+            f"{-(-d // R.NB)} panels, {R.cuda_launches(d, k)} CUDA launches a call"))
+        if d >= 2048:
+            rows["chol_rank_update"][-1]["profile"] = prof = kernel_breakdown(
+                lambda: R.chol_rank_update(l, xs),
+                ("panel_kernel", "trailing_kernel", "transpose_kernel"))
+            _log_breakdown(f"chol_rank_update {(d, k)} float32, one call profiled", prof)
+    return rows
+
+
+def kernel_breakdown(fn, parts) -> dict:
+    """One call of ``fn`` under torch.profiler: device milliseconds and
+    launches by part (the first of ``parts`` each kernel's name contains,
+    else "other"), the span from the first kernel's start to the last one's
+    end, and the share of that span no kernel ran. None where the profiler
+    saw no device activity."""
+    fn()
+    _, spans = _device_spans(fn)
+    if not spans:
+        return None
+    by = {}
+    for start, end, name in spans:
+        part = next((p for p in parts if p in name), "other")
+        ms, n = by.get(part, (0.0, 0))
+        by[part] = (ms + (end - start) / 1e3, n + 1)
+    span = (spans[-1][1] - spans[0][0]) / 1e3
+    return dict(by=by, span_ms=span, idle_share=1 - _busy_ms(spans) / span)
+
+
+def _log_breakdown(what, r) -> None:
+    if r is None:
+        log(f"{what}: the profiler saw no device activity (not measured)")
+        return
+    parts = ", ".join(f"{p} {ms:.4f} ms in {n} ({1e3 * ms / n:.2f} us each)"
+                      for p, (ms, n) in r["by"].items())
+    log(f"{what}: device span {r['span_ms']:.4f} ms (idle share {r['idle_share']:.3f}); {parts}")
+
+
+# --- the f64 instances of the solve-side kernels: kernel phase -------------------
+
+# each f64 instance against its plain version in f64 on the same inputs:
+# relative 1e-10 of the largest entry, the reference's x64 bar for its
+# kernel solves (tests/test_solve_kernels.py); bound at the f64 peak
+F64_REL = 1e-10
+F64_PANEL_B = 128        # the f64 panel kernels' width (panel.MAX_PANEL)
+
+
+def f64_kernel_phase(K, ref):
+    """Every solve-side kernel's f64 instance at the shape its f64 main path
+    gives it, against its f64 plain version, timed beside it, the f64
+    library call and the bound. Rows join each kernel's table."""
+    P, B, R = K.P, K.B, K.R
+    f64 = torch.float64
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(64)
+    rows = {}
+
+    def check(name, shape, got, want):
+        rel = _rel(got, want)
+        if not rel <= F64_REL or not torch.isfinite(got).all():
+            fail(f"{name} {shape} float64: relative error {rel:.2e} against the plain "
+                 f"version, above {F64_REL}")
+        return rel
+
+    def add(name, shape, got, want, kernel, plain, library, flops, nbytes, note=""):
+        rel = check(name, shape, got, want)
+        rows.setdefault(name, []).append(_kernel_row(
+            name, shape, _abs(got, want), rel, time_auto(kernel), time_auto(plain),
+            None if library is None else time_auto(library), flops, nbytes, note, f64))
+
+    b = F64_PANEL_B
+    a = _spd_block(gen, b).double()
+    l, z = P.panel_factor(a)
+    l_ref, z_ref = ref.panel_factor_ref(a)
+    torch.cuda.synchronize()
+    check("panel_factor", (b,), l, l_ref)
+    tri, eye = b * (b + 1) // 2, torch.eye(b, device="cuda", dtype=f64)
+    add("panel_factor", (b,), z, z_ref, lambda: P.panel_factor(a),
+        lambda: ref.panel_factor_ref(a), None, 2 * b ** 3 / 3, 8 * (tri + 2 * b * b),
+        f"; {2 * b} sequential steps")
+    add("panel_tri_inv", (b,), P.panel_tri_inv(l), ref.panel_tri_inv_ref(l),
+        lambda: P.panel_tri_inv(l), lambda: ref.panel_tri_inv_ref(l),
+        lambda: torch.linalg.solve_triangular(l, eye, upper=False), b ** 3 / 3,
+        8 * (tri + b * b), f"; {b} sequential steps")
+    d = 2304
+    raw = _slab(gen, d, b, d).double()
+    zinv = torch.tril(torch.randn((b, b), generator=gen, device="cuda")).double()
+    add("panel_trsm", (d, b), P.panel_trsm(raw, zinv), ref.panel_trsm_ref(raw, zinv),
+        lambda: P.panel_trsm(raw, zinv), lambda: ref.panel_trsm_ref(raw, zinv),
+        lambda: torch.mm(raw, zinv.T), d * b * (b + 1), 8 * (2 * d * b + tri))
+    w = d - b
+    trail = _slab(gen, d, w, w + b).double()
+    lp = torch.randn((d, b), generator=gen, device="cuda").double()
+    pt = torch.randn((w, b), generator=gen, device="cuda").double()
+    add("panel_update", (d, w, b), P.panel_update(trail, lp, pt),
+        ref.panel_update_ref(trail, lp, pt), lambda: P.panel_update(trail, lp, pt, out=trail),
+        lambda: ref.panel_update_ref(trail, lp, pt, out=trail),
+        lambda: torch.addmm(trail, lp, pt.T, alpha=-1), 2 * d * w * b,
+        8 * (2 * d * w + d * b + w * b))
+
+    n = NARROW_WIDE_D
+    a = _spd_block(gen, n).double()[None]
+    add("blocked_cholesky", (1, n), B.blocked_cholesky(a), ref.blocked_cholesky_ref(a),
+        lambda: B.blocked_cholesky(a), lambda: ref.blocked_cholesky_ref(a),
+        lambda: torch.linalg.cholesky(a), n ** 3 / 3, 8 * (_tri(n) + n * n))
+    l = ref.blocked_cholesky_ref(a)
+    rhs = torch.randn((1, n, NARROW_C), generator=gen, device="cuda").double()
+    add("cholesky_solve", (1, n, NARROW_C), B.cholesky_solve(l, rhs),
+        ref.cholesky_solve_ref(l, rhs), lambda: B.cholesky_solve(l, rhs),
+        lambda: ref.cholesky_solve_ref(l, rhs), lambda: torch.cholesky_solve(rhs, l),
+        2 * n * n * NARROW_C, 8 * (_tri(n) + 2 * n * NARROW_C))
+    c, n_g = 16, 16
+    a = _spd_block(gen, d).double()
+    q = torch.randn((d, c), generator=gen, device="cuda").double()
+    gammas = torch.logspace(-4, 0, n_g, device="cuda", dtype=f64) * torch.trace(a) / d
+    eye = torch.eye(d, device="cuda", dtype=f64)
+    add("multi_gamma_solve", (d, c, n_g), B.multi_gamma_solve(a, q, gammas),
+        ref.multi_gamma_solve_ref(a, q, gammas), lambda: B.multi_gamma_solve(a, q, gammas),
+        lambda: ref.multi_gamma_solve_ref(a, q, gammas),
+        lambda: torch.cholesky_solve(q.expand(n_g, d, c),
+                                     torch.linalg.cholesky(a + gammas[:, None, None] * eye)),
+        n_g * (d ** 3 / 3 + 2 * d * d * c), 8 * (_tri(d) + d * c + n_g + n_g * d * c))
+    k = STRAGGLER_ROWS
+    l = torch.linalg.cholesky(a).contiguous()
+    xs = torch.randn((k, d), generator=gen, device="cuda").double()
+    add("chol_rank_update", (d, k), R.chol_rank_update(l, xs),
+        ref.chol_rank_update_ref(l, xs), lambda: R.chol_rank_update(l, xs),
+        lambda: ref.chol_rank_update_ref(l, xs),
+        lambda: torch.linalg.cholesky(l @ l.T + xs.T @ xs), 2 * k * d * d,
+        8 * (2 * d * d + k * d), f"; {R.cuda_launches(d, k)} CUDA launches a call")
+    rows["chol_rank_update"][-1]["profile"] = prof = kernel_breakdown(
+        lambda: R.chol_rank_update(l, xs), ("panel_kernel", "trailing_kernel", "transpose_kernel"))
+    _log_breakdown(f"chol_rank_update {(d, k)} float64, one call profiled", prof)
     return rows
 
 
@@ -1061,6 +1204,19 @@ STRAGGLER_ROWS = 64
 RANK_RHO = 1e-2          # the factor's ridge γ = ρ·tr(G)/d
 
 
+def _straggler(api, server, x_te, y_te, fl, c):
+    """A straggler's report of STRAGGLER_ROWS held-out pooled embeddings
+    (folded on the card), and a copy of ``server`` that has merged it."""
+    dev = torch.device("cuda")
+    emb = torch.tensor(x_te[:STRAGGLER_ROWS], dtype=torch.float32, device=dev)
+    onehot = F.one_hot(torch.as_tensor(y_te[:STRAGGLER_ROWS], device=dev), c).float()
+    report = api.AFLClient(10_000, gamma=fl.gamma, backend="torch", device=dev,
+                           use_kernel=True).update(emb, onehot).report()
+    merged_server = api.AFLServer.from_state(server.state())
+    merged_server.submit(report)
+    return report, merged_server
+
+
 def rank_update_phase(K, engine, api, server, x_te, y_te, fl):
     """Factor the slice's aggregate on the card, then fold a straggler's
     64-row root into the factor with one chol_rank_update launch."""
@@ -1071,12 +1227,7 @@ def rank_update_phase(K, engine, api, server, x_te, y_te, fl):
     gamma = RANK_RHO * float(np.trace(g)) / d
     fact = eng.factor(stats, target_gamma=gamma)              # the panel kernels
     dev = torch.device("cuda")
-    emb = torch.tensor(x_te[:STRAGGLER_ROWS], dtype=torch.float32, device=dev)
-    onehot = F.one_hot(torch.as_tensor(y_te[:STRAGGLER_ROWS], device=dev), c).float()
-    report = api.AFLClient(10_000, gamma=fl.gamma, backend="torch", device=dev,
-                           use_kernel=True).update(emb, onehot).report()
-    merged_server = api.AFLServer.from_state(server.state())
-    merged_server.submit(report)
+    report, merged_server = _straggler(api, server, x_te, y_te, fl, c)
     g_m, q_m, merged = _card_stats(merged_server, engine)
     root = torch.tensor(report.root, dtype=torch.float32, device=dev)
     _zero(K)
@@ -1099,6 +1250,7 @@ def rank_update_phase(K, engine, api, server, x_te, y_te, fl):
     rel_l = _rel(updated.handle.double().cpu(), torch.from_numpy(l_host))
     rel_w = _rel(w.double().cpu(), torch.from_numpy(w_host))
     ms_re = time_wall(lambda: eng.factor(merged, target_gamma=gamma), reps=3)
+    ms_fu = time_wall(lambda: eng.factor_update(fact, merged, root, target_gamma=gamma), reps=3)
     a_card = merged.gram + gamma * torch.eye(d, device=dev)
     ms_lib = time_wall(lambda: torch.linalg.cholesky(a_card), reps=3)
     log(f"rank update d={d}: a {root.shape[0]}-row root (report of {STRAGGLER_ROWS} held-out "
@@ -1106,14 +1258,163 @@ def rank_update_phase(K, engine, api, server, x_te, y_te, fl):
         f"{launches}, {ms_update:.2f} ms with the NaN check; updated L vs the kernel route's "
         f"refactor {rel_re:.2e} = {rel_re / ku:.3f}·κ·u, vs host f64 Cholesky {rel_l:.2e} = "
         f"{rel_l / ku:.3f}·κ·u; its factor_solve vs host f64 weight {rel_w:.2e} = "
-        f"{rel_w / ku:.3f}·κ·u (limits {DEVICE_HOST_KU:g}·κ·u); refactor on the card "
-        f"{ms_re:.2f} ms, torch.linalg.cholesky {ms_lib:.2f} ms")
+        f"{rel_w / ku:.3f}·κ·u (limits {DEVICE_HOST_KU:g}·κ·u); factor_update again "
+        f"{ms_fu:.2f} ms (median of 3), refactor on the card {ms_re:.2f} ms, "
+        f"torch.linalg.cholesky {ms_lib:.2f} ms")
     if max(rel_re, rel_l, rel_w) > DEVICE_HOST_KU * ku:
         fail(f"rank update: {rel_re:.2e} / {rel_l:.2e} / {rel_w:.2e} from the refactor, the "
              "host factor and the host weight")
     if torch.triu(updated.handle, 1).any():
         fail("rank update: the updated factor's upper triangle is not zero")
     return launches
+
+
+# --- the f64 device engine on the slice's aggregate ------------------------------
+
+F64_U = 2.0 ** -53
+
+
+def _f64_stats(server, engine):
+    """A server's aggregate as f64 statistics on the card (raw Gram)."""
+    g, q, stats = _card_stats(server, engine)
+    dev = torch.device("cuda")
+    return g, q, engine.SuffStats(torch.tensor(g, dtype=torch.float64, device=dev),
+                                  torch.tensor(q, dtype=torch.float64, device=dev),
+                                  stats.count.double(), stats.clients.double())
+
+
+def _f64_check(what, rel, cond) -> str:
+    if not rel <= DEVICE_HOST_KU * cond * F64_U:
+        fail(f"f64 {what}: {rel:.2e} from numpy_f64, more than {DEVICE_HOST_KU:g}·κ·u64 "
+             f"(κ={cond:.3e})")
+    return (f"{rel:.2e} = {rel / (cond * F64_U):.3f}·κ·u64 (κ={cond:.3e}; limit "
+            f"{DEVICE_HOST_KU:g}·κ·u64)")
+
+
+def f64_engine_phase(K, S, engine, api, server, x_te, y_te, fl):
+    """``AnalyticEngine("torch", dtype=torch.float64, use_kernel=True)`` on
+    the card, each route counted from zero: the slice's aggregate solved
+    through the streamed route at panels of 128, a narrow d = 1536 system,
+    the γ sweep and a straggler's rank update; each held against the
+    numpy_f64 engine within 10·κ·u64 and timed beside torch.linalg in f64."""
+    f64 = torch.float64
+    P = K.P
+    g, q, stats = _f64_stats(server, engine)
+    d, c = q.shape
+    eng = engine.AnalyticEngine("torch", dtype=f64, device="cuda", use_kernel=True)
+    host = engine.AnalyticEngine("numpy_f64")
+    eighs = _counted_eigh(eng)
+    evals = np.linalg.eigvalsh(g)
+    scale = float(np.trace(g)) / d
+    dev = torch.device("cuda")
+    total = {name: 0 for name in K.ALL}
+
+    def counted(fn, want, what):
+        _zero(K)
+        out = fn()
+        torch.cuda.synchronize()
+        got = _read(K)
+        _only(got, want, what)
+        for name in total:
+            total[name] += got[name]
+        return out
+
+    # the streamed route at d = 2304: panels of STREAM_BLOCK_F64
+    gamma = RANK_RHO * scale
+    b = S.stream_block(f64)
+    n = -(-d // b)
+    w = counted(lambda: eng.solve(stats, target_gamma=gamma),
+                {"panel_factor": n, "panel_trsm": n, "panel_update": n - 1,
+                 "panel_tri_inv": n}, "the f64 streamed solve")
+    cond = float((evals[-1] + gamma) / (evals[0] + gamma))
+    rel = _rel(w.cpu(), torch.from_numpy(server.solve(target_gamma=gamma)))
+    a = stats.gram + gamma * torch.eye(d, device=dev, dtype=f64)
+    ms = time_wall(lambda: eng.solve(stats, target_gamma=gamma), reps=3)
+    ms_lib = time_wall(lambda: torch.cholesky_solve(stats.moment, torch.linalg.cholesky(a)),
+                       reps=3)
+    log(f"f64 solve d={d} (streamed, panels of {b}: {n} / {n} / {n - 1} / {n} launches) at "
+        f"ρ={RANK_RHO:g}: vs numpy_f64 {_f64_check('solve', rel, cond)}; kernel route "
+        f"{ms:.2f} ms, torch.linalg.cholesky + cholesky_solve f64 {ms_lib:.2f} ms")
+    times = dict(solve_ms=ms, solve_library_ms=ms_lib, solve_rel=rel)
+
+    # a narrow system: d = 1536 through blocked_cholesky and cholesky_solve
+    nd = NARROW_WIDE_D
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(nd + 64)
+    an = _spd_block(gen, nd).double()
+    rhs = torch.randn((nd, NARROW_C), generator=gen, device="cuda").double()
+    one = torch.tensor(1.0, device=dev, dtype=f64)
+    sn = engine.SuffStats(an, rhs, one, one)
+    wn = counted(lambda: eng.solve(sn), {"blocked_cholesky": 1, "cholesky_solve": 1},
+                 f"the f64 d = {nd} solve")
+    an_h, rhs_h = an.cpu().numpy(), rhs.cpu().numpy()
+    w_h = host.solve(engine.SuffStats(an_h, rhs_h, 1.0, 1.0))
+    ev = np.linalg.eigvalsh(an_h)
+    rel = _rel(wn.cpu(), torch.from_numpy(w_h))
+    ms = time_wall(lambda: eng.solve(sn), reps=3)
+    ms_lib = time_wall(lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky(an)), reps=3)
+    log(f"f64 narrow d={nd}: vs numpy_f64 {_f64_check('narrow solve', rel, ev[-1] / ev[0])}; "
+        f"kernel route {ms:.2f} ms, torch.linalg.cholesky + cholesky_solve f64 {ms_lib:.3f} ms")
+    times.update(narrow_ms=ms, narrow_library_ms=ms_lib, narrow_rel=rel)
+
+    # the γ sweep: one multi_gamma_solve launch, no eigendecomposition
+    gammas = [float(rho * scale) for rho in SWEEP_RHOS]
+    ws = counted(lambda: eng.solve_multi_gamma(stats, gammas), {"multi_gamma_solve": 1},
+                 "the f64 sweep")
+    if eighs[0]:
+        fail("the f64 sweep fell back to the eigendecomposition")
+    worst = 0.0
+    for rho, gm, wg, wh in zip(SWEEP_RHOS, gammas, ws, server.solve_multi_gamma(gammas)):
+        cond = float((evals[-1] + gm) / (evals[0] + gm))
+        rel = _rel(wg.cpu(), torch.from_numpy(wh))
+        worst = max(worst, rel / (cond * F64_U))
+        log(f"f64 sweep ρ={rho:.3g}: vs numpy_f64 {_f64_check(f'sweep at ρ={rho:.3g}', rel, cond)}")
+    gt = torch.tensor(gammas, device=dev, dtype=f64)
+    eye = torch.eye(d, device=dev, dtype=f64)
+    ms = time_wall(lambda: eng.solve_multi_gamma(stats, gammas), reps=2)
+    ms_lib = time_wall(lambda: torch.cholesky_solve(
+        stats.moment.expand(len(gammas), d, c),
+        torch.linalg.cholesky(stats.gram + gt[:, None, None] * eye)), reps=2)
+    log(f"f64 sweep d={d}, {len(gammas)} ridges: engine kernel route {ms:.2f} ms, batched "
+        f"torch.linalg.cholesky + cholesky_solve f64 {ms_lib:.2f} ms; worst {worst:.3f}·κ·u64")
+    times.update(sweep_ms=ms, sweep_library_ms=ms_lib, sweep_worst_ku=worst)
+
+    # a straggler folded into the cached f64 factor: one chol_rank_update call
+    fact = eng.factor(stats, target_gamma=gamma)
+    report, merged_server = _straggler(api, server, x_te, y_te, fl, c)
+    g_m, q_m, merged = _f64_stats(merged_server, engine)
+    root = torch.tensor(report.root, dtype=f64, device=dev)
+    t0 = time.perf_counter()
+    updated = counted(lambda: eng.factor_update(fact, merged, root, target_gamma=gamma),
+                      {"chol_rank_update": 1}, "the f64 factor update")
+    ms_update = 1e3 * (time.perf_counter() - t0)
+    # the numpy_f64 engine folds the same root into its own factor: the
+    # root's f32 rounding (rootᵀroot against the report's Gram) is common
+    # to both, and not the kernel's error
+    stats_h = engine.SuffStats(g, q, 0.0, 1.0)
+    merged_h = engine.SuffStats(g_m, q_m, 0.0, 1.0)
+    f_h = host.factor_update(host.factor(stats_h, target_gamma=gamma), merged_h,
+                             np.asarray(report.root, np.float64), target_gamma=gamma)
+    ev = np.linalg.eigvalsh(g_m + gamma * np.eye(d))
+    cond = float(ev[-1] / ev[0])
+    rel_l = _rel(updated.handle.cpu(), torch.from_numpy(np.asarray(f_h.handle).T))
+    w_u = eng.factor_solve(updated, merged.moment)
+    rel_w = _rel(w_u.cpu(), torch.from_numpy(host.factor_solve(f_h, q_m)))
+    if torch.triu(updated.handle, 1).any():
+        fail("f64 rank update: the updated factor's upper triangle is not zero")
+    ms_re = time_wall(lambda: eng.factor(merged, target_gamma=gamma), reps=3)
+    ms_fu = time_wall(lambda: eng.factor_update(fact, merged, root, target_gamma=gamma), reps=3)
+    a_card = merged.gram + gamma * eye
+    ms_lib = time_wall(lambda: torch.linalg.cholesky(a_card), reps=3)
+    log(f"f64 rank update d={d}, a {root.shape[0]}-row root: {ms_update:.2f} ms with the NaN "
+        f"check; updated L vs numpy_f64's update {_f64_check('rank update L', rel_l, cond)}; "
+        f"its factor_solve vs numpy_f64 {_f64_check('rank update weight', rel_w, cond)}; "
+        f"factor_update again {ms_fu:.2f} ms (median of 3), refactor on the card "
+        f"{ms_re:.2f} ms, torch.linalg.cholesky f64 {ms_lib:.2f} ms")
+    times.update(update_ms=ms_update, update_again_ms=ms_fu, refactor_ms=ms_re,
+                 cholesky_library_ms=ms_lib, update_rel_l=rel_l, update_rel_w=rel_w)
+    log(f"f64 engine: launches {total}")
+    return total, times
 
 
 # --- flash attention: kernel phase ----------------------------------------------
@@ -1230,10 +1531,9 @@ def _kernel_category(name: str) -> str:
     return "other"
 
 
-def profile_window(fn) -> dict:
-    """``fn`` under torch.profiler: host wall to a synchronised end, the
-    card's kernel time by category, the union of kernel intervals (busy)
-    and the idle share. None where the profiler saw no device activity."""
+def _device_spans(fn):
+    """``fn`` under torch.profiler: host milliseconds to a synchronised end,
+    and the card's kernels as (start, end, name) in microseconds, sorted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1243,17 +1543,31 @@ def profile_window(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
-        return None
-    by = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    return wall_ms, sorted((e.time_range.start, e.time_range.end, e.name)
+                           for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def _busy_ms(spans) -> float:
+    """Milliseconds in the union of the kernels' intervals."""
     busy, reach = 0.0, -math.inf
-    for start, end, name in spans:
-        by[_kernel_category(name)] += (end - start) / 1e3
+    for start, end, _ in spans:
         if end > reach:
             busy += (end - max(start, reach)) / 1e3
             reach = end
+    return busy
+
+
+def profile_window(fn) -> dict:
+    """``fn`` under torch.profiler: host wall to a synchronised end, the
+    card's kernel time by category, the union of kernel intervals (busy)
+    and the idle share. None where the profiler saw no device activity."""
+    wall_ms, spans = _device_spans(fn)
+    if not spans:
+        return None
+    by = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for start, end, name in spans:
+        by[_kernel_category(name)] += (end - start) / 1e3
+    busy = _busy_ms(spans)
     return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
                 kernels=len(spans), by_ms=by)
 
@@ -1470,6 +1784,8 @@ def main() -> None:
     rows = {"gram_update": kernel_phase(G, ref)}
     rows.update(panel_phase(P, ref))
     rows.update(blocked_phase(K, ref))
+    for name, more in f64_kernel_phase(K, ref).items():
+        rows[name].extend(more)
     rows["flash_attention"] = attention_phase(FA, ref)
     streamed = streamed_phase(S, P)
     small_check(get_config, D, T, train, FLConfig)
@@ -1480,6 +1796,9 @@ def main() -> None:
              sweep_phase(K, ref, S, engine, api, server, x_te, y_te),
              narrow_phase(K, ref, engine, api, D),
              rank_update_phase(K, engine, api, server, x_te, y_te, FLConfig(gamma=1.0))]
+    f64_launches, f64_times = f64_engine_phase(K, S, engine, api, server, x_te, y_te,
+                                               FLConfig(gamma=1.0))
+    paths.append(f64_launches)
     del server
     gc.collect()
     torch.cuda.empty_cache()
@@ -1513,6 +1832,7 @@ def main() -> None:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shapes=rows[name]))
     log(json.dumps({"streamed": streamed}))
+    log(json.dumps({"f64_engine": f64_times}))
     log(json.dumps({"serve": served}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

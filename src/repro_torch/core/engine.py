@@ -440,8 +440,12 @@ def _chol_rank_update_grouped(R, roots):
 
 
 def _factor_has_nan(f: Factorization) -> bool:
-    """True when a factor handle carries NaNs."""
-    return bool(np.any(np.isnan(to_numpy(f.handle))))
+    """True when a factor handle carries NaNs. A tensor is checked where it
+    lies: one flag crosses to the host, not the (d, d) factor."""
+    h = f.handle
+    if isinstance(h, torch.Tensor):
+        return bool(torch.isnan(h).any())
+    return bool(np.isnan(np.asarray(h)).any())
 
 
 def get_backend(name: str, **kwargs):

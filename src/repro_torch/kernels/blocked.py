@@ -7,9 +7,11 @@ width. Each is one launch, one block of the card per system (per γ).
 
 The kernels are ``csrc/blocked.cu`` (its header states the design and the
 bounds on an H100), built by ``kernels.build`` and bound with ``ctypes``.
-They take contiguous f32 CUDA tensors and read only the lower triangle of
-a system or factor. ``kernels.solve`` dispatches between these wrappers
-(CUDA tensors) and the plain versions in ``kernels.ref`` (CPU tensors).
+They take contiguous CUDA tensors, every operand of one call f32 or every
+one f64 (each kernel has an instance of each), and read only the lower
+triangle of a system or factor. ``kernels.solve`` dispatches between these
+wrappers (CUDA tensors) and the plain versions in ``kernels.ref`` (CPU
+tensors).
 Each wrapper counts its launches in ``.launches``.
 """
 
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -28,9 +31,9 @@ PANEL = 128              # the panel width compiled into the kernels (kPanel)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "afl_blocked_cholesky_f32": [_P, _P, _P, _I, _I, _P],
-    "afl_cholesky_solve_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "afl_multi_gamma_solve_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "afl_blocked_cholesky": [_P, _P, _P, _I, _I, _P],
+    "afl_cholesky_solve": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "afl_multi_gamma_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -40,18 +43,26 @@ def build() -> _build.Build:
     declare its entry points."""
     built = _build.load(SOURCE)[0]
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(built.lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for suffix in _build.SUFFIX.values():
+            fn = getattr(built.lib, f"{name}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return built
 
 
-def _operand(name: str, t: torch.Tensor, shape: tuple[int, ...]) -> None:
+def _entry(name: str, dtype: torch.dtype):
+    return getattr(build().lib, f"afl_{name}_{_build.SUFFIX[dtype]}")
+
+
+def _operand(name: str, t: torch.Tensor, shape: tuple[int, ...],
+             dtype: Optional[torch.dtype] = None) -> None:
+    """Checks one operand; ``dtype`` is the call's (its first operand's)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: the blocked kernels need CUDA tensors, got {t.device} "
                          "(kernels.solve takes the plain version for CPU tensors)")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the blocked kernels take f32, got {t.dtype}")
+    if t.dtype not in _build.SUFFIX or t.dtype != (dtype or t.dtype):
+        raise TypeError(f"{name}: the blocked kernels take f32 or f64, every operand of "
+                        f"one dtype, got {t.dtype}" + (f" beside {dtype}" if dtype else ""))
     if tuple(t.shape) != shape or 0 in shape:
         raise ValueError(f"{name}: expected a non-empty {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -75,7 +86,7 @@ def _check(err: int, name: str) -> None:
 
 
 def _scratch(*shape: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.empty(shape, dtype=torch.float32, device=like.device)
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
 def _inverses(n: int, d: int, like: torch.Tensor) -> torch.Tensor:
@@ -89,13 +100,12 @@ def blocked_cholesky(a: torch.Tensor) -> torch.Tensor:
     system that is not positive definite gives NaNs."""
     m, d = _systems("blocked_cholesky", a)
     _operand("blocked_cholesky a", a, (m, d, d))
-    lib = build().lib
+    fn = _entry("blocked_cholesky", a.dtype)
     out = torch.empty_like(a)
     panels = _scratch(m, d, PANEL, like=a)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.afl_blocked_cholesky_f32(a.data_ptr(), out.data_ptr(), panels.data_ptr(),
-                                           m, d, stream)
+        err = fn(a.data_ptr(), out.data_ptr(), panels.data_ptr(), m, d, stream)
     _check(err, "blocked_cholesky")
     blocked_cholesky.launches += 1
     return out
@@ -110,16 +120,16 @@ def cholesky_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"cholesky_solve: expected (m, d, c) right-hand sides, got "
                          f"{tuple(b.shape)}")
     c = b.shape[2]
-    _operand("cholesky_solve b", b, (m, d, c))
+    _operand("cholesky_solve b", b, (m, d, c), l.dtype)
     _same_device(l, b)
-    lib = build().lib
+    fn = _entry("cholesky_solve", l.dtype)
     x = torch.empty_like(b)
     zs = _inverses(m, d, like=l)
     y = torch.empty_like(b)
     with torch.cuda.device(l.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.afl_cholesky_solve_f32(l.data_ptr(), b.data_ptr(), x.data_ptr(),
-                                         zs.data_ptr(), y.data_ptr(), m, d, c, stream)
+        err = fn(l.data_ptr(), b.data_ptr(), x.data_ptr(), zs.data_ptr(), y.data_ptr(),
+                 m, d, c, stream)
     _check(err, "cholesky_solve")
     cholesky_solve.launches += 1
     return x
@@ -136,10 +146,10 @@ def multi_gamma_solve(c: torch.Tensor, q: torch.Tensor, gammas: torch.Tensor) ->
     d, n_cls = q.shape
     n_g = gammas.shape[0]
     _operand("multi_gamma_solve C", c, (d, d))
-    _operand("multi_gamma_solve Q", q, (d, n_cls))
-    _operand("multi_gamma_solve gammas", gammas, (n_g,))
+    _operand("multi_gamma_solve Q", q, (d, n_cls), c.dtype)
+    _operand("multi_gamma_solve gammas", gammas, (n_g,), c.dtype)
     _same_device(c, q, gammas)
-    lib = build().lib
+    fn = _entry("multi_gamma_solve", c.dtype)
     work = _scratch(n_g, d, d, like=c)
     zs = _inverses(n_g, d, like=c)
     panels = _scratch(n_g, d, PANEL, like=c)
@@ -147,7 +157,7 @@ def multi_gamma_solve(c: torch.Tensor, q: torch.Tensor, gammas: torch.Tensor) ->
     w = _scratch(n_g, d, n_cls, like=c)
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.afl_multi_gamma_solve_f32(
+        err = fn(
             c.data_ptr(), q.data_ptr(), gammas.data_ptr(), work.data_ptr(), zs.data_ptr(),
             panels.data_ptr(), y.data_ptr(), w.data_ptr(), n_g, d, n_cls, stream)
     _check(err, "multi_gamma_solve")

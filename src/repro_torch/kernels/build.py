@@ -19,9 +19,13 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a solve-side kernel's entry point for each scalar type: afl_<kernel>_<suffix>
+SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 @dataclasses.dataclass(frozen=True)

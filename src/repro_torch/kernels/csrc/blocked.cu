@@ -1,5 +1,6 @@
 // Blocked Cholesky, batched triangular solve and the fused γ sweep of
-// systems narrower than the streamed path's 2048, in f32:
+// systems narrower than the streamed path's 2048, in f32 and in f64 (one
+// template, instantiated twice):
 //
 //   blocked_cholesky   a (m, d, d) SPD                  ->  L (m, d, d)
 //   cholesky_solve     L (m, d, d), b (m, d, c)         ->  x, L Lᵀ x = b
@@ -15,8 +16,9 @@
 // Only the lower triangle of a, L and C is read. L comes back with an
 // exact-zero upper triangle. A system that is not positive definite gives
 // NaN (sqrt of a negative pivot) and leaves the other systems alone: every
-// product is a plain f32 FMA (no TF32, no mma), sqrt and division are IEEE
-// and no pivot is clamped.
+// product is a plain FMA in the input's type (no TF32, no mma; the f64
+// instances use the card's native FP64), sqrt and division are IEEE and no
+// pivot is clamped.
 //
 // Design. As the TPU kernel is one pallas_call whose grid walks the
 // systems, each of these is one launch whose blocks are the systems (the
@@ -55,6 +57,10 @@
 // a blocked micro-factor with fewer barriers, cp.async/TMA staging and
 // wgmma at a lower precision than f32 are later work.
 //
+// Shared memory (kSmemValues values a block): 60.8 KB in f32, 121.6 KB in
+// f64, under the 227 KB a block can take, so the f64 instances keep the
+// panel width of 128 and the same schedule.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libblocked.so blocked.cu
 // Each entry point launches on the caller's stream, does not synchronise,
@@ -69,6 +75,7 @@
 
 namespace {
 
+using afl::fma_;
 using afl_tile::kLoadsPerThread;
 using afl_tile::kStep;
 using afl_tile::kThreads;   // 256: the tile loop's block, and every kernel's here
@@ -76,40 +83,45 @@ using afl_tile::kTile;
 using afl_tri::tri;
 
 constexpr int kPanel = 128;                    // panel width (DEFAULT_BLOCK)
-constexpr int kPanelFloats = kPanel * kPanel;
+constexpr int kPanelValues = kPanel * kPanel;
 constexpr int kSolveK = 32;                    // K staged per step of a solve product
 constexpr int kSolveCols = 16;                 // right-hand-side columns per pass
 constexpr int kSolvePad = kPanel + 1;
 
-// Dynamic shared memory, in floats: the packed triangle and a row or column
-// of it, the tile loop's two staging buffers, the solve products' staging.
-constexpr int kTriFloats = kPanel * (kPanel + 1) / 2 + kPanel;   // 8384
-constexpr int kStageFloats = kStep * (kTile + afl_tile::kPad);            // 1088
-constexpr int kSolveAFloats = kSolveK * kSolvePad;                        // 4128
-constexpr int kSolveYFloats = kSolveK * kSolveCols;                       // 512
-constexpr int kSmemFloats = kTriFloats + 2 * kStageFloats + kSolveAFloats + kSolveYFloats;
-constexpr int kSmemBytes = kSmemFloats * static_cast<int>(sizeof(float));
-static_assert(kTriFloats % 4 == 0 && kStageFloats % 4 == 0 && kSolveAFloats % 4 == 0,
+// Dynamic shared memory, in values of the type: the packed triangle and a
+// row or column of it, the tile loop's two staging buffers, the solve
+// products' staging.
+constexpr int kTriValues = kPanel * (kPanel + 1) / 2 + kPanel;   // 8384
+constexpr int kStageValues = kStep * (kTile + afl_tile::kPad);            // 1088
+constexpr int kSolveAValues = kSolveK * kSolvePad;                        // 4128
+constexpr int kSolveYValues = kSolveK * kSolveCols;                       // 512
+constexpr int kSmemValues = kTriValues + 2 * kStageValues + kSolveAValues + kSolveYValues;
+template <class T>
+constexpr int kSmemBytes = kSmemValues * static_cast<int>(sizeof(T));   // 60.8 / 121.6 KB
+static_assert(kTriValues % 4 == 0 && kStageValues % 4 == 0 && kSolveAValues % 4 == 0,
               "16-byte aligned staging buffers");
 static_assert(kThreads == 2 * kPanel, "two threads for each row of a solve product");
 
+template <class T>
 struct Smem {
-  float* tri;                 // packed lower triangle of a diagonal block
-  float* buf;                 // kPanel floats: a column or a row of it
-  afl_tile::Stage a_tile;
-  afl_tile::Stage b_tile;
-  float* solve_a;             // [kSolveK][kSolvePad]
-  float* solve_y;             // [kSolveK][kSolveCols]
+  T* tri;                     // packed lower triangle of a diagonal block
+  T* buf;                     // kPanel values: a column or a row of it
+  afl_tile::Stage<T> a_tile;
+  afl_tile::Stage<T> b_tile;
+  T* solve_a;                 // [kSolveK][kSolvePad]
+  T* solve_y;                 // [kSolveK][kSolveCols]
 };
 
-__device__ Smem carve(float* smem) {
-  Smem s;
+template <class T>
+__device__ Smem<T> carve(unsigned char* raw) {
+  T* smem = reinterpret_cast<T*>(raw);
+  Smem<T> s;
   s.tri = smem;
-  s.buf = smem + kTriFloats - kPanel;
-  s.a_tile = reinterpret_cast<afl_tile::Stage>(smem + kTriFloats);
-  s.b_tile = reinterpret_cast<afl_tile::Stage>(smem + kTriFloats + kStageFloats);
-  s.solve_a = smem + kTriFloats + 2 * kStageFloats;
-  s.solve_y = s.solve_a + kSolveAFloats;
+  s.buf = smem + kTriValues - kPanel;
+  s.a_tile = reinterpret_cast<afl_tile::Stage<T>>(smem + kTriValues);
+  s.b_tile = reinterpret_cast<afl_tile::Stage<T>>(smem + kTriValues + kStageValues);
+  s.solve_a = smem + kTriValues + 2 * kStageValues;
+  s.solve_y = s.solve_a + kSolveAValues;
   return s;
 }
 
@@ -123,15 +135,15 @@ __device__ __forceinline__ size_t at(int row, int col, int ld) {
 // neighbouring addresses of A, so the staging reads stay coalesced. Each
 // thread owns one row and eight of each pass's 16 columns; sums run over k
 // in order.
-template <bool kATransposed, class AAt, class YAt, class Store>
+template <bool kATransposed, class T, class AAt, class YAt, class Store>
 __device__ void solve_product(int rows, int cols, int k, AAt a_at, YAt y_at,
-                              Store store, const Smem& sm) {
+                              Store store, const Smem<T>& sm) {
   const int i = threadIdx.x % kPanel;
   const int half = threadIdx.x / kPanel;
   for (int j0 = 0; j0 < cols; j0 += kSolveCols) {
-    float acc[8];
+    T acc[8];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) acc[q] = 0.0f;
+    for (int q = 0; q < 8; ++q) acc[q] = T(0);
     for (int k0 = 0; k0 < k; k0 += kSolveK) {
 #pragma unroll 4
       for (int l = 0; l < kSolveK * kPanel / kThreads; ++l) {
@@ -139,7 +151,7 @@ __device__ void solve_product(int rows, int cols, int k, AAt a_at, YAt y_at,
         const int kk = kATransposed ? e / kPanel : e % kSolveK;
         const int r = kATransposed ? e % kPanel : e / kSolveK;
         sm.solve_a[kk * kSolvePad + r] =
-            (r < rows && k0 + kk < k) ? a_at(r, k0 + kk) : 0.0f;
+            (r < rows && k0 + kk < k) ? a_at(r, k0 + kk) : T(0);
       }
 #pragma unroll
       for (int l = 0; l < kSolveK * kSolveCols / kThreads; ++l) {
@@ -147,24 +159,20 @@ __device__ void solve_product(int rows, int cols, int k, AAt a_at, YAt y_at,
         const int kk = e / kSolveCols;
         const int jj = e % kSolveCols;
         sm.solve_y[kk * kSolveCols + jj] =
-            (k0 + kk < k && j0 + jj < cols) ? y_at(k0 + kk, j0 + jj) : 0.0f;
+            (k0 + kk < k && j0 + jj < cols) ? y_at(k0 + kk, j0 + jj) : T(0);
       }
       __syncthreads();
 #pragma unroll 8
       for (int kk = 0; kk < kSolveK; ++kk) {
-        const float a = sm.solve_a[kk * kSolvePad + i];
-        const float4 y0 = *reinterpret_cast<const float4*>(
-            &sm.solve_y[kk * kSolveCols + half * 8]);
-        const float4 y1 = *reinterpret_cast<const float4*>(
-            &sm.solve_y[kk * kSolveCols + half * 8 + 4]);
-        acc[0] = fmaf(a, y0.x, acc[0]);
-        acc[1] = fmaf(a, y0.y, acc[1]);
-        acc[2] = fmaf(a, y0.z, acc[2]);
-        acc[3] = fmaf(a, y0.w, acc[3]);
-        acc[4] = fmaf(a, y1.x, acc[4]);
-        acc[5] = fmaf(a, y1.y, acc[5]);
-        acc[6] = fmaf(a, y1.z, acc[6]);
-        acc[7] = fmaf(a, y1.w, acc[7]);
+        const T a = sm.solve_a[kk * kSolvePad + i];
+        T y0[4], y1[4];
+        afl::load4(&sm.solve_y[kk * kSolveCols + half * 8], y0);
+        afl::load4(&sm.solve_y[kk * kSolveCols + half * 8 + 4], y1);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[q] = fma_(a, y0[q], acc[q]);
+          acc[q + 4] = fma_(a, y1[q], acc[q + 4]);
+        }
       }
       __syncthreads();
     }
@@ -179,28 +187,29 @@ __device__ void solve_product(int rows, int cols, int k, AAt a_at, YAt y_at,
 // One panel's trsm and trailing update. The panel is columns [o, e) of the
 // (d, d) system w; z is its inverse diagonal block, packed in shared
 // memory; panel is a (d, kPanel) scratch.
-__device__ void trsm_and_update(float* w, int d, int o, int e, const float* z,
-                                float* panel, const Smem& sm) {
+template <class T>
+__device__ void trsm_and_update(T* w, int d, int o, int e, const T* z,
+                                T* panel, const Smem<T>& sm) {
   const int bw = e - o;
   const int t = d - e;
   // trsm: panel (t, bw) = A21 · Z11ᵀ, Z11 lower triangular in shared memory
   for (int i0 = 0; i0 < t; i0 += kTile)
     for (int j0 = 0; j0 < bw; j0 += kTile)
-      afl_tile::tile_gemm(
+      afl_tile::tile_gemm<T>(
           bw, sm.a_tile, sm.b_tile,
-          [=](afl_tile::Stage a_tile, afl_tile::Stage b_tile, int k0) {
+          [=](afl_tile::Stage<T> a_tile, afl_tile::Stage<T> b_tile, int k0) {
 #pragma unroll
             for (int l = 0; l < kLoadsPerThread; ++l) {
               const int idx = threadIdx.x + l * kThreads;
               const int r = idx / kStep;
               const int kk = idx % kStep;
               const int col = k0 + kk;
-              a_tile[kk][r] = (i0 + r < t && col < bw) ? w[at(e + i0 + r, o + col, d)] : 0.0f;
+              a_tile[kk][r] = (i0 + r < t && col < bw) ? w[at(e + i0 + r, o + col, d)] : T(0);
               const int zr = j0 + r;
-              b_tile[kk][r] = (zr < bw && col <= zr) ? z[tri(zr) + col] : 0.0f;
+              b_tile[kk][r] = (zr < bw && col <= zr) ? z[tri(zr) + col] : T(0);
             }
           },
-          [=](int r, int s, float v) {
+          [=](int r, int s, T v) {
             if (i0 + r < t && j0 + s < bw) panel[at(i0 + r, j0 + s, kPanel)] = v;
           });
   __syncthreads();
@@ -212,24 +221,24 @@ __device__ void trsm_and_update(float* w, int d, int o, int e, const float* z,
   // trailing update of the lower triangle: A22 −= L21 · L21ᵀ
   for (int i0 = 0; i0 < t; i0 += kTile)
     for (int j0 = 0; j0 <= i0; j0 += kTile)
-      afl_tile::tile_gemm(
+      afl_tile::tile_gemm<T>(
           bw, sm.a_tile, sm.b_tile,
-          [=](afl_tile::Stage a_tile, afl_tile::Stage b_tile, int k0) {
+          [=](afl_tile::Stage<T> a_tile, afl_tile::Stage<T> b_tile, int k0) {
 #pragma unroll
             for (int l = 0; l < kLoadsPerThread; ++l) {
               const int idx = threadIdx.x + l * kThreads;
               const int r = idx / kStep;
               const int kk = idx % kStep;
               const int col = k0 + kk;
-              a_tile[kk][r] = (i0 + r < t && col < bw) ? panel[at(i0 + r, col, kPanel)] : 0.0f;
-              b_tile[kk][r] = (j0 + r < t && col < bw) ? panel[at(j0 + r, col, kPanel)] : 0.0f;
+              a_tile[kk][r] = (i0 + r < t && col < bw) ? panel[at(i0 + r, col, kPanel)] : T(0);
+              b_tile[kk][r] = (j0 + r < t && col < bw) ? panel[at(j0 + r, col, kPanel)] : T(0);
             }
           },
-          [=](int r, int s, float v) {
+          [=](int r, int s, T v) {
             const int row = i0 + r;
             const int col = j0 + s;
             if (row >= t || col > row) return;
-            float* dst = w + at(e + row, e + col, d);
+            T* dst = w + at(e + row, e + col, d);
             *dst = *dst - v;
           });
 }
@@ -240,8 +249,8 @@ __device__ void trsm_and_update(float* w, int d, int o, int e, const float* z,
 // inverse diagonal block goes to zkeep (row stride kPanel, one
 // kPanel² block per panel) when it is not null. panel is a
 // (d, kPanel) scratch.
-__device__ void factor_system(float* w, int d, float* zkeep, float* panel,
-                              const Smem& sm) {
+template <class T>
+__device__ void factor_system(T* w, int d, T* zkeep, T* panel, const Smem<T>& sm) {
   for (int o = 0, p = 0; o < d; o += kPanel, ++p) {
     const int e = min(o + kPanel, d);
     const int bw = e - o;
@@ -253,7 +262,7 @@ __device__ void factor_system(float* w, int d, float* zkeep, float* panel,
     __syncthreads();             // the inverse overwrites what was stored
     afl_tri::invert_packed<kThreads, kPanel>(sm.tri, sm.buf, bw);
     if (zkeep != nullptr)
-      afl_tri::store_lower<kThreads>(sm.tri, bw, zkeep + static_cast<size_t>(p) * kPanelFloats,
+      afl_tri::store_lower<kThreads>(sm.tri, bw, zkeep + static_cast<size_t>(p) * kPanelValues,
                                      kPanel);
     if (t > 0) trsm_and_update(w, d, o, e, sm.tri, panel, sm);
     __syncthreads();
@@ -262,13 +271,14 @@ __device__ void factor_system(float* w, int d, float* zkeep, float* panel,
 
 // Inverts the diagonal blocks of the lower factor l (row stride d) into
 // zkeep, as factor_system keeps them.
-__device__ void invert_diagonal(const float* l, int d, float* zkeep, const Smem& sm) {
+template <class T>
+__device__ void invert_diagonal(const T* l, int d, T* zkeep, const Smem<T>& sm) {
   for (int o = 0, p = 0; o < d; o += kPanel, ++p) {
     const int bw = min(kPanel, d - o);
     afl_tri::load_lower<kThreads>(l + at(o, o, d), d, bw, sm.tri);
     __syncthreads();
     afl_tri::invert_packed<kThreads, kPanel>(sm.tri, sm.buf, bw);
-    afl_tri::store_lower<kThreads>(sm.tri, bw, zkeep + static_cast<size_t>(p) * kPanelFloats,
+    afl_tri::store_lower<kThreads>(sm.tri, bw, zkeep + static_cast<size_t>(p) * kPanelValues,
                                    kPanel);
     __syncthreads();
   }
@@ -277,127 +287,157 @@ __device__ void invert_diagonal(const float* l, int d, float* zkeep, const Smem&
 // L Lᵀ x = b for the lower factor l (row stride d) whose inverse diagonal
 // blocks are in zs: forward substitution into y (a (d, c) scratch; x holds
 // each panel's right-hand side meanwhile), then backward into x.
-__device__ void solve_system(const float* l, int d, const float* zs, const float* b,
-                             float* y, float* x, int c, const Smem& sm) {
+template <class T>
+__device__ void solve_system(const T* l, int d, const T* zs, const T* b,
+                             T* y, T* x, int c, const Smem<T>& sm) {
   const int n_panels = (d + kPanel - 1) / kPanel;
   for (int p = 0; p < n_panels; ++p) {
     const int o = p * kPanel;
     const int bw = min(kPanel, d - o);
-    const float* z = zs + static_cast<size_t>(p) * kPanelFloats;
+    const T* z = zs + static_cast<size_t>(p) * kPanelValues;
     // rhs = b[o:e] − L[o:e, :o] · y[:o]
     solve_product<false>(
         bw, c, o, [=](int i, int k) { return l[at(o + i, k, d)]; },
         [=](int k, int j) { return y[at(k, j, c)]; },
-        [=](int i, int j, float v) { x[at(o + i, j, c)] = b[at(o + i, j, c)] - v; }, sm);
+        [=](int i, int j, T v) { x[at(o + i, j, c)] = b[at(o + i, j, c)] - v; }, sm);
     __syncthreads();
     // y[o:e] = Z · rhs
     solve_product<false>(
         bw, c, bw, [=](int i, int k) { return z[at(i, k, kPanel)]; },
         [=](int k, int j) { return x[at(o + k, j, c)]; },
-        [=](int i, int j, float v) { y[at(o + i, j, c)] = v; }, sm);
+        [=](int i, int j, T v) { y[at(o + i, j, c)] = v; }, sm);
     __syncthreads();
   }
   for (int p = n_panels - 1; p >= 0; --p) {
     const int o = p * kPanel;
     const int e = min(o + kPanel, d);
     const int bw = e - o;
-    const float* z = zs + static_cast<size_t>(p) * kPanelFloats;
+    const T* z = zs + static_cast<size_t>(p) * kPanelValues;
     // y[o:e] −= L[e:, o:e]ᵀ · x[e:]
     solve_product<true>(
         bw, c, d - e, [=](int i, int k) { return l[at(e + k, o + i, d)]; },
         [=](int k, int j) { return x[at(e + k, j, c)]; },
-        [=](int i, int j, float v) { y[at(o + i, j, c)] = y[at(o + i, j, c)] - v; }, sm);
+        [=](int i, int j, T v) { y[at(o + i, j, c)] = y[at(o + i, j, c)] - v; }, sm);
     __syncthreads();
     // x[o:e] = Zᵀ · y[o:e]
     solve_product<true>(
         bw, c, bw, [=](int i, int k) { return z[at(k, i, kPanel)]; },
         [=](int k, int j) { return y[at(o + k, j, c)]; },
-        [=](int i, int j, float v) { x[at(o + i, j, c)] = v; }, sm);
+        [=](int i, int j, T v) { x[at(o + i, j, c)] = v; }, sm);
     __syncthreads();
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-blocked_cholesky_kernel(const float* a, float* out, float* panels, int d) {
-  extern __shared__ __align__(16) float smem[];
-  const Smem sm = carve(smem);
+blocked_cholesky_kernel(const T* a, T* out, T* panels, int d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem<T> sm = carve<T>(smem);
   const size_t dd = static_cast<size_t>(d) * d;
-  const float* src = a + blockIdx.x * dd;
-  float* w = out + blockIdx.x * dd;
+  const T* src = a + blockIdx.x * dd;
+  T* w = out + blockIdx.x * dd;
   // the lower triangle of the system, and zeros above it
   for (int r = threadIdx.x / 32; r < d; r += kThreads / 32)
     for (int col = threadIdx.x % 32; col < d; col += 32)
-      w[at(r, col, d)] = col <= r ? src[at(r, col, d)] : 0.0f;
+      w[at(r, col, d)] = col <= r ? src[at(r, col, d)] : T(0);
   __syncthreads();
-  factor_system(w, d, nullptr, panels + blockIdx.x * static_cast<size_t>(d) * kPanel, sm);
+  factor_system(w, d, static_cast<T*>(nullptr),
+                panels + blockIdx.x * static_cast<size_t>(d) * kPanel, sm);
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-cholesky_solve_kernel(const float* l, const float* b, float* x, float* zs, float* y,
-                      int d, int c) {
-  extern __shared__ __align__(16) float smem[];
-  const Smem sm = carve(smem);
+cholesky_solve_kernel(const T* l, const T* b, T* x, T* zs, T* y, int d, int c) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem<T> sm = carve<T>(smem);
   const size_t sys = blockIdx.x;
   const size_t n_panels = (d + kPanel - 1) / kPanel;
-  const float* lm = l + sys * d * d;
-  float* zm = zs + sys * n_panels * kPanelFloats;
+  const T* lm = l + sys * d * d;
+  T* zm = zs + sys * n_panels * kPanelValues;
   invert_diagonal(lm, d, zm, sm);
-  solve_system(lm, d, zm, b + sys * d * c, y + sys * d * c, x + sys * d * c, c, sm);
+  solve_system(lm, d, static_cast<const T*>(zm), b + sys * d * c, y + sys * d * c,
+               x + sys * d * c, c, sm);
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-multi_gamma_kernel(const float* cm, const float* q, const float* gammas, float* work,
-                   float* zs, float* panels, float* y, float* w_out, int d, int c) {
-  extern __shared__ __align__(16) float smem[];
-  const Smem sm = carve(smem);
+multi_gamma_kernel(const T* cm, const T* q, const T* gammas, T* work, T* zs, T* panels,
+                   T* y, T* w_out, int d, int c) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem<T> sm = carve<T>(smem);
   const size_t g = blockIdx.x;
   const size_t dd = static_cast<size_t>(d) * d;
   const size_t n_panels = (d + kPanel - 1) / kPanel;
-  const float gamma = gammas[g];
-  float* w = work + g * dd;
+  const T gamma = gammas[g];
+  T* w = work + g * dd;
   // C + γ_j I, lower triangle (the rest is never read)
   for (int r = threadIdx.x / 32; r < d; r += kThreads / 32)
     for (int col = threadIdx.x % 32; col <= r; col += 32)
       w[at(r, col, d)] = col < r ? cm[at(r, col, d)] : cm[at(r, col, d)] + gamma;
   __syncthreads();
-  float* zg = zs + g * n_panels * kPanelFloats;
+  T* zg = zs + g * n_panels * kPanelValues;
   factor_system(w, d, zg, panels + g * static_cast<size_t>(d) * kPanel, sm);
-  solve_system(w, d, zg, q, y + g * d * c, w_out + g * d * c, c, sm);
+  solve_system(static_cast<const T*>(w), d, static_cast<const T*>(zg), q, y + g * d * c,
+               w_out + g * d * c, c, sm);
 }
 
 template <class Kernel>
-int prepare(Kernel kernel) {
+int prepare(Kernel kernel, int bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+template <class T>
+int blocked_cholesky(const void* a, void* out, void* panels, int m, int d, void* stream) {
+  if (int err = prepare(blocked_cholesky_kernel<T>, kSmemBytes<T>)) return err;
+  blocked_cholesky_kernel<T><<<m, kThreads, kSmemBytes<T>, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a), static_cast<T*>(out), static_cast<T*>(panels), d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int cholesky_solve(const void* l, const void* b, void* x, void* zs, void* y, int m, int d,
+                   int c, void* stream) {
+  if (int err = prepare(cholesky_solve_kernel<T>, kSmemBytes<T>)) return err;
+  cholesky_solve_kernel<T><<<m, kThreads, kSmemBytes<T>, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(l), static_cast<const T*>(b), static_cast<T*>(x),
+      static_cast<T*>(zs), static_cast<T*>(y), d, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int multi_gamma_solve(const void* cm, const void* q, const void* gammas, void* work,
+                      void* zs, void* panels, void* y, void* w, int n_g, int d, int c,
+                      void* stream) {
+  if (int err = prepare(multi_gamma_kernel<T>, kSmemBytes<T>)) return err;
+  multi_gamma_kernel<T><<<n_g, kThreads, kSmemBytes<T>, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(cm), static_cast<const T*>(q), static_cast<const T*>(gammas),
+      static_cast<T*>(work), static_cast<T*>(zs), static_cast<T*>(panels),
+      static_cast<T*>(y), static_cast<T*>(w), d, c);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int afl_blocked_cholesky_f32(const void* a, void* out, void* panels, int m,
-                                        int d, void* stream) {
-  if (int err = prepare(blocked_cholesky_kernel)) return err;
-  blocked_cholesky_kernel<<<m, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<float*>(out), static_cast<float*>(panels),
-      d);
-  return static_cast<int>(cudaGetLastError());
-}
+// One set of entry points for each type: _f32 and _f64.
+#define AFL_BLOCKED_ENTRY_POINTS(T, SUFFIX)                                             \
+  extern "C" int afl_blocked_cholesky_##SUFFIX(const void* a, void* out, void* panels,  \
+                                               int m, int d, void* stream) {            \
+    return blocked_cholesky<T>(a, out, panels, m, d, stream);                           \
+  }                                                                                     \
+  extern "C" int afl_cholesky_solve_##SUFFIX(const void* l, const void* b, void* x,     \
+                                             void* zs, void* y, int m, int d, int c,    \
+                                             void* stream) {                            \
+    return cholesky_solve<T>(l, b, x, zs, y, m, d, c, stream);                          \
+  }                                                                                     \
+  extern "C" int afl_multi_gamma_solve_##SUFFIX(const void* cm, const void* q,          \
+                                                const void* gammas, void* work,         \
+                                                void* zs, void* panels, void* y,        \
+                                                void* w, int n_g, int d, int c,         \
+                                                void* stream) {                         \
+    return multi_gamma_solve<T>(cm, q, gammas, work, zs, panels, y, w, n_g, d, c,       \
+                                stream);                                                \
+  }
 
-extern "C" int afl_cholesky_solve_f32(const void* l, const void* b, void* x, void* zs,
-                                      void* y, int m, int d, int c, void* stream) {
-  if (int err = prepare(cholesky_solve_kernel)) return err;
-  cholesky_solve_kernel<<<m, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(l), static_cast<const float*>(b), static_cast<float*>(x),
-      static_cast<float*>(zs), static_cast<float*>(y), d, c);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int afl_multi_gamma_solve_f32(const void* cm, const void* q, const void* gammas,
-                                         void* work, void* zs, void* panels, void* y,
-                                         void* w, int n_g, int d, int c, void* stream) {
-  if (int err = prepare(multi_gamma_kernel)) return err;
-  multi_gamma_kernel<<<n_g, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cm), static_cast<const float*>(q),
-      static_cast<const float*>(gammas), static_cast<float*>(work), static_cast<float*>(zs),
-      static_cast<float*>(panels), static_cast<float*>(y), static_cast<float*>(w), d, c);
-  return static_cast<int>(cudaGetLastError());
-}
+AFL_BLOCKED_ENTRY_POINTS(float, f32)
+AFL_BLOCKED_ENTRY_POINTS(double, f64)

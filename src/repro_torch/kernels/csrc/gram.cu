@@ -70,11 +70,11 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ y,
   const int b_cols = is_q ? c : d;
   float* __restrict__ out = is_q ? q : g;
 
-  afl_tile::tile_gemm(
+  afl_tile::tile_gemm<float>(
       n,
       // the reduction runs over the rows of X / Y: neighbouring threads
       // read neighbouring columns of one row
-      [=](afl_tile::Stage a_tile, afl_tile::Stage b_tile, int k0) {
+      [=](afl_tile::Stage<float> a_tile, afl_tile::Stage<float> b_tile, int k0) {
 #pragma unroll
         for (int l = 0; l < kLoadsPerThread; ++l) {
           const int e = threadIdx.x + l * kThreads;

@@ -1,12 +1,13 @@
 // The factor and inverse of one (b, b) diagonal block held in shared
 // memory as a lower triangle packed by rows, computed by one block of
-// kThreads threads: the column loops of the reference's _factor_tile and
-// _tri_inv_tile (src/repro/kernels/solve.py), shared by panel.cu
-// (1024 threads, b <= 256) and blocked.cu (256 threads, b <= 128).
+// kThreads threads in T (float or double): the column loops of the
+// reference's _factor_tile and _tri_inv_tile (src/repro/kernels/solve.py),
+// shared by panel.cu (1024 threads, b <= 256 in f32, b <= 128 in f64) and
+// blocked.cu (256 threads, b <= 128).
 //
 // Only the lower triangle carries data: the upper half of the input is
 // never read and the output's is written as zeros. Every product is a
-// plain f32 FMA, sqrt and division are IEEE and no pivot is clamped, so a
+// plain FMA in T, sqrt and division are IEEE and no pivot is clamped, so a
 // block that is not positive definite gives NaN (sqrt of a negative
 // pivot), as the reference does.
 
@@ -14,14 +15,16 @@
 
 #include <cstddef>
 
+#include "scalar.cuh"
+
 namespace afl_tri {
 
 // Offset of row i in a lower triangle packed by rows.
 __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
 
 // The lower triangle of a (b, b) block with row stride lda into s.
-template <int kThreads>
-__device__ void load_lower(const float* a, int lda, int b, float* s) {
+template <int kThreads, class T>
+__device__ void load_lower(const T* a, int lda, int b, T* s) {
   constexpr int kWarps = kThreads / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -32,28 +35,28 @@ __device__ void load_lower(const float* a, int lda, int b, float* s) {
 
 // Writes the packed triangle as a dense (b, b) block with row stride ldo
 // and a zero upper half.
-template <int kThreads>
-__device__ void store_lower(const float* s, int b, float* out, int ldo) {
+template <int kThreads, class T>
+__device__ void store_lower(const T* s, int b, T* out, int ldo) {
   constexpr int kWarps = kThreads / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int i = warp; i < b; i += kWarps)
     for (int k = lane; k < b; k += 32)
-      out[static_cast<size_t>(i) * ldo + k] = k <= i ? s[tri(i) + k] : 0.0f;
+      out[static_cast<size_t>(i) * ldo + k] = k <= i ? s[tri(i) + k] : T(0);
 }
 
 // Right-looking Cholesky of the packed triangle, in place. At column j one
 // barrier publishes the scaled column (kept in col), then warps take the
 // rows and lanes the columns of the trailing triangle's rank-1 update.
-template <int kThreads>
-__device__ void factor_packed(float* s, float* col, int b) {
+template <int kThreads, class T>
+__device__ void factor_packed(T* s, T* col, int b) {
   constexpr int kWarps = kThreads / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int j = 0; j < b; ++j) {
-    const float pv = sqrtf(s[tri(j) + j]);
+    const T pv = afl::sqrt_(s[tri(j) + j]);
     for (int t = j + 1 + threadIdx.x; t < b; t += kThreads) {
-      const float c = s[tri(t) + j] / pv;
+      const T c = s[tri(t) + j] / pv;
       s[tri(t) + j] = c;
       col[t] = c;
     }
@@ -61,10 +64,10 @@ __device__ void factor_packed(float* s, float* col, int b) {
     // The pivot is read by every thread above; nothing below reads it.
     if (threadIdx.x == 0) s[tri(j) + j] = pv;
     for (int i = j + 1 + warp; i < b; i += kWarps) {
-      const float ci = col[i];
-      float* row = s + tri(i);
+      const T ci = col[i];
+      T* row = s + tri(i);
       for (int k = j + 1 + lane; k <= i; k += 32)
-        row[k] = fmaf(-ci, col[k], row[k]);
+        row[k] = afl::fma_(-ci, col[k], row[k]);
     }
     __syncthreads();
   }
@@ -76,8 +79,8 @@ __device__ void factor_packed(float* s, float* col, int b) {
 // above it have already overwritten theirs. kThreads / kMaxPanel
 // neighbouring lanes share each column's dot product and add their parts
 // with shuffles.
-template <int kThreads, int kMaxPanel>
-__device__ void invert_packed(float* s, float* lrow, int b) {
+template <int kThreads, int kMaxPanel, class T>
+__device__ void invert_packed(T* s, T* lrow, int b) {
   constexpr int kParts = kThreads / kMaxPanel;
   static_assert(kParts >= 1 && kParts <= 32 && (kParts & (kParts - 1)) == 0,
                 "a power of two of threads for each column");
@@ -86,15 +89,15 @@ __device__ void invert_packed(float* s, float* lrow, int b) {
   for (int i = 0; i < b; ++i) {
     for (int t = threadIdx.x; t <= i; t += kThreads) lrow[t] = s[tri(i) + t];
     __syncthreads();
-    float acc = 0.0f;
+    T acc = T(0);
     if (c <= i)
       for (int m = c + part; m < i; m += kParts)
-        acc = fmaf(lrow[m], s[tri(m) + c], acc);
+        acc = afl::fma_(lrow[m], s[tri(m) + c], acc);
 #pragma unroll
     for (int off = 1; off < kParts; off <<= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if (c <= i && part == 0)
-      s[tri(i) + c] = ((c == i ? 1.0f : 0.0f) - acc) / lrow[i];
+      s[tri(i) + c] = ((c == i ? T(1) : T(0)) - acc) / lrow[i];
     __syncthreads();
   }
 }

@@ -1,5 +1,5 @@
 // Panel kernels of the streamed Cholesky factor and solve of one wide SPD
-// system (d >= 2048), in f32:
+// system (d >= 2048), in f32 and in f64 (one template, instantiated twice):
 //
 //   panel_factor   (b, b) SPD diagonal block A  ->  L = chol(A), Z = L^-1
 //   panel_tri_inv  (b, b) lower-triangular L    ->  Z = L^-1
@@ -9,8 +9,9 @@
 // They replace the Pallas TPU kernels of src/repro/kernels/solve.py:
 // panel_factor (_factor_tile then _tri_inv_tile), panel_tri_inv
 // (_tri_inv_tile), panel_trsm and panel_update (one tiled matmul each).
-// Every product is a plain f32 FMA (no TF32, no mma), sqrt and division
-// are IEEE (no fast math), and no pivot is clamped, so a block that is not
+// Every product is a plain FMA in the input's type (no TF32, no mma; the
+// f64 instances use the card's native FP64), sqrt and division are IEEE
+// (no fast math), and no pivot is clamped, so a block that is not
 // positive definite gives NaN (sqrt of a negative pivot) as the reference
 // does. The upper triangles of L and Z are written as exact zeros.
 //
@@ -30,7 +31,11 @@
 // Bound at b = 256: 2b³/3 = 11.2 MFLOP (0.17 us at 67 TFLOP/s f32) against
 // 4·(b(b+1)/2 + 2b²) = 0.66 MB (0.20 us at 3.35 TB/s), so bytes. Neither
 // is what limits it: it is 2b = 512 steps that must run one after the
-// other, each behind a barrier, on one SM.
+// other, each behind a barrier, on one SM. In f64 the packed triangle
+// doubles: 257 KB at b = 256, more than a block can hold, so the f64
+// instance takes panels of at most 128 (65.5 KB with its buffer) and
+// eight threads share each column of the inverse; the streamed schedule
+// runs f64 systems at b = 128 (kernels/solve.py, STREAM_BLOCK_F64).
 //
 // panel_trsm / panel_update. One tiled kernel computes C = A·Bᵀ, or
 // C = T − A·Bᵀ, in 64×64 output tiles: the tile loop of tile_gemm.cuh
@@ -48,7 +53,7 @@
 // multiplies the zero half too. Both are bound by operations. Skipping Z's
 // zero half, skipping the rows of the full-height slab that the schedule
 // masks to zero, cp.async/TMA staging and wgmma (at a lower precision than
-// this port's f32) are later work.
+// this port's f32) are later work. The f64 instance stages 17.4 KB.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libpanel.so panel.cu
@@ -64,18 +69,21 @@
 
 namespace {
 
-constexpr int kMaxPanel = 256;
 constexpr int kPanelThreads = 1024;
+
+// The widest panel one block holds as a packed triangle in T.
+template <class T>
+constexpr int kMaxPanel = sizeof(T) == 4 ? 256 : 128;
 
 using afl_tri::tri;
 
-template <bool kFactor>
+template <class T, bool kFactor>
 __global__ void __launch_bounds__(kPanelThreads)
-panel_kernel(const float* __restrict__ a, int lda, int b,
-             float* __restrict__ l_out, float* __restrict__ z_out) {
-  extern __shared__ float smem[];
-  float* s = smem;               // tri(b) values: the packed lower triangle
-  float* buf = smem + tri(b);    // kMaxPanel values: a column or a row of L
+panel_kernel(const T* __restrict__ a, int lda, int b,
+             T* __restrict__ l_out, T* __restrict__ z_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);   // tri(b) values: the packed lower triangle
+  T* buf = s + tri(b);                     // kMaxPanel values: a column or a row of L
   afl_tri::load_lower<kPanelThreads>(a, lda, b, s);
   __syncthreads();
   if (kFactor) {
@@ -83,20 +91,20 @@ panel_kernel(const float* __restrict__ a, int lda, int b,
     afl_tri::store_lower<kPanelThreads>(s, b, l_out, b);
     __syncthreads();             // the inverse overwrites what was stored
   }
-  afl_tri::invert_packed<kPanelThreads, kMaxPanel>(s, buf, b);
+  afl_tri::invert_packed<kPanelThreads, kMaxPanel<T>>(s, buf, b);
   afl_tri::store_lower<kPanelThreads>(s, b, z_out, b);
 }
 
-template <bool kFactor>
+template <class T, bool kFactor>
 int launch_panel(const void* a, int lda, int b, void* l, void* z,
                  void* stream) {
-  const int bytes = (b * (b + 1) / 2 + kMaxPanel) * static_cast<int>(sizeof(float));
+  if (b < 1 || b > kMaxPanel<T>) return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = (b * (b + 1) / 2 + kMaxPanel<T>) * static_cast<int>(sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
-      panel_kernel<kFactor>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      panel_kernel<T, kFactor>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  panel_kernel<kFactor><<<1, kPanelThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), lda, b, static_cast<float*>(l),
-      static_cast<float*>(z));
+  panel_kernel<T, kFactor><<<1, kPanelThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a), lda, b, static_cast<T*>(l), static_cast<T*>(z));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -107,18 +115,18 @@ using afl_tile::kTile;
 
 // C (m, n) = A (m, k) · B (n, k)ᵀ, or T − A · Bᵀ. Row strides lda, ldb,
 // ldt, ldc; unit column strides. t and c may be the same matrix.
-template <bool kSubtract>
+template <class T, bool kSubtract>
 __global__ void __launch_bounds__(kThreads)
-gemm_nt_kernel(const float* __restrict__ a, int lda,
-               const float* __restrict__ bm, int ldb, const float* t, int ldt,
-               float* c, int ldc, int m, int n, int k) {
+gemm_nt_kernel(const T* __restrict__ a, int lda,
+               const T* __restrict__ bm, int ldb, const T* t, int ldt,
+               T* c, int ldc, int m, int n, int k) {
   const int i0 = blockIdx.y * kTile;
   const int j0 = blockIdx.x * kTile;
-  afl_tile::tile_gemm(
+  afl_tile::tile_gemm<T>(
       k,
       // the reduction runs along the rows of A and B: neighbouring threads
       // read neighbouring entries of one row
-      [=](afl_tile::Stage a_tile, afl_tile::Stage b_tile, int k0) {
+      [=](afl_tile::Stage<T> a_tile, afl_tile::Stage<T> b_tile, int k0) {
 #pragma unroll
         for (int l = 0; l < kLoadsPerThread; ++l) {
           const int e = threadIdx.x + l * kThreads;
@@ -127,13 +135,13 @@ gemm_nt_kernel(const float* __restrict__ a, int lda,
           const int col = k0 + kk;
           a_tile[kk][r] = (i0 + r < m && col < k)
                               ? a[static_cast<size_t>(i0 + r) * lda + col]
-                              : 0.0f;
+                              : T(0);
           b_tile[kk][r] = (j0 + r < n && col < k)
                               ? bm[static_cast<size_t>(j0 + r) * ldb + col]
-                              : 0.0f;
+                              : T(0);
         }
       },
-      [=](int r, int s, float v) {
+      [=](int r, int s, T v) {
         const int row = i0 + r;
         const int col = j0 + s;
         if (row >= m || col >= n) return;
@@ -142,38 +150,41 @@ gemm_nt_kernel(const float* __restrict__ a, int lda,
       });
 }
 
-template <bool kSubtract>
+template <class T, bool kSubtract>
 int launch_gemm(const void* t, int ldt, const void* a, int lda, const void* b,
                 int ldb, void* c, int ldc, int m, int n, int k, void* stream) {
   const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  gemm_nt_kernel<kSubtract><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), lda, static_cast<const float*>(b), ldb,
-      static_cast<const float*>(t), ldt, static_cast<float*>(c), ldc, m, n, k);
+  gemm_nt_kernel<T, kSubtract><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a), lda, static_cast<const T*>(b), ldb,
+      static_cast<const T*>(t), ldt, static_cast<T*>(c), ldc, m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int afl_panel_factor_f32(const void* a, int lda, int b, void* l,
-                                    void* z, void* stream) {
-  return launch_panel<true>(a, lda, b, l, z, stream);
-}
+// One set of entry points for each type: _f32 and _f64.
+#define AFL_PANEL_ENTRY_POINTS(T, SUFFIX)                                             \
+  extern "C" int afl_panel_factor_##SUFFIX(const void* a, int lda, int b, void* l,    \
+                                           void* z, void* stream) {                   \
+    return launch_panel<T, true>(a, lda, b, l, z, stream);                            \
+  }                                                                                   \
+  extern "C" int afl_panel_tri_inv_##SUFFIX(const void* l, int ldl, int b, void* z,   \
+                                            void* stream) {                           \
+    return launch_panel<T, false>(l, ldl, b, nullptr, z, stream);                     \
+  }                                                                                   \
+  extern "C" int afl_panel_trsm_##SUFFIX(const void* raw, int ldr, const void* zinv,  \
+                                         int ldz, void* out, int ldo, int r, int b,   \
+                                         void* stream) {                              \
+    return launch_gemm<T, false>(nullptr, 0, raw, ldr, zinv, ldz, out, ldo, r, b, b,  \
+                                 stream);                                             \
+  }                                                                                   \
+  extern "C" int afl_panel_update_##SUFFIX(const void* trail, int ldt, const void* lp, \
+                                           int ldl, const void* pt, int ldp,          \
+                                           void* out, int ldo, int r, int w, int b,   \
+                                           void* stream) {                            \
+    return launch_gemm<T, true>(trail, ldt, lp, ldl, pt, ldp, out, ldo, r, w, b,      \
+                                stream);                                              \
+  }
 
-extern "C" int afl_panel_tri_inv_f32(const void* l, int ldl, int b, void* z,
-                                     void* stream) {
-  return launch_panel<false>(l, ldl, b, nullptr, z, stream);
-}
-
-extern "C" int afl_panel_trsm_f32(const void* raw, int ldr, const void* zinv,
-                                  int ldz, void* out, int ldo, int r, int b,
-                                  void* stream) {
-  return launch_gemm<false>(nullptr, 0, raw, ldr, zinv, ldz, out, ldo, r, b, b,
-                            stream);
-}
-
-extern "C" int afl_panel_update_f32(const void* trail, int ldt, const void* lp,
-                                    int ldl, const void* pt, int ldp, void* out,
-                                    int ldo, int r, int w, int b, void* stream) {
-  return launch_gemm<true>(trail, ldt, lp, ldl, pt, ldp, out, ldo, r, w, b,
-                           stream);
-}
+AFL_PANEL_ENTRY_POINTS(float, f32)
+AFL_PANEL_ENTRY_POINTS(double, f64)

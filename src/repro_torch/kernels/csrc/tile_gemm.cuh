@@ -1,16 +1,18 @@
-// One 64×64 output tile of an f32 matrix product, computed by one block of
-// 256 threads: the tile loop shared by gram.cu (G = XᵀX, Q = XᵀY),
-// panel.cu (A·Bᵀ and T − A·Bᵀ) and blocked.cu (trsm and trailing update).
+// One 64×64 output tile of a matrix product in T (float or double),
+// computed by one block of 256 threads: the tile loop shared by gram.cu
+// (G = XᵀX, Q = XᵀY, f32), panel.cu (A·Bᵀ and T − A·Bᵀ) and blocked.cu
+// (trsm and trailing update), the last two in f32 and f64.
 //
 // The reduction runs kStep = 16 indices at a time. For each step the
 // caller's `load(a_tile, b_tile, k0)` stages, for reduction indices
 // k0 .. k0 + 15, the tile's 64 rows of the left operand into a_tile[kk][i]
 // and its 64 columns of the right operand into b_tile[kk][j], writing zero
 // past a ragged edge. Each thread then accumulates a 4×4 register
-// micro-tile with plain f32 FMAs (no TF32, no mma), and finally hands each
-// of its 16 sums to `store(i, j, value)`, with i and j inside the tile; the
-// store masks the ragged edges and applies the epilogue. Operand layouts
-// differ only in `load`, epilogues only in `store`.
+// micro-tile with plain FMAs in T (no TF32, no mma), and finally hands
+// each of its 16 sums to `store(i, j, value)`, with i and j inside the
+// tile; the store masks the ragged edges and applies the epilogue. Operand
+// layouts differ only in `load`, epilogues only in `store`. The two
+// staging buffers take 8.7 KB in f32 and 17.4 KB in f64.
 //
 // The sums of one output run over k in order, one FMA chain per element,
 // so an element whose two operands are swapped (G[i][j] and G[j][i]) comes
@@ -18,45 +20,47 @@
 
 #pragma once
 
+#include "scalar.cuh"
+
 namespace afl_tile {
 
 constexpr int kTile = 64;      // output tile side
 constexpr int kStep = 16;      // reduction indices staged in shared memory per step
 constexpr int kMicro = 4;      // each thread owns a kMicro × kMicro sub-tile
-constexpr int kPad = 4;        // keeps float4 rows aligned, halves bank conflicts
+constexpr int kPad = 4;        // keeps 4-wide rows 16-byte aligned, halves bank conflicts
 constexpr int kThreads = (kTile / kMicro) * (kTile / kMicro);  // 256
 constexpr int kLoadsPerThread = (kStep * kTile) / kThreads;      // 4
 
-using Stage = float (*)[kTile + kPad];   // one staged operand: [kStep][kTile + kPad]
+template <class T>
+using Stage = T (*)[kTile + kPad];   // one staged operand: [kStep][kTile + kPad]
 
 // The tile loop on staging buffers the caller provides (16-byte aligned,
-// kStep × (kTile + kPad) floats each), for a kernel that runs several
+// kStep × (kTile + kPad) values each), for a kernel that runs several
 // products on one pair of buffers.
-template <class Load, class Store>
-__device__ __forceinline__ void tile_gemm(int k, Stage a_tile, Stage b_tile,
+template <class T, class Load, class Store>
+__device__ __forceinline__ void tile_gemm(int k, Stage<T> a_tile, Stage<T> b_tile,
                                           Load load, Store store) {
   const int tx = threadIdx.x % (kTile / kMicro);   // column group of the sub-tile
   const int ty = threadIdx.x / (kTile / kMicro);   // row group of the sub-tile
 
-  float acc[kMicro][kMicro];
+  T acc[kMicro][kMicro];
 #pragma unroll
   for (int r = 0; r < kMicro; ++r)
 #pragma unroll
-    for (int s = 0; s < kMicro; ++s) acc[r][s] = 0.0f;
+    for (int s = 0; s < kMicro; ++s) acc[r][s] = T(0);
 
   for (int k0 = 0; k0 < k; k0 += kStep) {
     load(a_tile, b_tile, k0);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kStep; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&a_tile[kk][ty * kMicro]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&b_tile[kk][tx * kMicro]);
-      const float av[kMicro] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[kMicro] = {b4.x, b4.y, b4.z, b4.w};
+      T av[kMicro], bv[kMicro];
+      afl::load4(&a_tile[kk][ty * kMicro], av);
+      afl::load4(&b_tile[kk][tx * kMicro], bv);
 #pragma unroll
       for (int r = 0; r < kMicro; ++r)
 #pragma unroll
-        for (int s = 0; s < kMicro; ++s) acc[r][s] = fmaf(av[r], bv[s], acc[r][s]);
+        for (int s = 0; s < kMicro; ++s) acc[r][s] = afl::fma_(av[r], bv[s], acc[r][s]);
     }
     __syncthreads();
   }
@@ -68,11 +72,11 @@ __device__ __forceinline__ void tile_gemm(int k, Stage a_tile, Stage b_tile,
 }
 
 // The tile loop on staging buffers of its own.
-template <class Load, class Store>
+template <class T, class Load, class Store>
 __device__ __forceinline__ void tile_gemm(int k, Load load, Store store) {
-  __shared__ __align__(16) float a_tile[kStep][kTile + kPad];
-  __shared__ __align__(16) float b_tile[kStep][kTile + kPad];
-  tile_gemm(k, a_tile, b_tile, load, store);
+  __shared__ __align__(16) T a_tile[kStep][kTile + kPad];
+  __shared__ __align__(16) T b_tile[kStep][kTile + kPad];
+  tile_gemm<T>(k, a_tile, b_tile, load, store);
 }
 
 }  // namespace afl_tile

@@ -41,17 +41,19 @@ def build() -> _build.Build:
 def gram_update(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(XᵀX, XᵀY) in f32 through the CUDA kernel.
 
-    x: (N, d), y: (N, C), contiguous CUDA tensors on one device, both f32 or
-    both bf16. Launches on the current stream; ``gram_update.launches``
-    counts the launches.
+    x: (N, d), y: (N, C), contiguous CUDA tensors on one device, both f32,
+    both bf16 or both f64. f64 inputs are cast to f32 before the launch:
+    the fold accumulates in f32 whatever comes in, as the Pallas kernel and
+    ``ref.gram_ref`` do (there is no f64 Gram kernel). Launches on the
+    current stream; ``gram_update.launches`` counts the launches.
     """
     if not (x.is_cuda and y.is_cuda) or x.device != y.device:
         raise ValueError(
             f"gram kernel needs both inputs on one CUDA device, got "
             f"{x.device} and {y.device} (kernels.ops.gram_update takes the "
             "plain version for CPU tensors)")
-    if x.dtype not in (torch.float32, torch.bfloat16) or y.dtype != x.dtype:
-        raise TypeError(f"gram kernel takes f32 or bf16 inputs of one dtype, "
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float64) or y.dtype != x.dtype:
+        raise TypeError(f"gram kernel takes f32, bf16 or f64 inputs of one dtype, "
                         f"got {x.dtype} and {y.dtype}")
     if x.dim() != 2 or y.dim() != 2 or x.shape[0] != y.shape[0]:
         raise ValueError(f"gram kernel needs x (N, d) and y (N, C), got "
@@ -62,6 +64,8 @@ def gram_update(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.T
     c = y.shape[1]
     if d == 0 or max(n * d, n * c, d * d) > _INT_MAX:
         raise ValueError(f"gram kernel shape out of range: N={n} d={d} C={c}")
+    if x.dtype == torch.float64:
+        x, y = x.to(torch.float32), y.to(torch.float32)
     lib = build().lib
     fn = lib.afl_gram_update_f32 if x.dtype == torch.float32 else lib.afl_gram_update_bf16
     g = torch.empty((d, d), dtype=torch.float32, device=x.device)

@@ -7,9 +7,10 @@ call them once per panel of a wide system.
 
 The kernels are ``csrc/panel.cu`` (its header states the designs and the
 bounds on an H100), built by ``kernels.build`` and bound with ``ctypes``.
-They take f32 CUDA tensors whose rows have unit column stride; a row
-stride larger than the width is passed to the kernel, so a column slab of
-a larger matrix is read or written where it lies. ``kernels.ops``
+They take CUDA tensors whose rows have unit column stride, every operand
+of one call f32 or every one f64 (each kernel has an instance of each); a
+row stride larger than the width is passed to the kernel, so a column slab
+of a larger matrix is read or written where it lies. ``kernels.ops``
 dispatches between these wrappers (CUDA tensors) and the plain versions in
 ``kernels.ref`` (CPU tensors). Each wrapper counts its launches in
 ``.launches``.
@@ -27,15 +28,17 @@ import torch
 from repro_torch.kernels import build as _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "panel.cu"
-MAX_PANEL = 256          # the panel kernels hold one (b, b) triangle on one SM
+# the widest (b, b) triangle one SM holds, packed, in each type: 128.5 KB
+# at 256 in f32; at 256 in f64 it would be 257 KB, so 128 (kMaxPanel)
+MAX_PANEL = {torch.float32: 256, torch.float64: 128}
 
 _INT_MAX = 2**31 - 1
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "afl_panel_factor_f32": [_P, _I, _I, _P, _P, _P],
-    "afl_panel_tri_inv_f32": [_P, _I, _I, _P, _P],
-    "afl_panel_trsm_f32": [_P, _I, _P, _I, _P, _I, _I, _I, _P],
-    "afl_panel_update_f32": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P],
+    "afl_panel_factor": [_P, _I, _I, _P, _P, _P],
+    "afl_panel_tri_inv": [_P, _I, _I, _P, _P],
+    "afl_panel_trsm": [_P, _I, _P, _I, _P, _I, _I, _I, _P],
+    "afl_panel_update": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -45,19 +48,27 @@ def build() -> _build.Build:
     declare its entry points."""
     built = _build.load(SOURCE)[0]
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(built.lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for suffix in _build.SUFFIX.values():
+            fn = getattr(built.lib, f"{name}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return built
 
 
-def _row_stride(name: str, t: torch.Tensor, shape: tuple[int, int]) -> int:
-    """Checks one operand and returns its row stride."""
+def _entry(name: str, dtype: torch.dtype):
+    return getattr(build().lib, f"afl_{name}_{_build.SUFFIX[dtype]}")
+
+
+def _row_stride(name: str, t: torch.Tensor, shape: tuple[int, int],
+                dtype: Optional[torch.dtype] = None) -> int:
+    """Checks one operand and returns its row stride; ``dtype`` is the
+    call's (its first operand's)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: panel kernels need CUDA tensors, got {t.device} "
                          "(kernels.ops takes the plain version for CPU tensors)")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: panel kernels take f32, got {t.dtype}")
+    if t.dtype not in _build.SUFFIX or t.dtype != (dtype or t.dtype):
+        raise TypeError(f"{name}: panel kernels take f32 or f64, every operand of one "
+                        f"dtype, got {t.dtype}" + (f" beside {dtype}" if dtype else ""))
     if tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     rows, cols = shape
@@ -84,39 +95,41 @@ def _panel(diag: torch.Tensor, name: str) -> int:
     if diag.dim() != 2:
         raise ValueError(f"{name}: expected a (b, b) block, got {tuple(diag.shape)}")
     b = diag.shape[0]
-    if not 1 <= b <= MAX_PANEL:
-        raise ValueError(f"{name}: panel width {b} outside 1..{MAX_PANEL}")
-    return _row_stride(name, diag, (b, b))
+    ld = _row_stride(name, diag, (b, b))
+    widest = MAX_PANEL[diag.dtype]
+    if not 1 <= b <= widest:
+        raise ValueError(f"{name}: panel width {b} outside 1..{widest} for {diag.dtype} "
+                         "(the kernel holds one packed triangle on one SM)")
+    return ld
 
 
 def panel_factor(diag: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(L, L⁻¹)`` of one SPD (b, b) block, b ≤ 256; both clean lower
-    triangles. Only the lower triangle of ``diag`` is read. A block that is
-    not positive definite gives NaNs."""
+    """``(L, L⁻¹)`` of one SPD (b, b) block, b ≤ 256 in f32 and ≤ 128 in
+    f64; both clean lower triangles. Only the lower triangle of ``diag`` is
+    read. A block that is not positive definite gives NaNs."""
     ld = _panel(diag, "panel_factor")
     b = diag.shape[0]
-    lib = build().lib
-    l = torch.empty((b, b), dtype=torch.float32, device=diag.device)
+    fn = _entry("panel_factor", diag.dtype)
+    l = torch.empty((b, b), dtype=diag.dtype, device=diag.device)
     z = torch.empty_like(l)
     with torch.cuda.device(diag.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.afl_panel_factor_f32(diag.data_ptr(), ld, b, l.data_ptr(),
-                                       z.data_ptr(), stream)
+        err = fn(diag.data_ptr(), ld, b, l.data_ptr(), z.data_ptr(), stream)
     _check(err, "panel_factor")
     panel_factor.launches += 1
     return l, z
 
 
 def panel_tri_inv(l: torch.Tensor) -> torch.Tensor:
-    """``L⁻¹`` of one lower-triangular (b, b) block, b ≤ 256 (its upper
-    triangle is not read); a clean lower triangle."""
+    """``L⁻¹`` of one lower-triangular (b, b) block, b ≤ 256 in f32 and ≤ 128
+    in f64 (its upper triangle is not read); a clean lower triangle."""
     ld = _panel(l, "panel_tri_inv")
     b = l.shape[0]
-    lib = build().lib
-    z = torch.empty((b, b), dtype=torch.float32, device=l.device)
+    fn = _entry("panel_tri_inv", l.dtype)
+    z = torch.empty((b, b), dtype=l.dtype, device=l.device)
     with torch.cuda.device(l.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.afl_panel_tri_inv_f32(l.data_ptr(), ld, b, z.data_ptr(), stream)
+        err = fn(l.data_ptr(), ld, b, z.data_ptr(), stream)
     _check(err, "panel_tri_inv")
     panel_tri_inv.launches += 1
     return z
@@ -129,14 +142,13 @@ def panel_trsm(raw: torch.Tensor, zinv: torch.Tensor) -> torch.Tensor:
                          f"{tuple(raw.shape)}")
     r, b = raw.shape
     ldr = _row_stride("panel_trsm raw", raw, (r, b))
-    ldz = _row_stride("panel_trsm zinv", zinv, (b, b))
+    ldz = _row_stride("panel_trsm zinv", zinv, (b, b), raw.dtype)
     _same_device(raw, zinv)
-    lib = build().lib
-    out = torch.empty((r, b), dtype=torch.float32, device=raw.device)
+    fn = _entry("panel_trsm", raw.dtype)
+    out = torch.empty((r, b), dtype=raw.dtype, device=raw.device)
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.afl_panel_trsm_f32(raw.data_ptr(), ldr, zinv.data_ptr(), ldz,
-                                     out.data_ptr(), b, r, b, stream)
+        err = fn(raw.data_ptr(), ldr, zinv.data_ptr(), ldz, out.data_ptr(), b, r, b, stream)
     _check(err, "panel_trsm")
     panel_trsm.launches += 1
     return out
@@ -146,8 +158,8 @@ def panel_update(trail: torch.Tensor, lp: torch.Tensor, pt: torch.Tensor, *,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``trail (r, w) − lp (r, b) @ pt (w, b)ᵀ``.
 
-    Written into ``out`` when given (an (r, w) f32 tensor on the same
-    device, which may be ``trail`` itself but must not overlap ``lp`` or
+    Written into ``out`` when given (an (r, w) tensor of the same dtype on
+    the same device, which may be ``trail`` itself but must not overlap ``lp`` or
     ``pt``), else into a new contiguous tensor.
     """
     if trail.dim() != 2 or lp.dim() != 2 or 0 in trail.shape or 0 in lp.shape:
@@ -156,18 +168,17 @@ def panel_update(trail: torch.Tensor, lp: torch.Tensor, pt: torch.Tensor, *,
     r, w = trail.shape
     b = lp.shape[1]
     ldt = _row_stride("panel_update trail", trail, (r, w))
-    ldl = _row_stride("panel_update lp", lp, (r, b))
-    ldp = _row_stride("panel_update pt", pt, (w, b))
+    ldl = _row_stride("panel_update lp", lp, (r, b), trail.dtype)
+    ldp = _row_stride("panel_update pt", pt, (w, b), trail.dtype)
     if out is None:
-        out = torch.empty((r, w), dtype=torch.float32, device=trail.device)
-    ldo = _row_stride("panel_update out", out, (r, w))
+        out = torch.empty((r, w), dtype=trail.dtype, device=trail.device)
+    ldo = _row_stride("panel_update out", out, (r, w), trail.dtype)
     _same_device(trail, lp, pt, out)
-    lib = build().lib
+    fn = _entry("panel_update", trail.dtype)
     with torch.cuda.device(trail.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.afl_panel_update_f32(trail.data_ptr(), ldt, lp.data_ptr(), ldl,
-                                       pt.data_ptr(), ldp, out.data_ptr(), ldo,
-                                       r, w, b, stream)
+        err = fn(trail.data_ptr(), ldt, lp.data_ptr(), ldl, pt.data_ptr(), ldp,
+                 out.data_ptr(), ldo, r, w, b, stream)
     _check(err, "panel_update")
     panel_update.launches += 1
     return out

@@ -235,3 +235,58 @@ def chol_rank_update_ref(l: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
         l[i + 1:, i] = col - (beta * amr) * t
         xt[i + 1:] -= (beta * t)[:, None] * w[None, :]
     return l
+
+
+def chol_rank_update_blocked_ref(l: torch.Tensor, xs: torch.Tensor, nb: int = 32,
+                                 k_pass: int = 256) -> torch.Tensor:
+    """The schedule of the CUDA ``chol_rank_update`` in plain PyTorch: the
+    same function as :func:`chol_rank_update_ref`, computed as the kernel
+    computes it, to prove its algebra on the CPU (the engine never calls
+    it).
+
+    ``xs`` is folded ``k_pass`` rows at a time. Within a pass each panel of
+    ``nb`` columns runs the reference's column sweep on its own rows only,
+    recording amr, β and W (the rows w_i as each was swept); the rows
+    below take the panel's transform ``Q = I − V T Vᵀ`` with V =
+    [diag(amr); W] at once: Y = l∘amr + x·Wᵀ, Y ← Y·T, l −= Y∘amr,
+    x −= Y·W. T is upper triangular, from WᵀW by LAPACK's dlarft
+    recurrence (the reflectors' L coordinates never overlap).
+    """
+    if xs.shape[0] == 0:
+        return l
+    d = l.shape[0]
+    out = l.clone()
+    for k0 in range(0, xs.shape[0], k_pass):
+        xt = xs[k0:k0 + k_pass].T.clone()              # (d, kp)
+        for p in range(0, d, nb):
+            e = min(p + nb, d)
+            n = e - p
+            lp = out[p:e, p:e].clone()
+            w = xt[p:e]                                # swept in place into W
+            amr = torch.empty(n, dtype=l.dtype, device=l.device)
+            beta = torch.empty(n, dtype=l.dtype, device=l.device)
+            for i in range(n):
+                wi = w[i]
+                s = wi @ wi
+                s_ = torch.where(s > 0, s, torch.ones_like(s))
+                a = lp[i, i]
+                r = torch.sqrt(a * a + s)
+                amr[i] = -s / (r + a)
+                beta[i] = (r + a) / (r * s_)
+                col = lp[i + 1:, i]
+                t = amr[i] * col + w[i + 1:] @ wi
+                lp[i, i] = r
+                lp[i + 1:, i] = col - (beta[i] * amr[i]) * t
+                w[i + 1:] -= (beta[i] * t)[:, None] * wi[None, :]
+            out[p:e, p:e] = lp
+            if e == d:
+                continue
+            g = w @ w.T
+            tm = torch.zeros((n, n), dtype=l.dtype, device=l.device)
+            for b in range(n):
+                tm[:b, b] = -beta[b] * (tm[:b, :b] @ g[:b, b])
+                tm[b, b] = beta[b]
+            y = (out[e:, p:e] * amr + xt[e:] @ w.T) @ tm
+            out[e:, p:e] -= y * amr
+            xt[e:] -= y @ w
+    return out

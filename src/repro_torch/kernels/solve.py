@@ -6,11 +6,12 @@ The port of ``repro.kernels.solve``, in two parts.
 **Blocked** (systems narrower than ``STREAM_MIN_DIM``, and the γ grid at
 any width): :func:`blocked_cholesky`, :func:`cholesky_solve`,
 :func:`multi_gamma_solve` and :func:`chol_rank_update` keep the
-reference's shapes in and out. A CUDA tensor launches the hand-written
-kernel (``kernels.blocked``, ``kernels.rank_update``), one launch per
-call; a CPU tensor takes the plain version in ``kernels.ref``. A system
-that is not positive definite gives NaNs; nothing here raises or falls
-back on that.
+reference's shapes in and out. A CUDA tensor, f32 or f64, launches the
+hand-written kernel (``kernels.blocked``, ``kernels.rank_update``), one
+wrapper call per call (the rank update's wrapper makes its panel and
+trailing launches within it); a CPU tensor takes the plain version in
+``kernels.ref``. A system that is not positive definite gives NaNs;
+nothing here raises or falls back on that.
 
 **Streamed** (one system of at least ``STREAM_MIN_DIM``): a (d, d) system
 is factored panel by panel: the (b, b) diagonal block is factored and
@@ -41,6 +42,7 @@ the reference either, and stay ``torch.matmul``.
 from __future__ import annotations
 
 from types import SimpleNamespace
+from typing import Optional
 
 import torch
 
@@ -53,6 +55,7 @@ __all__ = [
     "chol_rank_update",
     "panels",
     "panel_width",
+    "stream_block",
     "tile_cholesky_factor",
     "tile_cholesky_solve",
     "streamed_cholesky",
@@ -60,6 +63,7 @@ __all__ = [
     "DEFAULT_BLOCK",
     "DEFAULT_GAMMA_BLOCK",
     "DEFAULT_STREAM_BLOCK",
+    "STREAM_BLOCK_F64",
     "DEFAULT_UPDATE_BLOCK",
     "STREAM_MIN_DIM",
 ]
@@ -67,6 +71,9 @@ __all__ = [
 DEFAULT_BLOCK = ref.BLOCK    # 128: panel width of the blocked path
 DEFAULT_GAMMA_BLOCK = ref.GAMMA_BLOCK   # γs the plain sweep factors together
 DEFAULT_STREAM_BLOCK = 256   # panel width for the streamed single-system path
+# the streamed path's panel width in f64: the panel kernels hold one (b, b)
+# triangle on one SM, 257 KB at b = 256 in f64 (panel.MAX_PANEL)
+STREAM_BLOCK_F64 = 128
 DEFAULT_UPDATE_BLOCK = 256   # row/col tile edge of the reference's syrk grid
 STREAM_MIN_DIM = 2048        # the engine routes single systems this wide here
 
@@ -199,16 +206,24 @@ def tile_cholesky_solve(tile_l: torch.Tensor, q_tile: torch.Tensor, zs=None, *,
     return x
 
 
-def streamed_cholesky(a: torch.Tensor, *, block: int = DEFAULT_STREAM_BLOCK,
+def stream_block(dtype: torch.dtype) -> int:
+    """The streamed path's default panel width for ``dtype``:
+    ``DEFAULT_STREAM_BLOCK``, or ``STREAM_BLOCK_F64`` in f64. The width
+    changes the rounding, not the function."""
+    return STREAM_BLOCK_F64 if dtype == torch.float64 else DEFAULT_STREAM_BLOCK
+
+
+def streamed_cholesky(a: torch.Tensor, *, block: Optional[int] = None,
                       use_kernel: bool = True) -> torch.Tensor:
     """Single-system lower Cholesky ``a (d, d) SPD → L`` via panel streaming.
 
-    The one-shard instance of :func:`tile_cholesky_factor`. A d that the
+    The one-shard instance of :func:`tile_cholesky_factor`, at panels of
+    ``block`` (default :func:`stream_block` of the dtype). A d that the
     panel width does not divide is padded with an identity tail and sliced
     back. Not positive definite → NaNs.
     """
     d = a.shape[-1]
-    bs = min(block, _ceil_mult(d, 8))
+    bs = min(block or stream_block(a.dtype), _ceil_mult(d, 8))
     d_p = _ceil_mult(d, bs)
     l, _ = tile_cholesky_factor(
         _pad_spd(a, d_p), shard=0, n_shards=1, gather=lambda v: v[None],
@@ -217,12 +232,12 @@ def streamed_cholesky(a: torch.Tensor, *, block: int = DEFAULT_STREAM_BLOCK,
 
 
 def streamed_cholesky_solve(l: torch.Tensor, b: torch.Tensor, *,
-                            block: int = DEFAULT_STREAM_BLOCK,
+                            block: Optional[int] = None,
                             use_kernel: bool = True) -> torch.Tensor:
     """``L Lᵀ x = b`` against a :func:`streamed_cholesky` factor —
-    ``l (d, d)`` lower, ``b (d, c)`` → ``x (d, c)``."""
+    ``l (d, d)`` lower, ``b (d, c)`` → ``x (d, c)``; ``block`` as there."""
     d = l.shape[-1]
-    bs = min(block, _ceil_mult(d, 8))
+    bs = min(block or stream_block(l.dtype), _ceil_mult(d, 8))
     d_p = _ceil_mult(d, bs)
     bp = b
     if d_p != d:

@@ -9,7 +9,9 @@ machine without it:
 Tolerances are those of tests/test_kernels_gram.py: rtol 2e-4 / atol 2e-3
 for f32 (sums in another order), 2e-2 / 2e-1 for bf16; the flash-attention
 kernel's those of tests/test_kernels_attention.py: rtol 2e-5 / atol 4e-4
-for f32, 2e-2 / 0.4 for bf16.
+for f32, 2e-2 / 0.4 for bf16. The solve kernels' f64 instances are held to
+numpy f64 at 1e-10, the bar the reference holds its kernel solves to under
+x64 (tests/test_solve_kernels.py).
 """
 
 import numpy as np
@@ -66,11 +68,36 @@ def test_gram_kernel_matches_plain(cuda, n, d, c, dtype):
 def test_gram_kernel_rejects_bad_inputs(cuda):
     x, y = _data(1, 32, 16, 3, torch.float32, cuda)
     with pytest.raises(TypeError):
-        G.gram_update(x.double(), y.double())
+        G.gram_update(x.half(), y.half())
+    with pytest.raises(TypeError):
+        G.gram_update(x.double(), y)                  # two dtypes
     with pytest.raises(ValueError, match="contiguous"):
         G.gram_update(x.T.contiguous().T, y)
     with pytest.raises(ValueError):
         G.gram_update(x, y[:-1])
+
+
+@pytest.mark.cuda
+def test_gram_kernel_f64_input_folds_in_f32(cuda):
+    """f64 inputs are cast to f32 and folded by the f32 kernel, as the
+    Pallas kernel and the plain version accumulate in f32; the f64 engine
+    on the card stores that fold in f64, as it does on the CPU."""
+    x, y = _data(2, 300, 96, 4, torch.float64, cuda)
+    before = G.gram_update.launches
+    g, q = G.gram_update(x, y)
+    torch.cuda.synchronize()
+    assert G.gram_update.launches == before + 1
+    assert g.dtype == q.dtype == torch.float32
+    g32, q32 = G.gram_update(x.float(), y.float())
+    assert torch.equal(g, g32) and torch.equal(q, q32)
+    eng = AnalyticEngine("torch", dtype=torch.float64, device=cuda, use_kernel=True)
+    s = eng.update(eng.init(96, 4), x, y)
+    assert s.gram.dtype == torch.float64
+    assert torch.equal(s.gram, g.double()) and torch.equal(s.moment, q.double())
+    cpu = AnalyticEngine("torch", dtype=torch.float64, device="cpu", use_kernel=True)
+    s_cpu = cpu.update(cpu.init(96, 4), x.cpu(), y.cpu())
+    rtol, atol = TOL[torch.float32]
+    torch.testing.assert_close(s.gram.cpu(), s_cpu.gram, rtol=rtol, atol=atol)
 
 
 @pytest.mark.cuda
@@ -214,13 +241,17 @@ def test_panel_kernels_reject_bad_inputs(cuda):
     before = [f.launches for f in (P.panel_factor, P.panel_tri_inv,
                                    P.panel_trsm, P.panel_update)]
     with pytest.raises(TypeError):
-        P.panel_factor(a.double())
+        P.panel_factor(a.to(torch.bfloat16))
     with pytest.raises(ValueError, match="CUDA"):
         P.panel_tri_inv(a.cpu())
     with pytest.raises(ValueError):
         P.panel_factor(a[:, :31])                     # not square
     with pytest.raises(ValueError):
         P.panel_factor(torch.eye(257, device=cuda))   # wider than one SM holds
+    with pytest.raises(ValueError):                   # in f64, wider than 128
+        P.panel_factor(torch.eye(129, device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        P.panel_trsm(a, a.double())                   # two dtypes
     with pytest.raises(ValueError, match="stride"):
         P.panel_trsm(a.T[:, :16], a[:16, :16])        # column-major slab
     with pytest.raises(ValueError):
@@ -349,24 +380,55 @@ def test_multi_gamma_solve_singular_gamma_gives_nan_in_that_gamma_only(cuda):
     assert not torch.isfinite(w[0]).all() and torch.isfinite(w[1]).all()
 
 
+# the f64 instances against their plain versions and numpy f64: the
+# x64 bar of tests/test_solve_kernels.py
+REL64 = 1e-10
+RANK_REL = {torch.float32: REL, torch.float64: REL64}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,k", [(2304, 64), (130, 3)])   # path, ragged
-def test_chol_rank_update_matches_plain(cuda, d, k):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d,k", [(2304, 64), (2304, 144), (130, 3)])   # path, budget, ragged
+def test_chol_rank_update_matches_plain(cuda, d, k, dtype):
     rng = np.random.default_rng(d + k)
-    a = _spd_block(d, d, cuda)
-    l = torch.linalg.cholesky(a)
-    xs = torch.from_numpy(rng.standard_normal((k, d))).to(cuda, torch.float32)
+    a = _spd_block(d, d, cuda).to(dtype)
+    l = torch.linalg.cholesky(a).contiguous()
+    xs = torch.from_numpy(rng.standard_normal((k, d))).to(cuda, dtype)
     xs[k // 2] = 0.0                                  # a zero update row is a no-op
     before = R.chol_rank_update.launches
     out = ops.chol_rank_update(l, xs)
     torch.cuda.synchronize()
     assert R.chol_rank_update.launches == before + 1
+    assert out.dtype == dtype
     assert torch.isfinite(out).all() and not torch.triu(out, 1).any()
-    assert _rel(out, ref.chol_rank_update_ref(l, xs)) < REL
+    assert _rel(out, ref.chol_rank_update_ref(l, xs)) < RANK_REL[dtype]
+    assert _rel(out, ref.chol_rank_update_blocked_ref(l, xs)) < RANK_REL[dtype]
     want = torch.linalg.cholesky(a.double() + xs.double().T @ xs.double())
-    assert _rel(out, want) < REL
+    assert _rel(out, want) < RANK_REL[dtype]
     assert ops.chol_rank_update(l, xs[:0]) is l       # k = 0: no launch
     assert R.chol_rank_update.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_rank_update_in_passes_matches_blocked_twin(cuda, dtype):
+    """k = 600 > K_PASS folds in three passes, one call; zero rows inside
+    panels and in the last pass."""
+    d, k = 300, 600
+    rng = np.random.default_rng(k)
+    a = _spd_block(d, d, cuda).to(dtype)
+    l = torch.linalg.cholesky(a).contiguous()
+    xs = torch.from_numpy(rng.standard_normal((k, d))).to(cuda, dtype)
+    xs[[3, 4, 5, 590]] = 0.0
+    before = R.chol_rank_update.launches
+    out = R.chol_rank_update(l, xs)
+    torch.cuda.synchronize()
+    assert R.chol_rank_update.launches == before + 1 and R.cuda_launches(d, k) == 3 * 20
+    twin = ref.chol_rank_update_blocked_ref(l, xs, R.NB, R.K_PASS)
+    assert _rel(out, twin) < RANK_REL[dtype]
+    assert _rel(out, ref.chol_rank_update_ref(l, xs)) < RANK_REL[dtype]
+    want = torch.linalg.cholesky(a.double() + xs.double().T @ xs.double())
+    assert _rel(out, want) < RANK_REL[dtype]
 
 
 @pytest.mark.cuda
@@ -385,7 +447,7 @@ def test_blocked_kernels_reject_bad_inputs(cuda):
     q = torch.ones((32, 2), device=cuda)
     before = _blocked_counts()
     with pytest.raises(TypeError):
-        B.blocked_cholesky(a.double())
+        B.blocked_cholesky(a.to(torch.bfloat16))
     with pytest.raises(ValueError, match="CUDA"):
         B.blocked_cholesky(a.cpu())
     with pytest.raises(ValueError, match="contiguous"):
@@ -401,7 +463,9 @@ def test_blocked_kernels_reject_bad_inputs(cuda):
     with pytest.raises(TypeError):
         B.multi_gamma_solve(a[0], q, torch.ones(2, device=cuda, dtype=torch.float64))
     with pytest.raises(TypeError):
-        R.chol_rank_update(a[0].double(), q.T.double())
+        R.chol_rank_update(a[0].to(torch.bfloat16), q.T.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        R.chol_rank_update(a[0].double(), q.T.contiguous())    # two dtypes
     with pytest.raises(ValueError, match="CUDA"):
         R.chol_rank_update(a[0].cpu(), q.T.cpu())
     with pytest.raises(ValueError, match="contiguous"):
@@ -409,6 +473,122 @@ def test_blocked_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         R.chol_rank_update(a[0], q.T.contiguous()[:, :31])
     assert _blocked_counts() == before
+
+
+def _rel_x64(a, b):
+    """The reference's x64 measure: largest error over max(largest |b|, 1)."""
+    a = a.double().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = np.asarray(b, np.float64)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m", [(64, 2), (150, 3)])    # the reference's x64 shapes
+def test_blocked_kernels_f64_match_numpy(cuda, d, m):
+    """blocked_cholesky and cholesky_solve in f64 against numpy f64 at 1e-10."""
+    rng = np.random.default_rng(d)
+    mats = []
+    for i in range(m):
+        x = rng.standard_normal((4 * d, d))
+        mats.append(x.T @ x + (0.5 + i) * np.eye(d))
+    a = np.stack(mats)
+    b = rng.standard_normal((m, d, 7))
+    before = _blocked_counts()
+    l = ops.blocked_cholesky(torch.from_numpy(a).to(cuda))
+    x = ops.cholesky_solve(l, torch.from_numpy(b).to(cuda))
+    torch.cuda.synchronize()
+    assert [n - o for n, o in zip(_blocked_counts(), before)] == [1, 1, 0, 0]
+    assert l.dtype == x.dtype == torch.float64 and not torch.triu(l, 1).any()
+    assert _rel_x64(l, np.linalg.cholesky(a)) < REL64
+    assert _rel_x64(x, np.linalg.solve(a, b)) < REL64
+    assert _rel(l, ref.blocked_cholesky_ref(torch.from_numpy(a).to(cuda))) < REL64
+
+
+@pytest.mark.cuda
+def test_multi_gamma_solve_f64_matches_numpy_engine(cuda):
+    """The reference's x64 sweep case, (d, C) = (72, 5) at five ridges, one
+    multi_gamma_solve launch; then γ = 0 on fewer rows than d, which the
+    kernel answers with NaN and the engine reroutes to the eigendecomposition."""
+    rng = np.random.default_rng(72)
+    d, c = 72, 5
+    gammas = [0.0, 0.01, 0.1, 1.0, 10.0]
+    eng = AnalyticEngine("torch", dtype=torch.float64, device=cuda, use_kernel=True)
+    host = AnalyticEngine("numpy_f64")
+    for n in (6 * d, 10):
+        x = rng.standard_normal((n, d))
+        y = np.eye(c)[rng.integers(0, c, n)]
+        sh = host.client_stats(x, y)
+        sk = SuffStats(*(eng.backend.asarray(v) for v in sh[:4]))
+        before = _blocked_counts()
+        ws = eng.solve_multi_gamma(sk, gammas)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_blocked_counts(), before)] == [0, 0, 1, 0]
+        for w, w_h in zip(ws, host.solve_multi_gamma(sh, gammas)):
+            assert w.dtype == torch.float64 and torch.isfinite(w).all()
+            assert _rel_x64(w, w_h) < REL64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", ["factor", "solve", "solve_multi_gamma", "rank_update"])
+def test_engine_f64_kernel_routes_match_numpy_engine(cuda, call):
+    """The f64 device engine on the card, at the cases of
+    tests/test_torch_engine.py (d = 16, 40 rows): every route launches its
+    kernel and agrees with the numpy_f64 engine at 1e-10."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((40, 16))
+    y = np.eye(3)[rng.integers(0, 3, 40)]
+    host = AnalyticEngine("numpy_f64")
+    eng = AnalyticEngine("torch", dtype=torch.float64, device=cuda, use_kernel=True)
+    s_h = host.client_stats(x, y)
+    # the host's f64 statistics: the kernel route folds Gram updates in f32
+    s = SuffStats(*(eng.backend.asarray(v) for v in s_h[:4]))
+    before = _blocked_counts()
+    if call == "factor":
+        f, f_h = eng.factor(s, target_gamma=0.5), host.factor(s_h, target_gamma=0.5)
+        assert _rel_x64(f.handle, f_h.handle.T) < REL64
+        got, want = eng.factor_solve(f, s.moment), host.factor_solve(f_h, s_h.moment)
+        launched = [1, 1, 0, 0]
+    elif call == "solve":
+        got, want = eng.solve(s, use_ri=False), host.solve(s_h, use_ri=False)
+        launched = [1, 1, 0, 0]
+    elif call == "solve_multi_gamma":
+        got = torch.stack(eng.solve_multi_gamma(s, [0.1, 1.0]))
+        want = np.stack(host.solve_multi_gamma(s_h, [0.1, 1.0]))
+        launched = [0, 0, 1, 0]
+    else:
+        f, f_h = eng.factor(s), host.factor(s_h)
+        got = eng.backend.rank_update(f, x[:2]).handle
+        want = host.backend.rank_update(f_h, x[:2]).handle.T
+        launched = [1, 0, 0, 1]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_blocked_counts(), before)] == launched
+    assert got.dtype == torch.float64
+    assert _rel_x64(got, want) < REL64
+
+
+@pytest.mark.cuda
+def test_engine_f64_streamed_route_at_2048(cuda):
+    """d = 2048 in f64: the streamed schedule at panels of 128 (16 factor,
+    16 trsm, 15 update and 16 inverse launches for a factor and its solve),
+    against the numpy_f64 engine at 1e-10."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2560, 2048))
+    y = np.eye(5)[rng.integers(0, 5, 2560)]
+    host = AnalyticEngine("numpy_f64")
+    eng = AnalyticEngine("torch", dtype=torch.float64, device=cuda, use_kernel=True)
+    s_h = host.client_stats(x, y)
+    s = SuffStats(*(eng.backend.asarray(v) for v in s_h[:4]))
+    counts = lambda: [f.launches for f in (P.panel_factor, P.panel_trsm,  # noqa: E731
+                                           P.panel_update, P.panel_tri_inv)]
+    before = counts()
+    f = eng.factor(s, target_gamma=0.5)
+    w = eng.factor_solve(f, s.moment)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [16, 16, 15, 16]
+    f_h = host.factor(s_h, target_gamma=0.5)
+    assert not torch.triu(f.handle, 1).any()
+    assert _rel_x64(f.handle, f_h.handle.T) < REL64
+    assert _rel_x64(w, host.factor_solve(f_h, s_h.moment)) < REL64
 
 
 @pytest.mark.cuda

@@ -202,7 +202,8 @@ def test_engine_kernel_route_ri_restore_at_stream_width(wide_stats):
 
 def test_engine_kernel_route_is_the_streamed_schedule(wide_stats, monkeypatch):
     """At d ≥ STREAM_MIN_DIM the kernel route runs the panel functions:
-    8 panels of 256, so 8 factors, 8 trsm, 7 updates and 8 inverses."""
+    in f64 16 panels of STREAM_BLOCK_F64 = 128 (the widest f64 panel the
+    kernel holds), so 16 factors, 16 trsm, 15 updates and 16 inverses."""
     _, _, eng, s = wide_stats
     calls = {n: 0 for n in ("panel_factor", "panel_trsm", "panel_update",
                             "panel_tri_inv")}
@@ -216,8 +217,9 @@ def test_engine_kernel_route_is_the_streamed_schedule(wide_stats, monkeypatch):
 
         monkeypatch.setattr(plain, name, counted)
     eng.solve(s, target_gamma=1.0)
-    assert calls == {"panel_factor": 8, "panel_trsm": 8, "panel_update": 7,
-                     "panel_tri_inv": 8}
+    assert s.gram.dtype == torch.float64 and S.stream_block(torch.float64) == 128
+    assert calls == {"panel_factor": 16, "panel_trsm": 16, "panel_update": 15,
+                     "panel_tri_inv": 16}
 
 
 def test_engine_kernel_route_non_pd_gives_nan_without_fallback():
