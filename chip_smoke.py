@@ -18,10 +18,16 @@ without the repository around it. Phases, each fatal on failure:
      ``multi_gamma_solve``, ``chol_rank_update`` and ``flash_attention``
      against their plain versions on the card, at the shapes of the main
      paths, ragged shapes and (the factors and the sweep) an input that is
-     not positive definite; then the f64 instance of each solve-side kernel
+     not positive definite; ``panel_tri_inv`` also against
+     ``ref.invert_blocked_ref`` (the plain twin of its blocked inverse),
+     ``blocked_cholesky`` also against itself on a repeated call (the same
+     bits), and one (1, 1536) f32 call of it and of the rank update
+     profiled by kernel; then the f64 instance of each solve-side kernel
      at its f64 path's shape against its f64 plain version (relative
      1e-10); each timed beside the plain version, one library call that
-     computes the same function, and the card's bound;
+     computes the same function, and the card's bound; the times of the
+     earlier designs of the redesigned kernels and paths (PERF.md) are
+     logged beside this run's;
   3. streamed factor and solve of one SPD system at d = 6144 (the width
      of nemotron4_15b and grok1): the kernel route against the plain
      route on the card, timed beside torch.linalg, and an indefinite
@@ -279,6 +285,24 @@ def _kernel_row(name, shape, err, rel, ms, plain_ms, library_ms, flops, nbytes, 
                 bound_by=bound_by, flops=flops, bytes=nbytes)
 
 
+# The times of the earlier designs of the kernels and paths that were
+# redesigned onto tri_blocked.cuh and the panel schedule (PERF.md §6 and
+# §5: chip_smoke.py, NVIDIA H100 80GB HBM3 at 700.00 W), logged beside
+# this run's
+EARLIER_MS = {("panel_tri_inv", 256, "float32"): 0.3376, ("panel_tri_inv", 128, "float64"): 0.1209,
+           ("blocked_cholesky", 1536, "float32"): 16.616,
+           ("blocked_cholesky", 128, "float32"): 0.2376,
+           ("blocked_cholesky", 1536, "float64"): 27.9598,
+           "device_solve": 11.19, "narrow_1536": 20.14, "f64_solve": 10.02,
+           "f64_narrow_1536": 32.03}
+
+
+def _merge_levels(b: int) -> int:
+    """Merge levels of invert_blocked on a b-wide block: log2 of its
+    32-wide sub-blocks, rounded up."""
+    return max(0, math.ceil(math.log2(-(-b // 32))))
+
+
 def panel_phase(P, ref):
     """Each panel kernel against its plain version at the path's shapes."""
     gen = torch.Generator(device="cuda")
@@ -292,7 +316,7 @@ def panel_phase(P, ref):
         zi_ref = ref.panel_tri_inv_ref(l)
         torch.cuda.synchronize()
         rel = max(_rel(l, l_ref), _rel(z, z_ref))
-        rel_i = _rel(zi, zi_ref)
+        rel_i = max(_rel(zi, zi_ref), _rel(zi, ref.invert_blocked_ref(l)))
         if rel > PANEL_REL or rel_i > PANEL_REL:
             fail(f"panel kernels at b={b}: relative error {rel:.2e} / {rel_i:.2e} "
                  f"above {PANEL_REL}")
@@ -314,7 +338,9 @@ def panel_phase(P, ref):
             time_cuda(lambda: P.panel_tri_inv(l)),
             time_cuda(lambda: ref.panel_tri_inv_ref(l), reps=3, trials=3, warmup=1),
             time_cuda(lambda: torch.linalg.solve_triangular(l, eye, upper=False)),
-            b ** 3 / 3, 4 * (tri + b * b), f"; {b} sequential steps"))
+            b ** 3 / 3, 4 * (tri + b * b),
+            f"; invert_blocked, {_merge_levels(b)} merge levels; the row loop before "
+            f"{EARLIER_MS.get(('panel_tri_inv', b, 'float32'), 'n/a')} ms"))
     # a block that is not positive definite: NaN, through kernel and plain
     x = torch.randn((3, PANEL_B), generator=gen, device="cuda")
     l, z = P.panel_factor(x.T @ x)
@@ -723,7 +749,7 @@ def device_solve_phase(K, S, engine, api, server, x_te, y_te):
         host.solve(host_stats, target_gamma=gamma)
         t_host.append(1e3 * (time.perf_counter() - t0))
     log(f"device solve d={d} (factor and solve, C={stats.moment.shape[1]}): kernel route "
-        f"{ms_card:.2f} ms, torch.linalg.cholesky + cholesky_solve {ms_lib:.2f} ms on "
+        f"{ms_card:.2f} ms (before: {EARLIER_MS['device_solve']} ms), torch.linalg.cholesky + cholesky_solve {ms_lib:.2f} ms on "
         f"the card; host f64 (numpy, {os.cpu_count()} cores) "
         f"{statistics.median(t_host):.1f} ms")
     return launches
@@ -740,6 +766,10 @@ FACTOR_SHAPES = [(1, 1536), (1, 128), (3, 130)]           # (m, d)
 SOLVE_SHAPES = [(1, 1536, 16), (1, 128, 40)]              # (m, d, c)
 SWEEP_SHAPES = [(2304, 16, 16), (130, 7, 11)]             # (d, c, n_g)
 RANK_SHAPES = [(2304, 64), (2304, 144), (130, 3)]         # (d, k); 144 = d//16
+
+
+# blocked_cholesky's three kernels, as the profiler names them
+BLOCKED_PARTS = ("chol_diag_kernel", "chol_trsm_kernel", "chol_trailing_kernel")
 
 
 def time_auto(fn) -> float:
@@ -778,13 +808,21 @@ def blocked_phase(K, ref):
         rel = _check_close("blocked_cholesky", (m, d), l, want)
         if torch.triu(l, 1).any() or not torch.isfinite(l).all():
             fail(f"blocked_cholesky {(m, d)}: not a clean finite lower triangle")
+        if not torch.equal(B.blocked_cholesky(a), l):
+            fail(f"blocked_cholesky {(m, d)}: a repeated call gave other bits")
         rows["blocked_cholesky"].append(_kernel_row(
             "blocked_cholesky", (m, d), _abs(l, want), rel,
             time_auto(lambda: B.blocked_cholesky(a)),
             time_auto(lambda: ref.blocked_cholesky_ref(a)),
             time_auto(lambda: torch.linalg.cholesky(a)),
             m * d ** 3 / 3, 4 * m * (_tri(d) + d * d),
-            f"; library torch.linalg.cholesky; {2 * d} sequential column steps"))
+            f"; library torch.linalg.cholesky; {B.cuda_launches(d)} CUDA launches a call; "
+            f"the one-block kernel before "
+            f"{EARLIER_MS.get(('blocked_cholesky', d, 'float32'), 'n/a')} ms"))
+        if d == NARROW_WIDE_D:
+            rows["blocked_cholesky"][-1]["profile"] = prof = kernel_breakdown(
+                lambda: B.blocked_cholesky(a), BLOCKED_PARTS)
+            _log_breakdown(f"blocked_cholesky {(m, d)} float32, one call profiled", prof)
     x = torch.randn((3, 200), generator=gen, device="cuda")
     a = torch.stack([_spd_block(gen, 200), x.T @ x])      # PD, then rank 3
     l, want = B.blocked_cholesky(a), ref.blocked_cholesky_ref(a)
@@ -938,10 +976,13 @@ def f64_kernel_phase(K, ref):
     add("panel_factor", (b,), z, z_ref, lambda: P.panel_factor(a),
         lambda: ref.panel_factor_ref(a), None, 2 * b ** 3 / 3, 8 * (tri + 2 * b * b),
         f"; {2 * b} sequential steps")
-    add("panel_tri_inv", (b,), P.panel_tri_inv(l), ref.panel_tri_inv_ref(l),
+    zi = P.panel_tri_inv(l)
+    check("panel_tri_inv against the blocked twin", (b,), zi, ref.invert_blocked_ref(l))
+    add("panel_tri_inv", (b,), zi, ref.panel_tri_inv_ref(l),
         lambda: P.panel_tri_inv(l), lambda: ref.panel_tri_inv_ref(l),
         lambda: torch.linalg.solve_triangular(l, eye, upper=False), b ** 3 / 3,
-        8 * (tri + b * b), f"; {b} sequential steps")
+        8 * (tri + b * b), f"; invert_blocked, {_merge_levels(b)} merge levels; the row loop "
+        f"before {EARLIER_MS[('panel_tri_inv', b, 'float64')]} ms")
     d = 2304
     raw = _slab(gen, d, b, d).double()
     zinv = torch.tril(torch.randn((b, b), generator=gen, device="cuda")).double()
@@ -962,7 +1003,9 @@ def f64_kernel_phase(K, ref):
     a = _spd_block(gen, n).double()[None]
     add("blocked_cholesky", (1, n), B.blocked_cholesky(a), ref.blocked_cholesky_ref(a),
         lambda: B.blocked_cholesky(a), lambda: ref.blocked_cholesky_ref(a),
-        lambda: torch.linalg.cholesky(a), n ** 3 / 3, 8 * (_tri(n) + n * n))
+        lambda: torch.linalg.cholesky(a), n ** 3 / 3, 8 * (_tri(n) + n * n),
+        f"; {B.cuda_launches(n)} CUDA launches a call; the one-block kernel "
+        f"before {EARLIER_MS[('blocked_cholesky', n, 'float64')]} ms")
     l = ref.blocked_cholesky_ref(a)
     rhs = torch.randn((1, n, NARROW_C), generator=gen, device="cuda").double()
     add("cholesky_solve", (1, n, NARROW_C), B.cholesky_solve(l, rhs),
@@ -1189,7 +1232,8 @@ def narrow_phase(K, ref, engine, api, D):
     log(f"narrow d={d} C={NARROW_C} (XᵀX/4d, κ={cond:.3g}): launches {more}; card vs plain "
         f"route {rel_plain:.2e} (limit {DEVICE_PLAIN_REL:g}), vs f64 {rel_64:.2e} = "
         f"{rel_64 / (cond * F32_U):.2f}·κ·u (limit {DEVICE_HOST_KU:g}·κ·u); factor and solve "
-        f"{ms_card:.2f} ms on the kernel route, torch.linalg.cholesky + cholesky_solve "
+        f"{ms_card:.2f} ms on the kernel route (before: {EARLIER_MS['narrow_1536']} ms), "
+        f"torch.linalg.cholesky + cholesky_solve "
         f"{ms_lib:.3f} ms")
     if rel_plain > DEVICE_PLAIN_REL or rel_64 > DEVICE_HOST_KU * cond * F32_U:
         fail(f"narrow d={d}: {rel_plain:.2e} from the plain route, {rel_64:.2e} from f64")
@@ -1334,7 +1378,7 @@ def f64_engine_phase(K, S, engine, api, server, x_te, y_te, fl):
                        reps=3)
     log(f"f64 solve d={d} (streamed, panels of {b}: {n} / {n} / {n - 1} / {n} launches) at "
         f"ρ={RANK_RHO:g}: vs numpy_f64 {_f64_check('solve', rel, cond)}; kernel route "
-        f"{ms:.2f} ms, torch.linalg.cholesky + cholesky_solve f64 {ms_lib:.2f} ms")
+        f"{ms:.2f} ms (before: {EARLIER_MS['f64_solve']} ms), torch.linalg.cholesky + cholesky_solve f64 {ms_lib:.2f} ms")
     times = dict(solve_ms=ms, solve_library_ms=ms_lib, solve_rel=rel)
 
     # a narrow system: d = 1536 through blocked_cholesky and cholesky_solve
@@ -1354,7 +1398,8 @@ def f64_engine_phase(K, S, engine, api, server, x_te, y_te, fl):
     ms = time_wall(lambda: eng.solve(sn), reps=3)
     ms_lib = time_wall(lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky(an)), reps=3)
     log(f"f64 narrow d={nd}: vs numpy_f64 {_f64_check('narrow solve', rel, ev[-1] / ev[0])}; "
-        f"kernel route {ms:.2f} ms, torch.linalg.cholesky + cholesky_solve f64 {ms_lib:.3f} ms")
+        f"kernel route {ms:.2f} ms (before: {EARLIER_MS['f64_narrow_1536']} ms), "
+        f"torch.linalg.cholesky + cholesky_solve f64 {ms_lib:.3f} ms")
     times.update(narrow_ms=ms, narrow_library_ms=ms_lib, narrow_rel=rel)
 
     # the γ sweep: one multi_gamma_solve launch, no eigendecomposition

@@ -3,7 +3,11 @@
 The ports of the Pallas TPU kernels ``repro.kernels.solve.blocked_cholesky``,
 ``cholesky_solve`` and ``multi_gamma_solve``, which serve systems narrower
 than the streamed path's ``STREAM_MIN_DIM`` and the whole γ grid at any
-width. Each is one launch, one block of the card per system (per γ).
+width. ``cholesky_solve`` and ``multi_gamma_solve`` are one launch each,
+one block of the card per system (per γ). ``blocked_cholesky`` is a panel
+schedule over all SMs: for each panel of ``PANEL`` columns, a diagonal
+kernel (one block a system), a trsm grid and a trailing-update grid, all
+launched from one C call (:func:`cuda_launches` of them).
 
 The kernels are ``csrc/blocked.cu`` (its header states the design and the
 bounds on an H100), built by ``kernels.build`` and bound with ``ctypes``.
@@ -12,7 +16,7 @@ one f64 (each kernel has an instance of each), and read only the lower
 triangle of a system or factor. ``kernels.solve`` dispatches between these
 wrappers (CUDA tensors) and the plain versions in ``kernels.ref`` (CPU
 tensors).
-Each wrapper counts its launches in ``.launches``.
+Each wrapper counts its calls in ``.launches``, one a call.
 """
 
 from __future__ import annotations
@@ -28,10 +32,11 @@ from repro_torch.kernels import build as _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "blocked.cu"
 PANEL = 128              # the panel width compiled into the kernels (kPanel)
+MAX_SYSTEMS = 65535      # systems one blocked_cholesky call takes (a grid's y and z limit)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "afl_blocked_cholesky": [_P, _P, _P, _I, _I, _P],
+    "afl_blocked_cholesky": [_P, _P, _P, _P, _I, _I, _P],
     "afl_cholesky_solve": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "afl_multi_gamma_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
@@ -52,6 +57,14 @@ def build() -> _build.Build:
 
 def _entry(name: str, dtype: torch.dtype):
     return getattr(build().lib, f"afl_{name}_{_build.SUFFIX[dtype]}")
+
+
+def cuda_launches(d: int) -> int:
+    """CUDA kernel launches of one ``blocked_cholesky`` call on d-wide
+    systems: a diagonal kernel per panel, and a trsm and a trailing update
+    per panel but the last."""
+    n = -(-d // PANEL)
+    return 3 * n - 2
 
 
 def _operand(name: str, t: torch.Tensor, shape: tuple[int, ...],
@@ -100,12 +113,16 @@ def blocked_cholesky(a: torch.Tensor) -> torch.Tensor:
     system that is not positive definite gives NaNs."""
     m, d = _systems("blocked_cholesky", a)
     _operand("blocked_cholesky a", a, (m, d, d))
+    if m > MAX_SYSTEMS:
+        raise ValueError(f"blocked_cholesky: {m} systems, more than {MAX_SYSTEMS} a call")
     fn = _entry("blocked_cholesky", a.dtype)
     out = torch.empty_like(a)
+    zs = _scratch(m, PANEL, PANEL, like=a)
     panels = _scratch(m, d, PANEL, like=a)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(a.data_ptr(), out.data_ptr(), panels.data_ptr(), m, d, stream)
+        err = fn(a.data_ptr(), out.data_ptr(), zs.data_ptr(), panels.data_ptr(), m, d,
+                 stream)
     _check(err, "blocked_cholesky")
     blocked_cholesky.launches += 1
     return out

@@ -20,10 +20,10 @@
 // instances use the card's native FP64), sqrt and division are IEEE and no
 // pivot is clamped.
 //
-// Design. As the TPU kernel is one pallas_call whose grid walks the
-// systems, each of these is one launch whose blocks are the systems (the
-// γs of the sweep): one block of 256 threads walks the panels of its
-// system in device memory, in place in the output (for the sweep, in a
+// Design of cholesky_solve and multi_gamma_solve. As the TPU kernel is
+// one pallas_call whose grid walks the systems, each is one launch whose
+// blocks are the systems (the γs of the sweep): one block of 256 threads
+// walks the panels of its system in device memory (for the sweep, in a
 // per-γ copy of C + γ_j I that the wrapper allocates). A system of
 // d = 1536 is 9.4 MB and stays in the 50 MB L2. Per panel of width
 // b <= 128 (the last one ragged, masked where the reference pads with an
@@ -43,19 +43,47 @@
 // steps of K at a time in shared memory, one row per thread pair and eight
 // columns per thread.
 //
+// Design of blocked_cholesky: the same right-looking panels, spread over
+// the card. One host loop (one ctypes call) makes, for each panel of 128
+// and for all m systems at once, three launches on the caller's stream:
+//   * chol_diag_kernel, one block of 256 threads a system: the diagonal
+//     block is factored by factor_blocked and inverted by invert_blocked
+//     (tri_blocked.cuh: warp-level 32-wide sub-blocks, a few barriers a
+//     sub-panel or a merge level, where the column loops take 2b); L11 goes
+//     into place, Z11 to a per-system (128, 128) scratch. The last panel
+//     skips the inverse;
+//   * chol_trsm_kernel, a grid of 64×64 output tiles × systems: L21 =
+//     A21 · Z11ᵀ into the per-system (d, 128) scratch panel (A21 is still
+//     read there);
+//   * chol_trailing_kernel, a grid of only the lower triangle's 64×64
+//     tiles × systems (253 at the first panel of d = 1536, about two waves
+//     over 132 SMs): A22 −= L21 · L21ᵀ; the diagonal tile of each row of
+//     tiles also copies its rows of L21 into place and writes zeros into
+//     their mirror above the diagonal.
+// The first panel reads a where it lies and writes the output, so a is
+// never copied and its upper triangle never read; every entry above the
+// diagonal of the output is written as zero by a diagonal block's store or
+// a mirror. 3·⌈d/128⌉ − 2 launches a call (34 at d = 1536). Separate
+// launches were chosen over one persistent cooperative grid: the kernel
+// boundary is the grid-wide barrier the panel order needs, each launch
+// takes the block shape and shared memory its step wants (the diagonal
+// step 49 KB in f32 on one block a system, the tile grids 8.7 KB on
+// hundreds), and no grid-wide barrier has to be written or kept
+// deadlock-free; look-ahead (the next diagonal block beside this panel's
+// trailing tiles) is later work.
+//
 // Bound at the path's shapes (d³/3 flops a factor, 2d²c a solve; each input
 // read once, of a, L and C only the lower triangle, and each output written
 // once; 67 TFLOP/s f32, 3.35 TB/s): blocked_cholesky (1, 1536) 1.21 GFLOP =
 // 18 us against 14.2 MB = 4.2 us, operations; cholesky_solve (1, 1536, 16)
 // 75.5 MFLOP = 1.1 us against 4.9 MB = 1.5 us, bytes; multi_gamma_solve
 // (2304, 16, 16 γs) 68.0 GFLOP = 1.01 ms against 13.1 MB = 3.9 us,
-// operations. None of this reaches the
-// bound: one block per system uses one SM of 132 (the sweep 16), and the
-// column loops of the diagonal blocks (2b steps a panel, each behind a
-// barrier) run one after the other. Spreading a system over SMs
-// (a cooperative grid, or one launch per panel as the streamed path does),
-// a blocked micro-factor with fewer barriers, cp.async/TMA staging and
-// wgmma at a lower precision than f32 are later work.
+// operations. The factor's critical path is its 12 diagonal blocks, one
+// after the other on one SM each, and 34 launches; its flops run on the
+// tile grids. cholesky_solve and multi_gamma_solve use one SM per system
+// (the sweep 16), with the column loops of the diagonal blocks (2b steps a
+// panel, each behind a barrier) one after the other: spreading them over
+// SMs and moving them onto tri_blocked.cuh is later work.
 //
 // Shared memory (kSmemValues values a block): 60.8 KB in f32, 121.6 KB in
 // f64, under the 227 KB a block can take, so the f64 instances keep the
@@ -65,6 +93,8 @@
 //        -Xcompiler -fPIC -o libblocked.so blocked.cu
 // Each entry point launches on the caller's stream, does not synchronise,
 // allocates nothing and returns a CUDA error code (0 on success).
+// blocked_cholesky takes two scratches of the input's type: zs (m, 128,
+// 128) and panels (m, d, 128).
 
 #include <cuda_runtime.h>
 
@@ -72,6 +102,7 @@
 
 #include "packed_tri.cuh"
 #include "tile_gemm.cuh"
+#include "tri_blocked.cuh"
 
 namespace {
 
@@ -98,6 +129,9 @@ constexpr int kSolveYValues = kSolveK * kSolveCols;                       // 512
 constexpr int kSmemValues = kTriValues + 2 * kStageValues + kSolveAValues + kSolveYValues;
 template <class T>
 constexpr int kSmemBytes = kSmemValues * static_cast<int>(sizeof(T));   // 60.8 / 121.6 KB
+// blocked_cholesky's diagonal kernel: the packed triangle and the scratch
+// of factor_blocked and invert_blocked (49 KB in f32, 98 KB in f64)
+constexpr int kDiagValues = kPanel * (kPanel + 1) / 2 + afl_tri::kScratchValues<kPanel>;
 static_assert(kTriValues % 4 == 0 && kStageValues % 4 == 0 && kSolveAValues % 4 == 0,
               "16-byte aligned staging buffers");
 static_assert(kThreads == 2 * kPanel, "two threads for each row of a solve product");
@@ -330,23 +364,6 @@ __device__ void solve_system(const T* l, int d, const T* zs, const T* b,
 
 template <class T>
 __global__ void __launch_bounds__(kThreads)
-blocked_cholesky_kernel(const T* a, T* out, T* panels, int d) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem<T> sm = carve<T>(smem);
-  const size_t dd = static_cast<size_t>(d) * d;
-  const T* src = a + blockIdx.x * dd;
-  T* w = out + blockIdx.x * dd;
-  // the lower triangle of the system, and zeros above it
-  for (int r = threadIdx.x / 32; r < d; r += kThreads / 32)
-    for (int col = threadIdx.x % 32; col < d; col += 32)
-      w[at(r, col, d)] = col <= r ? src[at(r, col, d)] : T(0);
-  __syncthreads();
-  factor_system(w, d, static_cast<T*>(nullptr),
-                panels + blockIdx.x * static_cast<size_t>(d) * kPanel, sm);
-}
-
-template <class T>
-__global__ void __launch_bounds__(kThreads)
 cholesky_solve_kernel(const T* l, const T* b, T* x, T* zs, T* y, int d, int c) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem<T> sm = carve<T>(smem);
@@ -381,6 +398,123 @@ multi_gamma_kernel(const T* cm, const T* q, const T* gammas, T* work, T* zs, T* 
                w_out + g * d * c, c, sm);
 }
 
+// --- blocked_cholesky: a panel schedule over all SMs --------------------------
+//
+// Per panel [o, e) of every system w (row stride d), three launches: the
+// diagonal block (one block a system), the trsm L21 = A21 · Z11ᵀ (64×64
+// tiles × systems) and the trailing update A22 −= L21 · L21ᵀ (the lower
+// triangle's tiles × systems). src is the input a at the first panel and
+// the output after it, so a is read in place and never copied.
+
+// The diagonal block at (o, o): factored and stored as L11 (zeros above
+// its diagonal) by factor_blocked; inverted by invert_blocked into zs (one
+// kPanel² block a system, zeros above) unless it is the last panel.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+chol_diag_kernel(const T* src, T* out, T* zs, int d, int o) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s = reinterpret_cast<T*>(smem);
+  T* scratch = s + kPanel * (kPanel + 1) / 2;
+  const size_t sys = blockIdx.x;
+  const size_t dd = static_cast<size_t>(d) * d;
+  const int bw = min(kPanel, d - o);
+  const int bp = afl_tri::padded(bw);
+  afl_tri::load_lower_padded<kThreads>(src + sys * dd + at(o, o, d), d, bw, s);
+  afl_tri::factor_blocked<kThreads>(s, scratch, bp);
+  afl_tri::store_lower<kThreads>(s, bw, out + sys * dd + at(o, o, d), d);
+  if (o + bw < d) {
+    afl_tri::invert_blocked<kThreads>(s, scratch, bp);   // after a barrier: the store has read s
+    afl_tri::store_lower<kThreads>(s, bw, zs + sys * kPanelValues, kPanel);
+  }
+}
+
+// L21 = A21 · Z11ᵀ into the system's (d, kPanel) scratch panel: one 64×64
+// tile (blockIdx.y rows, blockIdx.x columns) of system blockIdx.z.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+chol_trsm_kernel(const T* src, const T* zs, T* panels, int d, int o) {
+  const size_t sys = blockIdx.z;
+  const T* w = src + sys * d * d;
+  const T* z = zs + sys * kPanelValues;
+  T* panel = panels + sys * d * kPanel;
+  const int bw = min(kPanel, d - o);
+  const int e = o + bw;
+  const int t = d - e;
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.x * kTile;
+  afl_tile::tile_gemm<T>(
+      bw,
+      [=](afl_tile::Stage<T> a_tile, afl_tile::Stage<T> b_tile, int k0) {
+#pragma unroll
+        for (int l = 0; l < kLoadsPerThread; ++l) {
+          const int idx = threadIdx.x + l * kThreads;
+          const int r = idx / kStep;
+          const int kk = idx % kStep;
+          const int col = k0 + kk;
+          a_tile[kk][r] = (i0 + r < t && col < bw) ? w[at(e + i0 + r, o + col, d)] : T(0);
+          const int zr = j0 + r;
+          b_tile[kk][r] = (zr < bw && col <= zr) ? z[at(zr, col, kPanel)] : T(0);
+        }
+      },
+      [=](int r, int c, T v) {
+        if (i0 + r < t && j0 + c < bw) panel[at(i0 + r, j0 + c, kPanel)] = v;
+      });
+}
+
+// One lower tile of A22 −= L21 · L21ᵀ (read from src, written to out):
+// tile blockIdx.x of the lower triangle's, row by row, of system
+// blockIdx.y. The diagonal tile of each row of tiles then copies those
+// rows of L21 into place, and zeros into their mirror above the diagonal.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+chol_trailing_kernel(const T* src, T* out, const T* panels, int d, int o) {
+  const size_t sys = blockIdx.y;
+  const T* a = src + sys * d * d;
+  T* w = out + sys * d * d;
+  const T* panel = panels + sys * d * kPanel;
+  const int bw = min(kPanel, d - o);
+  const int e = o + bw;
+  const int t = d - e;
+  const int x = blockIdx.x;
+  int ti = static_cast<int>((sqrtf(8.0f * x + 1.0f) - 1.0f) * 0.5f);
+  while (ti * (ti + 1) / 2 > x) --ti;
+  while ((ti + 1) * (ti + 2) / 2 <= x) ++ti;
+  const int tj = x - ti * (ti + 1) / 2;
+  const int i0 = ti * kTile;
+  const int j0 = tj * kTile;
+  afl_tile::tile_gemm<T>(
+      bw,
+      [=](afl_tile::Stage<T> a_tile, afl_tile::Stage<T> b_tile, int k0) {
+#pragma unroll
+        for (int l = 0; l < kLoadsPerThread; ++l) {
+          const int idx = threadIdx.x + l * kThreads;
+          const int r = idx / kStep;
+          const int kk = idx % kStep;
+          const int col = k0 + kk;
+          a_tile[kk][r] = (i0 + r < t && col < bw) ? panel[at(i0 + r, col, kPanel)] : T(0);
+          b_tile[kk][r] = (j0 + r < t && col < bw) ? panel[at(j0 + r, col, kPanel)] : T(0);
+        }
+      },
+      [=](int r, int c, T v) {
+        const int row = i0 + r;
+        const int col = j0 + c;
+        if (row >= t || col > row) return;
+        w[at(e + row, e + col, d)] = a[at(e + row, e + col, d)] - v;
+      });
+  if (ti != tj) return;
+  const int rows = min(kTile, t - i0);
+  for (int idx = threadIdx.x; idx < rows * bw; idx += kThreads) {
+    const int r = idx / bw;
+    const int c = idx % bw;
+    w[at(e + i0 + r, o + c, d)] = panel[at(i0 + r, c, kPanel)];
+  }
+  for (int idx = threadIdx.x; idx < rows * bw; idx += kThreads) {
+    const int c = idx / rows;
+    const int r = idx % rows;
+    w[at(o + c, e + i0 + r, d)] = T(0);
+  }
+}
+
 template <class Kernel>
 int prepare(Kernel kernel, int bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -388,11 +522,30 @@ int prepare(Kernel kernel, int bytes) {
 }
 
 template <class T>
-int blocked_cholesky(const void* a, void* out, void* panels, int m, int d, void* stream) {
-  if (int err = prepare(blocked_cholesky_kernel<T>, kSmemBytes<T>)) return err;
-  blocked_cholesky_kernel<T><<<m, kThreads, kSmemBytes<T>, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<T*>(out), static_cast<T*>(panels), d);
-  return static_cast<int>(cudaGetLastError());
+int blocked_cholesky(const void* a, void* out, void* zs, void* panels, int m, int d,
+                     void* stream) {
+  const int bytes = kDiagValues * static_cast<int>(sizeof(T));
+  if (int err = prepare(chol_diag_kernel<T>, bytes)) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  T* w = static_cast<T*>(out);
+  T* z = static_cast<T*>(zs);
+  T* p = static_cast<T*>(panels);
+  const T* src = static_cast<const T*>(a);
+  for (int o = 0; o < d; o += kPanel) {
+    const int e = min(o + kPanel, d);
+    const int nt = (d - e + kTile - 1) / kTile;
+    chol_diag_kernel<T><<<m, kThreads, bytes, st>>>(src, w, z, d, o);
+    if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+    if (nt > 0) {
+      chol_trsm_kernel<T><<<dim3((e - o + kTile - 1) / kTile, nt, m), kThreads, 0, st>>>(
+          src, z, p, d, o);
+      if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+      chol_trailing_kernel<T><<<dim3(nt * (nt + 1) / 2, m), kThreads, 0, st>>>(src, w, p, d, o);
+      if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+    }
+    src = w;
+  }
+  return 0;
 }
 
 template <class T>
@@ -421,9 +574,10 @@ int multi_gamma_solve(const void* cm, const void* q, const void* gammas, void* w
 
 // One set of entry points for each type: _f32 and _f64.
 #define AFL_BLOCKED_ENTRY_POINTS(T, SUFFIX)                                             \
-  extern "C" int afl_blocked_cholesky_##SUFFIX(const void* a, void* out, void* panels,  \
-                                               int m, int d, void* stream) {            \
-    return blocked_cholesky<T>(a, out, panels, m, d, stream);                           \
+  extern "C" int afl_blocked_cholesky_##SUFFIX(const void* a, void* out, void* zs,      \
+                                               void* panels, int m, int d,              \
+                                               void* stream) {                          \
+    return blocked_cholesky<T>(a, out, zs, panels, m, d, stream);                       \
   }                                                                                     \
   extern "C" int afl_cholesky_solve_##SUFFIX(const void* l, const void* b, void* x,     \
                                              void* zs, void* y, int m, int d, int c,    \

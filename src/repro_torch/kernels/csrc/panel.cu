@@ -15,27 +15,41 @@
 // positive definite gives NaN (sqrt of a negative pivot) as the reference
 // does. The upper triangles of L and Z are written as exact zeros.
 //
-// panel_factor / panel_tri_inv. On the TPU the whole (b, b) tile sits in
-// VMEM and a fori_loop sweeps its columns. Here one block of 1024 threads
-// does the same, with the column loops of packed_tri.cuh. At b = 256 an f32 tile is 256 KB: more than a block's
-// 227 KB of shared memory, and the whole register file of the SM. Only the
-// lower triangle carries data (the upper half of the input is never read,
-// and the output's is zero), so the block keeps that triangle, packed by
-// rows, in 128.5 KB of dynamic shared memory. The factor is right-looking:
-// at column j one barrier publishes the scaled column, then warps take the
-// rows and lanes the columns of the trailing triangle for the rank-1
-// update. The inverse then runs in place, row by row, over the same packed
-// triangle: row i of Z needs row i of L, copied to a buffer first, and the
-// rows of Z above it, which have already overwritten theirs; four threads
-// share each column's dot product and add their parts with shuffles.
-// Bound at b = 256: 2b³/3 = 11.2 MFLOP (0.17 us at 67 TFLOP/s f32) against
-// 4·(b(b+1)/2 + 2b²) = 0.66 MB (0.20 us at 3.35 TB/s), so bytes. Neither
-// is what limits it: it is 2b = 512 steps that must run one after the
-// other, each behind a barrier, on one SM. In f64 the packed triangle
-// doubles: 257 KB at b = 256, more than a block can hold, so the f64
-// instance takes panels of at most 128 (65.5 KB with its buffer) and
-// eight threads share each column of the inverse; the streamed schedule
-// runs f64 systems at b = 128 (kernels/solve.py, STREAM_BLOCK_F64).
+// panel_factor. On the TPU the whole (b, b) tile sits in VMEM and a
+// fori_loop sweeps its columns. Here one block of 1024 threads does the
+// same, with the column loops of packed_tri.cuh. At b = 256 an f32 tile is
+// 256 KB: more than a block's 227 KB of shared memory, and the whole
+// register file of the SM. Only the lower triangle carries data (the upper
+// half of the input is never read, and the output's is zero), so the block
+// keeps that triangle, packed by rows, in 128.5 KB of dynamic shared
+// memory. The factor is right-looking: at column j one barrier publishes
+// the scaled column, then warps take the rows and lanes the columns of the
+// trailing triangle for the rank-1 update. The inverse then runs in place,
+// row by row, over the same packed triangle: row i of Z needs row i of L,
+// copied to a buffer first, and the rows of Z above it, which have already
+// overwritten theirs; four threads share each column's dot product and add
+// their parts with shuffles. Bound at b = 256: 2b³/3 = 11.2 MFLOP (0.17 us
+// at 67 TFLOP/s f32) against 4·(b(b+1)/2 + 2b²) = 0.66 MB (0.20 us at
+// 3.35 TB/s), so bytes. Neither is what limits it: it is 2b = 512 steps
+// that must run one after the other, each behind a barrier, on one SM.
+//
+// panel_tri_inv. One block of 512 threads inverts the packed triangle with
+// invert_blocked (tri_blocked.cuh): the eight 32-wide diagonal sub-blocks
+// of a 256-wide block are inverted by eight warps at once, without block
+// barriers, then merged in three levels of two triangular-times-dense
+// products each (Z21 = −Z22 · L21 · Z11), eight barriers in all where the
+// row loop took 512. A ragged b is padded to a multiple of 32 with an
+// identity tail. Shared memory: the packed triangle and a 128 × 129 merge
+// operand, 193 KB at b = 256 in f32. Bound at b = 256: b³/3 = 5.6 MFLOP
+// (0.08 us) against 4·(b(b+1)/2 + b²) = 0.39 MB (0.12 us), so bytes; the
+// merge products, about 1.3 M FMAs with their operands read from shared
+// memory on one SM, are what remains.
+//
+// In f64 the packed triangle doubles: 257 KB at b = 256, more than a block
+// can hold, so the f64 instances take panels of at most 128 (65.5 KB, and
+// 33.5 KB more of scratch for the inverse) and eight threads share
+// each column of panel_factor's inverse; the streamed schedule runs f64
+// systems at b = 128 (kernels/solve.py, STREAM_BLOCK_F64).
 //
 // panel_trsm / panel_update. One tiled kernel computes C = A·Bᵀ, or
 // C = T − A·Bᵀ, in 64×64 output tiles: the tile loop of tile_gemm.cuh
@@ -66,6 +80,7 @@
 
 #include "packed_tri.cuh"
 #include "tile_gemm.cuh"
+#include "tri_blocked.cuh"
 
 namespace {
 
@@ -77,34 +92,61 @@ constexpr int kMaxPanel = sizeof(T) == 4 ? 256 : 128;
 
 using afl_tri::tri;
 
-template <class T, bool kFactor>
+template <class T>
 __global__ void __launch_bounds__(kPanelThreads)
-panel_kernel(const T* __restrict__ a, int lda, int b,
-             T* __restrict__ l_out, T* __restrict__ z_out) {
+factor_kernel(const T* __restrict__ a, int lda, int b,
+              T* __restrict__ l_out, T* __restrict__ z_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);   // tri(b) values: the packed lower triangle
   T* buf = s + tri(b);                     // kMaxPanel values: a column or a row of L
   afl_tri::load_lower<kPanelThreads>(a, lda, b, s);
   __syncthreads();
-  if (kFactor) {
-    afl_tri::factor_packed<kPanelThreads>(s, buf, b);
-    afl_tri::store_lower<kPanelThreads>(s, b, l_out, b);
-    __syncthreads();             // the inverse overwrites what was stored
-  }
+  afl_tri::factor_packed<kPanelThreads>(s, buf, b);
+  afl_tri::store_lower<kPanelThreads>(s, b, l_out, b);
+  __syncthreads();             // the inverse overwrites what was stored
   afl_tri::invert_packed<kPanelThreads, kMaxPanel<T>>(s, buf, b);
   afl_tri::store_lower<kPanelThreads>(s, b, z_out, b);
 }
 
-template <class T, bool kFactor>
-int launch_panel(const void* a, int lda, int b, void* l, void* z,
-                 void* stream) {
+constexpr int kInvThreads = 512;
+
+template <class T>
+__global__ void __launch_bounds__(kInvThreads)
+tri_inv_kernel(const T* __restrict__ l, int ldl, int b, T* __restrict__ z_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int bp = afl_tri::padded(b);
+  T* s = reinterpret_cast<T*>(smem_raw);   // tri(bp) values: the packed lower triangle
+  T* scratch = s + tri(bp);                // the sub-block stagings and merge products
+  afl_tri::load_lower_padded<kInvThreads>(l, ldl, b, s);
+  afl_tri::invert_blocked<kInvThreads>(s, scratch, bp);
+  afl_tri::store_lower<kInvThreads>(s, b, z_out, b);
+}
+
+template <class Kernel>
+int prepare(Kernel kernel, int bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+template <class T>
+int launch_factor(const void* a, int lda, int b, void* l, void* z, void* stream) {
   if (b < 1 || b > kMaxPanel<T>) return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = (b * (b + 1) / 2 + kMaxPanel<T>) * static_cast<int>(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      panel_kernel<T, kFactor>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  panel_kernel<T, kFactor><<<1, kPanelThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  if (int err = prepare(factor_kernel<T>, bytes)) return err;
+  factor_kernel<T><<<1, kPanelThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(a), lda, b, static_cast<T*>(l), static_cast<T*>(z));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch_tri_inv(const void* l, int ldl, int b, void* z, void* stream) {
+  if (b < 1 || b > kMaxPanel<T>) return static_cast<int>(cudaErrorInvalidValue);
+  const int bp = afl_tri::padded(b);
+  const int bytes =
+      (bp * (bp + 1) / 2 + afl_tri::kScratchValues<kMaxPanel<T>>) * static_cast<int>(sizeof(T));
+  if (int err = prepare(tri_inv_kernel<T>, bytes)) return err;
+  tri_inv_kernel<T><<<1, kInvThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(l), ldl, b, static_cast<T*>(z));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -166,11 +208,11 @@ int launch_gemm(const void* t, int ldt, const void* a, int lda, const void* b,
 #define AFL_PANEL_ENTRY_POINTS(T, SUFFIX)                                             \
   extern "C" int afl_panel_factor_##SUFFIX(const void* a, int lda, int b, void* l,    \
                                            void* z, void* stream) {                   \
-    return launch_panel<T, true>(a, lda, b, l, z, stream);                            \
+    return launch_factor<T>(a, lda, b, l, z, stream);                                 \
   }                                                                                   \
   extern "C" int afl_panel_tri_inv_##SUFFIX(const void* l, int ldl, int b, void* z,   \
                                             void* stream) {                           \
-    return launch_panel<T, false>(l, ldl, b, nullptr, z, stream);                     \
+    return launch_tri_inv<T>(l, ldl, b, z, stream);                                   \
   }                                                                                   \
   extern "C" int afl_panel_trsm_##SUFFIX(const void* raw, int ldr, const void* zinv,  \
                                          int ldz, void* out, int ldo, int r, int b,   \

@@ -93,6 +93,83 @@ def tri_inv_tile(l: torch.Tensor) -> torch.Tensor:
     return z
 
 
+SUB = 32                 # sub-block width of the blocked micro-routines (one warp)
+
+
+def _pad_identity(a: torch.Tensor, bp: int) -> torch.Tensor:
+    """The lower triangle of (..., b, b) blocks, padded to (..., bp, bp)
+    with an identity tail."""
+    b = a.shape[-1]
+    out = torch.zeros((*a.shape[:-2], bp, bp), dtype=a.dtype, device=a.device)
+    out[..., :b, :b] = torch.tril(a)
+    tail = torch.arange(b, bp, device=a.device)
+    out[..., tail, tail] = 1.0
+    return out
+
+
+def _padded(b: int, nb: int) -> int:
+    return -(-b // nb) * nb
+
+
+def invert_blocked_ref(l: torch.Tensor, nb: int = SUB) -> torch.Tensor:
+    """The CUDA ``invert_blocked`` (``csrc/tri_blocked.cuh``) in plain
+    PyTorch: the inverse of (..., b, b) lower-triangular blocks as the
+    kernel computes it, to prove its algebra on the CPU (no path calls it).
+
+    The block is padded to a multiple of ``nb`` with an identity tail; each
+    ``nb``-wide diagonal sub-block is inverted by the column loop of
+    :func:`tri_inv_tile` (one warp's forward substitution); neighbouring
+    inverses are then merged level by level, Z21 = −Z22 · (L21 · Z11), the
+    second block of a pair narrower where the sub-blocks do not pair up.
+    The strict upper triangle of ``l`` is not read; the result's is zero.
+    """
+    b = l.shape[-1]
+    bp = _padded(b, nb)
+    z = _pad_identity(l, bp)
+    lp = z.clone()
+    for o in range(0, bp, nb):
+        z[..., o:o + nb, o:o + nb] = tri_inv_tile(lp[..., o:o + nb, o:o + nb])
+    s = nb
+    while s < bp:
+        for a in range(0, bp - s, 2 * s):
+            e = min(a + 2 * s, bp)
+            t = lp[..., a + s:e, a:a + s] @ z[..., a:a + s, a:a + s]
+            z[..., a + s:e, a:a + s] = -(z[..., a + s:e, a + s:e] @ t)
+        s *= 2
+    return torch.tril(z[..., :b, :b])
+
+
+def factor_blocked_ref(a: torch.Tensor, nb: int = SUB) -> torch.Tensor:
+    """The CUDA ``factor_blocked`` (``csrc/tri_blocked.cuh``) in plain
+    PyTorch: the lower Cholesky factor of (..., b, b) SPD blocks as the
+    kernel computes it, to prove its algebra on the CPU (no path calls it).
+
+    The block is padded to a multiple of ``nb`` with an identity tail. Per
+    sub-panel of ``nb`` columns: the diagonal sub-block by the column sweep
+    of :func:`factor_tile` (one warp), the rows below it by forward
+    substitution against that factor (one thread a row, each x_c scaled by
+    the reciprocal of its pivot and folded into the columns after it), then
+    the rank-nb update of the trailing triangle. Only the lower triangle of ``a`` is
+    read; a block that is not positive definite gives NaNs.
+    """
+    b = a.shape[-1]
+    bp = _padded(b, nb)
+    s = _pad_identity(a, bp)
+    for o in range(0, bp, nb):
+        e = o + nb
+        l11 = factor_tile(s[..., o:e, o:e])
+        s[..., o:e, o:e] = l11
+        if e == bp:
+            break
+        x = s[..., e:, o:e].clone()
+        for c in range(nb):
+            x[..., :, c] *= 1.0 / l11[..., c, c][..., None]
+            x[..., :, c + 1:] -= x[..., :, c:c + 1] * l11[..., None, c + 1:, c]
+        s[..., e:, o:e] = x
+        s[..., e:, e:] -= x @ _t(x)
+    return torch.tril(s[..., :b, :b])
+
+
 def panel_factor_ref(diag: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``kernels.panel.panel_factor``: ``(L, L⁻¹)``."""
     l = factor_tile(diag)

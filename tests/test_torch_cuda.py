@@ -308,7 +308,7 @@ def _blocked_counts():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,d", [(1, 1536), (1, 128), (3, 130)])   # path, path, ragged
+@pytest.mark.parametrize("m,d", [(1, 1536), (1, 128), (3, 130), (2, 257)])  # path, path, ragged
 def test_blocked_cholesky_matches_plain(cuda, m, d):
     a = torch.stack([_spd_block(d + i, d, cuda) for i in range(m)])
     before = B.blocked_cholesky.launches
@@ -318,9 +318,11 @@ def test_blocked_cholesky_matches_plain(cuda, m, d):
     assert l.shape == (m, d, d) and torch.isfinite(l).all()
     assert not torch.triu(l, 1).any()
     assert _rel(l, ref.blocked_cholesky_ref(a)) < REL
-    # the upper triangle of the input is not read
+    # the upper triangle of the input is not read, and a repeated call
+    # gives the same bits
     garbage = a + torch.triu(torch.full_like(a, 7.0), 1)
     assert torch.equal(ops.blocked_cholesky(garbage), l)
+    assert torch.equal(ops.blocked_cholesky(a), l)
 
 
 @pytest.mark.cuda
@@ -334,6 +336,9 @@ def test_blocked_cholesky_non_pd_gives_nan_in_that_system_only(cuda):
     assert torch.isnan(ref.blocked_cholesky_ref(a[1:])).any()
     assert not torch.triu(l, 1).any()
     assert _rel(l[0], ref.blocked_cholesky_ref(a[:1])[0]) < REL
+    again = ops.blocked_cholesky(a)        # the same bits, NaNs in the same places
+    assert torch.equal(again.isnan(), l.isnan())
+    assert torch.equal(again.nan_to_num(), l.nan_to_num())
 
 
 @pytest.mark.cuda
@@ -502,6 +507,61 @@ def test_blocked_kernels_f64_match_numpy(cuda, d, m):
     assert _rel_x64(l, np.linalg.cholesky(a)) < REL64
     assert _rel_x64(x, np.linalg.solve(a, b)) < REL64
     assert _rel(l, ref.blocked_cholesky_ref(torch.from_numpy(a).to(cuda))) < REL64
+
+
+# The redesigned panel_tri_inv (invert_blocked) and blocked_cholesky (a
+# panel schedule over all SMs): against the plain twins of their blocked
+# arithmetic in kernels.ref and the column-loop plain versions, at REL in
+# f32 and REL64 in f64.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,dtype", [(256, torch.float32), (200, torch.float32),
+                                     (33, torch.float32), (16, torch.float32),
+                                     (128, torch.float64)])
+def test_panel_tri_inv_matches_blocked_twin_and_plain(cuda, b, dtype):
+    rel = REL if dtype == torch.float32 else REL64
+    l = ref.factor_tile(_spd_block(b, b, cuda).to(dtype))
+    before = P.panel_tri_inv.launches
+    z = ops.panel_tri_inv(_inside(l + torch.triu(torch.full_like(l, 7.0), 1)))
+    torch.cuda.synchronize()
+    assert P.panel_tri_inv.launches == before + 1
+    assert z.dtype == dtype and torch.isfinite(z).all() and not torch.triu(z, 1).any()
+    assert _rel(z, ref.invert_blocked_ref(l)) < rel
+    assert _rel(z, ref.panel_tri_inv_ref(l)) < rel
+    assert torch.equal(ops.panel_tri_inv(l), z)          # the same bits again
+
+
+@pytest.mark.cuda
+def test_blocked_cholesky_f64_at_path_width_matches_numpy(cuda):
+    d = 1536
+    x = np.random.default_rng(d).standard_normal((4 * d, d))
+    a = x.T @ x / (4 * d)
+    l = ops.blocked_cholesky(torch.from_numpy(a)[None].to(cuda))
+    torch.cuda.synchronize()
+    assert l.dtype == torch.float64 and not torch.triu(l, 1).any()
+    assert _rel_x64(l[0], np.linalg.cholesky(a)) < REL64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(1, 1536), (3, 130), (1, 128)])
+def test_blocked_cholesky_cuda_launches_match_profiler(cuda, m, d):
+    """One wrapper call makes blocked.cuda_launches(d) CUDA launches, as
+    torch.profiler counts them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.stack([_spd_block(d + i, d, cuda) for i in range(m)])
+    ops.blocked_cholesky(a)
+    torch.cuda.synchronize()
+    before = B.blocked_cholesky.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.blocked_cholesky(a)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "chol_" in e.name]
+    assert B.blocked_cholesky.launches == before + 1
+    assert len(kernels) == B.cuda_launches(d)
 
 
 @pytest.mark.cuda

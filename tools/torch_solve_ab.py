@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Time the port's device-engine solves in one checkout, for A/B runs.
+
+    python3 tools/torch_solve_ab.py --src <checkout>/src [--label NAME]
+
+Imports ``repro_torch`` from ``--src``, so that one run on the card can
+time two checkouts in turns (parent, change, change, parent), each in a
+process of its own. Prints one JSON line: the label, the card's name and
+power limit (nvidia-smi), and the milliseconds of
+``AnalyticEngine("torch", use_kernel=True).solve`` (factor and solve, the
+median of ``--reps`` calls, each timed on the host to a synchronised end)
+on one seeded SPD system XᵀX/4d (condition number near 9) with C = 16
+right-hand sides:
+
+  * ``streamed_f32`` / ``streamed_f64``: d = 2304 (the streamed route:
+    panel kernels, ``panel_tri_inv`` for every diagonal block of the solve)
+    at γ = 0.01·tr/d;
+  * ``narrow_f32`` / ``narrow_f64``: d = 1536 (``blocked_cholesky`` and
+    ``cholesky_solve``).
+
+Needs a CUDA GPU; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def _median_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(out)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", required=True, help="the checkout's src directory")
+    ap.add_argument("--label", default="")
+    ap.add_argument("--reps", type=int, default=9)
+    args = ap.parse_args()
+    src = Path(args.src).resolve()
+    if not (src / "repro_torch").is_dir():
+        sys.exit(f"no repro_torch package under {src}")
+    sys.path.insert(0, str(src))
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    from repro_torch.core import engine
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()
+    out = {"label": args.label, "src": str(src), "card": smi[0] if smi else None}
+    for name, d, dtype in (("streamed_f32", 2304, torch.float32),
+                           ("streamed_f64", 2304, torch.float64),
+                           ("narrow_f32", 1536, torch.float32),
+                           ("narrow_f64", 1536, torch.float64)):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(d)
+        x = torch.randn((4 * d, d), generator=gen, device="cuda", dtype=torch.float64)
+        gram = (x.T @ x / (4 * d)).to(dtype)
+        rhs = torch.randn((d, 16), generator=gen, device="cuda", dtype=torch.float64).to(dtype)
+        one = torch.tensor(1.0, device="cuda", dtype=dtype)
+        stats = engine.SuffStats(gram, rhs, one, one)
+        eng = engine.AnalyticEngine("torch", dtype=dtype, device="cuda", use_kernel=True)
+        gamma = 0.01 * float(torch.trace(gram)) / d if d >= 2048 else 0.0
+        w = eng.solve(stats, target_gamma=gamma)
+        if not bool(torch.isfinite(w).all()):
+            sys.exit(f"{name}: the solve is not finite")
+        out[name] = _median_ms(lambda: eng.solve(stats, target_gamma=gamma), args.reps)
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()
