@@ -20,9 +20,13 @@ without the repository around it. Phases, each fatal on failure:
      paths, ragged shapes and (the factors and the sweep) an input that is
      not positive definite; ``panel_tri_inv`` also against
      ``ref.invert_blocked_ref`` (the plain twin of its blocked inverse),
-     ``blocked_cholesky`` also against itself on a repeated call (the same
-     bits), and one (1, 1536) f32 call of it and of the rank update
-     profiled by kernel; then the f64 instance of each solve-side kernel
+     ``blocked_cholesky``, ``cholesky_solve`` and ``multi_gamma_solve``
+     also against themselves on a repeated call (the same bits), the last
+     two also against the plain twins of their schedules
+     (``ref.solve_right_looking_ref``, ``ref.multi_gamma_blocked_ref``);
+     one f32 call of ``blocked_cholesky`` (1, 1536), ``cholesky_solve``
+     (1, 1536, 16), ``multi_gamma_solve`` (2304, 16, 16 γs) and the rank
+     update profiled by kernel; then the f64 instance of each solve-side kernel
      at its f64 path's shape against its f64 plain version (relative
      1e-10); each timed beside the plain version, one library call that
      computes the same function, and the card's bound; the times of the
@@ -286,15 +290,22 @@ def _kernel_row(name, shape, err, rel, ms, plain_ms, library_ms, flops, nbytes, 
 
 
 # The times of the earlier designs of the kernels and paths that were
-# redesigned onto tri_blocked.cuh and the panel schedule (PERF.md §6 and
+# redesigned onto tri_blocked.cuh and the panel schedules (PERF.md §6 and
 # §5: chip_smoke.py, NVIDIA H100 80GB HBM3 at 700.00 W), logged beside
-# this run's
+# this run's: panel_tri_inv, blocked_cholesky and the streamed solves
+# before their move onto tri_blocked.cuh; cholesky_solve, multi_gamma_solve,
+# the sweeps and the narrow solves before the solve's and the sweep's move
+# onto grids over all SMs
 EARLIER_MS = {("panel_tri_inv", 256, "float32"): 0.3376, ("panel_tri_inv", 128, "float64"): 0.1209,
            ("blocked_cholesky", 1536, "float32"): 16.616,
            ("blocked_cholesky", 128, "float32"): 0.2376,
            ("blocked_cholesky", 1536, "float64"): 27.9598,
-           "device_solve": 11.19, "narrow_1536": 20.14, "f64_solve": 10.02,
-           "f64_narrow_1536": 32.03}
+           ("cholesky_solve", 1536, "float32"): 3.0586,
+           ("cholesky_solve", 1536, "float64"): 3.8067,
+           ("multi_gamma_solve", 2304, "float32"): 59.1287,
+           ("multi_gamma_solve", 2304, "float64"): 96.7480,
+           "device_solve": 11.19, "f64_solve": 10.02, "sweep": 61.98, "f64_sweep": 98.81,
+           "narrow_1536": 4.37, "f64_narrow_1536": 5.75}
 
 
 def _merge_levels(b: int) -> int:
@@ -768,8 +779,12 @@ SWEEP_SHAPES = [(2304, 16, 16), (130, 7, 11)]             # (d, c, n_g)
 RANK_SHAPES = [(2304, 64), (2304, 144), (130, 3)]         # (d, k); 144 = d//16
 
 
-# blocked_cholesky's three kernels, as the profiler names them
+# blocked_cholesky's three kernels, as the profiler names them; the solve's
+# inverse grid and the two steps of its substitutions (forward_ and
+# backward_ each); the sweep's factor and substitutions
 BLOCKED_PARTS = ("chol_diag_kernel", "chol_trsm_kernel", "chol_trailing_kernel")
+SOLVE_PARTS = ("solve_inverse_kernel", "_apply_kernel", "_update_kernel")
+SWEEP_PARTS = BLOCKED_PARTS + SOLVE_PARTS[1:]
 
 
 def time_auto(fn) -> float:
@@ -841,13 +856,23 @@ def blocked_phase(K, ref):
         x, want = B.cholesky_solve(l, b), ref.cholesky_solve_ref(l, b)
         torch.cuda.synchronize()
         rel = _check_close("cholesky_solve", (m, d, c), x, want)
+        _check_close("cholesky_solve against its right-looking twin", (m, d, c), x,
+                     ref.solve_right_looking_ref(l, b))
+        if not torch.equal(B.cholesky_solve(l, b), x):
+            fail(f"cholesky_solve {(m, d, c)}: a repeated call gave other bits")
         rows["cholesky_solve"].append(_kernel_row(
             "cholesky_solve", (m, d, c), _abs(x, want), rel,
             time_auto(lambda: B.cholesky_solve(l, b)),
             time_auto(lambda: ref.cholesky_solve_ref(l, b)),
             time_auto(lambda: torch.cholesky_solve(b, l)),
             2 * m * d * d * c, 4 * m * (_tri(d) + 2 * d * c),
-            "; library torch.cholesky_solve"))
+            f"; library torch.cholesky_solve; {B.solve_cuda_launches(d)} CUDA launches a "
+            f"call; the one-block kernel before "
+            f"{EARLIER_MS.get(('cholesky_solve', d, 'float32'), 'n/a')} ms"))
+        if d == NARROW_WIDE_D:
+            rows["cholesky_solve"][-1]["profile"] = prof = kernel_breakdown(
+                lambda: B.cholesky_solve(l, b), SOLVE_PARTS)
+            _log_breakdown(f"cholesky_solve {(m, d, c)} float32, one call profiled", prof)
 
     for d, c, n_g in SWEEP_SHAPES:
         a = _spd_block(gen, d)
@@ -866,12 +891,23 @@ def blocked_phase(K, ref):
         torch.cuda.synchronize()
         rel = max(_check_close("multi_gamma_solve", (d, c, n_g), w[j], want[j])
                   for j in range(n_g))
+        twin = ref.multi_gamma_blocked_ref(a, q, gammas)
+        for j in range(n_g):
+            _check_close("multi_gamma_solve against its blocked twin", (d, c, n_g), w[j], twin[j])
+        if not torch.equal(B.multi_gamma_solve(a, q, gammas), w):
+            fail(f"multi_gamma_solve {(d, c, n_g)}: a repeated call gave other bits")
         rows["multi_gamma_solve"].append(_kernel_row(
             "multi_gamma_solve", (d, c, n_g), _abs(w, want), rel,
             time_auto(lambda: B.multi_gamma_solve(a, q, gammas)), time_auto(plain),
             time_auto(library), n_g * (d ** 3 / 3 + 2 * d * d * c),
             4 * (_tri(d) + d * c + n_g + n_g * d * c),
-            "; library batched torch.linalg.cholesky + torch.cholesky_solve"))
+            f"; library batched torch.linalg.cholesky + torch.cholesky_solve; "
+            f"{B.sweep_cuda_launches(d)} CUDA launches a call; the one-block kernel before "
+            f"{EARLIER_MS.get(('multi_gamma_solve', d, 'float32'), 'n/a')} ms"))
+        if d == 2304:
+            rows["multi_gamma_solve"][-1]["profile"] = prof = kernel_breakdown(
+                lambda: B.multi_gamma_solve(a, q, gammas), SWEEP_PARTS)
+            _log_breakdown(f"multi_gamma_solve {(d, c, n_g)} float32, one call profiled", prof)
     x = torch.randn((5, 64), generator=gen, device="cuda")
     w = B.multi_gamma_solve(x.T @ x, torch.randn((64, 3), generator=gen, device="cuda"),
                             torch.tensor([0.0, 1.0], device="cuda"))
@@ -1011,7 +1047,9 @@ def f64_kernel_phase(K, ref):
     add("cholesky_solve", (1, n, NARROW_C), B.cholesky_solve(l, rhs),
         ref.cholesky_solve_ref(l, rhs), lambda: B.cholesky_solve(l, rhs),
         lambda: ref.cholesky_solve_ref(l, rhs), lambda: torch.cholesky_solve(rhs, l),
-        2 * n * n * NARROW_C, 8 * (_tri(n) + 2 * n * NARROW_C))
+        2 * n * n * NARROW_C, 8 * (_tri(n) + 2 * n * NARROW_C),
+        f"; {B.solve_cuda_launches(n)} CUDA launches a call; the one-block kernel before "
+        f"{EARLIER_MS[('cholesky_solve', n, 'float64')]} ms")
     c, n_g = 16, 16
     a = _spd_block(gen, d).double()
     q = torch.randn((d, c), generator=gen, device="cuda").double()
@@ -1022,7 +1060,9 @@ def f64_kernel_phase(K, ref):
         lambda: ref.multi_gamma_solve_ref(a, q, gammas),
         lambda: torch.cholesky_solve(q.expand(n_g, d, c),
                                      torch.linalg.cholesky(a + gammas[:, None, None] * eye)),
-        n_g * (d ** 3 / 3 + 2 * d * d * c), 8 * (_tri(d) + d * c + n_g + n_g * d * c))
+        n_g * (d ** 3 / 3 + 2 * d * d * c), 8 * (_tri(d) + d * c + n_g + n_g * d * c),
+        f"; {B.sweep_cuda_launches(d)} CUDA launches a call; the one-block kernel before "
+        f"{EARLIER_MS[('multi_gamma_solve', d, 'float64')]} ms")
     k = STRAGGLER_ROWS
     l = torch.linalg.cholesky(a).contiguous()
     xs = torch.randn((k, d), generator=gen, device="cuda").double()
@@ -1122,7 +1162,8 @@ def sweep_phase(K, ref, S, engine, api, server, x_te, y_te):
         fresh.solve_multi_gamma(gammas)
         t_host.append(1e3 * (time.perf_counter() - t1))
     log(f"sweep d={d}, {len(gammas)} ridges: engine kernel route {ms_card:.2f} ms "
-        f"(multi_gamma_solve alone {ms_fused:.2f} ms), batched torch.linalg.cholesky + "
+        f"(before: {EARLIER_MS['sweep']} ms; multi_gamma_solve alone {ms_fused:.2f} ms), "
+        f"batched torch.linalg.cholesky + "
         f"cholesky_solve {ms_lib:.2f} ms on the card; host f64 eigendecomposition sweep "
         f"(AFLServer, {os.cpu_count()} cores) {statistics.median(t_host):.1f} ms; worst "
         f"card vs plain {worst[0]:.2e}, vs host {worst[1]:.3f}·κ·u")
@@ -1420,7 +1461,8 @@ def f64_engine_phase(K, S, engine, api, server, x_te, y_te, fl):
     ms_lib = time_wall(lambda: torch.cholesky_solve(
         stats.moment.expand(len(gammas), d, c),
         torch.linalg.cholesky(stats.gram + gt[:, None, None] * eye)), reps=2)
-    log(f"f64 sweep d={d}, {len(gammas)} ridges: engine kernel route {ms:.2f} ms, batched "
+    log(f"f64 sweep d={d}, {len(gammas)} ridges: engine kernel route {ms:.2f} ms (before: "
+        f"{EARLIER_MS['f64_sweep']} ms), batched "
         f"torch.linalg.cholesky + cholesky_solve f64 {ms_lib:.2f} ms; worst {worst:.3f}·κ·u64")
     times.update(sweep_ms=ms, sweep_library_ms=ms_lib, sweep_worst_ku=worst)
 

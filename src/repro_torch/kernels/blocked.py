@@ -3,11 +3,16 @@
 The ports of the Pallas TPU kernels ``repro.kernels.solve.blocked_cholesky``,
 ``cholesky_solve`` and ``multi_gamma_solve``, which serve systems narrower
 than the streamed path's ``STREAM_MIN_DIM`` and the whole γ grid at any
-width. ``cholesky_solve`` and ``multi_gamma_solve`` are one launch each,
-one block of the card per system (per γ). ``blocked_cholesky`` is a panel
-schedule over all SMs: for each panel of ``PANEL`` columns, a diagonal
-kernel (one block a system), a trsm grid and a trailing-update grid, all
-launched from one C call (:func:`cuda_launches` of them).
+width. Each is a schedule of grids over all SMs, for every system of the
+call at once, launched from one C call. ``blocked_cholesky``: for each
+panel of ``PANEL`` columns, a diagonal kernel (one block a system), a trsm
+grid and a trailing-update grid (:func:`cuda_launches`).
+``cholesky_solve``: one grid inverting every diagonal block, then the
+forward and backward substitutions, two grids a panel each way
+(:func:`solve_cuda_launches`). ``multi_gamma_solve``: the factor's schedule
+over every γ at once, C read in place by all of them and γ_j added at the
+first panel, then the substitutions with Q read in place
+(:func:`sweep_cuda_launches`).
 
 The kernels are ``csrc/blocked.cu`` (its header states the design and the
 bounds on an H100), built by ``kernels.build`` and bound with ``ctypes``.
@@ -32,7 +37,7 @@ from repro_torch.kernels import build as _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "blocked.cu"
 PANEL = 128              # the panel width compiled into the kernels (kPanel)
-MAX_SYSTEMS = 65535      # systems one blocked_cholesky call takes (a grid's y and z limit)
+MAX_SYSTEMS = 65535      # systems (γs) one call takes (a grid's y and z limit)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -67,6 +72,27 @@ def cuda_launches(d: int) -> int:
     return 3 * n - 2
 
 
+def _substitution_launches(d: int) -> int:
+    """The forward and backward substitutions: a grid applying each panel's
+    inverse, and one updating the rows past it for every panel but the
+    last, each way."""
+    return 2 * (2 * -(-d // PANEL) - 1)
+
+
+def solve_cuda_launches(d: int) -> int:
+    """CUDA kernel launches of one ``cholesky_solve`` call on d-wide
+    systems: one grid of the inverse diagonal blocks, then the
+    substitutions."""
+    return 1 + _substitution_launches(d)
+
+
+def sweep_cuda_launches(d: int) -> int:
+    """CUDA kernel launches of one ``multi_gamma_solve`` call on a d-wide
+    C: the factor's schedule, whose diagonal kernels keep every inverse,
+    then the substitutions."""
+    return cuda_launches(d) + _substitution_launches(d)
+
+
 def _operand(name: str, t: torch.Tensor, shape: tuple[int, ...],
              dtype: Optional[torch.dtype] = None) -> None:
     """Checks one operand; ``dtype`` is the call's (its first operand's)."""
@@ -85,6 +111,8 @@ def _operand(name: str, t: torch.Tensor, shape: tuple[int, ...],
 def _systems(name: str, a: torch.Tensor) -> tuple[int, int]:
     if a.dim() != 3 or a.shape[1] != a.shape[2]:
         raise ValueError(f"{name}: expected (m, d, d) systems, got {tuple(a.shape)}")
+    if a.shape[0] > MAX_SYSTEMS:
+        raise ValueError(f"{name}: {a.shape[0]} systems, more than {MAX_SYSTEMS} a call")
     return a.shape[0], a.shape[1]
 
 
@@ -113,8 +141,6 @@ def blocked_cholesky(a: torch.Tensor) -> torch.Tensor:
     system that is not positive definite gives NaNs."""
     m, d = _systems("blocked_cholesky", a)
     _operand("blocked_cholesky a", a, (m, d, d))
-    if m > MAX_SYSTEMS:
-        raise ValueError(f"blocked_cholesky: {m} systems, more than {MAX_SYSTEMS} a call")
     fn = _entry("blocked_cholesky", a.dtype)
     out = torch.empty_like(a)
     zs = _scratch(m, PANEL, PANEL, like=a)
@@ -154,20 +180,23 @@ def cholesky_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def multi_gamma_solve(c: torch.Tensor, q: torch.Tensor, gammas: torch.Tensor) -> torch.Tensor:
     """The fused γ sweep: ``(C + γ_j I) W_j = Q`` for every γ of ``gammas``
-    (n_g,), C (d, d) (lower triangle read), Q (d, c) → W (n_g, d, c). The
-    wrapper allocates each γ's (d, d) work matrix; a γ whose system is not
-    positive definite gives NaNs in its W_j only."""
+    (n_g,), C (d, d) (lower triangle read), Q (d, c) → W (n_g, d, c). C
+    and Q are read in place by every γ; the wrapper allocates each γ's
+    (d, d) factor. A γ whose system is not positive definite gives NaNs in
+    its W_j only."""
     if c.dim() != 2 or q.dim() != 2 or gammas.dim() != 1:
         raise ValueError(f"multi_gamma_solve: expected C (d, d), Q (d, c) and γ (n_g,), "
                          f"got {tuple(c.shape)}, {tuple(q.shape)}, {tuple(gammas.shape)}")
     d, n_cls = q.shape
     n_g = gammas.shape[0]
+    if n_g > MAX_SYSTEMS:
+        raise ValueError(f"multi_gamma_solve: {n_g} γs, more than {MAX_SYSTEMS} a call")
     _operand("multi_gamma_solve C", c, (d, d))
     _operand("multi_gamma_solve Q", q, (d, n_cls), c.dtype)
     _operand("multi_gamma_solve gammas", gammas, (n_g,), c.dtype)
     _same_device(c, q, gammas)
     fn = _entry("multi_gamma_solve", c.dtype)
-    work = _scratch(n_g, d, d, like=c)
+    factors = _scratch(n_g, d, d, like=c)
     zs = _inverses(n_g, d, like=c)
     panels = _scratch(n_g, d, PANEL, like=c)
     y = _scratch(n_g, d, n_cls, like=c)
@@ -175,7 +204,7 @@ def multi_gamma_solve(c: torch.Tensor, q: torch.Tensor, gammas: torch.Tensor) ->
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            c.data_ptr(), q.data_ptr(), gammas.data_ptr(), work.data_ptr(), zs.data_ptr(),
+            c.data_ptr(), q.data_ptr(), gammas.data_ptr(), factors.data_ptr(), zs.data_ptr(),
             panels.data_ptr(), y.data_ptr(), w.data_ptr(), n_g, d, n_cls, stream)
     _check(err, "multi_gamma_solve")
     multi_gamma_solve.launches += 1

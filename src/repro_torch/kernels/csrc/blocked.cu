@@ -18,59 +18,64 @@
 // NaN (sqrt of a negative pivot) and leaves the other systems alone: every
 // product is a plain FMA in the input's type (no TF32, no mma; the f64
 // instances use the card's native FP64), sqrt and division are IEEE and no
-// pivot is clamped.
+// pivot is clamped. No sum uses atomics, and every sum runs in a fixed
+// order: the same input gives the same bits.
 //
-// Design of cholesky_solve and multi_gamma_solve. As the TPU kernel is
-// one pallas_call whose grid walks the systems, each is one launch whose
-// blocks are the systems (the γs of the sweep): one block of 256 threads
-// walks the panels of its system in device memory (for the sweep, in a
-// per-γ copy of C + γ_j I that the wrapper allocates). A system of
-// d = 1536 is 9.4 MB and stays in the 50 MB L2. Per panel of width
-// b <= 128 (the last one ragged, masked where the reference pads with an
-// identity tail):
-//   * the diagonal block is loaded into shared memory as a packed lower
-//     triangle (33 KB at b = 128), factored and inverted there by the
-//     column loops of packed_tri.cuh, and L11 is written back; the sweep
-//     keeps each inverse for its solve, as _factor_panels does;
-//   * trsm L21 = A21 · Z11ᵀ and the trailing update A22 −= L21 · L21ᵀ run
-//     as loops over 64×64 output tiles with the tile loop of tile_gemm.cuh.
-//     L21 goes to a per-system (d, 128) scratch panel first, since A21 is
-//     still being read, and is copied into place after. The trailing update
-//     covers only the lower triangle's tiles: the d³/3 flops a factor needs.
-// The solve inverts the diagonal blocks of L (cholesky_solve; the sweep has
-// them), then runs the two substitutions panel by panel: each product of a
-// (b, K) slab of L (or Z) with a (K, c) block of right-hand sides stages 32
-// steps of K at a time in shared memory, one row per thread pair and eight
-// columns per thread.
+// Design: every step is a grid over the whole card, for all systems of the
+// call at once, and one host loop (one ctypes call) makes the launches on
+// the caller's stream. Separate launches were chosen over one persistent
+// cooperative grid: the kernel boundary is the grid-wide barrier the panel
+// order needs, each launch takes the block shape and shared memory its step
+// wants (a diagonal step 49 KB in f32 on one block a system, the tile grids
+// 8.7 KB on hundreds), and no grid-wide barrier or ready flag has to be
+// written or kept deadlock-free. What it costs is a launch's gap a step;
+// fusing steps (and look-ahead, the next diagonal block beside this panel's
+// trailing tiles) is later work.
 //
-// Design of blocked_cholesky: the same right-looking panels, spread over
-// the card. One host loop (one ctypes call) makes, for each panel of 128
-// and for all m systems at once, three launches on the caller's stream:
+// The factor (blocked_cholesky, and the sweep's factor of every γ), for
+// each panel of 128 columns:
 //   * chol_diag_kernel, one block of 256 threads a system: the diagonal
 //     block is factored by factor_blocked and inverted by invert_blocked
 //     (tri_blocked.cuh: warp-level 32-wide sub-blocks, a few barriers a
-//     sub-panel or a merge level, where the column loops take 2b); L11 goes
-//     into place, Z11 to a per-system (128, 128) scratch. The last panel
-//     skips the inverse;
+//     sub-panel or a merge level); L11 goes into place, Z11 to a scratch:
+//     one (128, 128) slot a system for blocked_cholesky, which skips the
+//     last panel's inverse, and one a panel for the sweep, whose solve
+//     takes every inverse from there;
 //   * chol_trsm_kernel, a grid of 64×64 output tiles × systems: L21 =
 //     A21 · Z11ᵀ into the per-system (d, 128) scratch panel (A21 is still
 //     read there);
 //   * chol_trailing_kernel, a grid of only the lower triangle's 64×64
-//     tiles × systems (253 at the first panel of d = 1536, about two waves
-//     over 132 SMs): A22 −= L21 · L21ᵀ; the diagonal tile of each row of
-//     tiles also copies its rows of L21 into place and writes zeros into
-//     their mirror above the diagonal.
-// The first panel reads a where it lies and writes the output, so a is
-// never copied and its upper triangle never read; every entry above the
+//     tiles × systems (253 at the first panel of d = 1536, 595 × 16 γs at
+//     d = 2304): A22 −= L21 · L21ᵀ; the diagonal tile of each row of tiles
+//     also copies its rows of L21 into place and writes zeros into their
+//     mirror above the diagonal.
+// The first panel reads its source where it lies, at a stride a system
+// that is 0 for the sweep: every γ reads the one C, and no copy of C + γI
+// is made. The sweep's γ_j joins at that first panel only: the diagonal
+// kernel adds it to the diagonal as it loads, and the trailing kernel
+// writes a diagonal entry of A22 as (a + γ_j) − v, the rounding of a work
+// matrix C + γ_j I. Later panels read the output. Every entry above the
 // diagonal of the output is written as zero by a diagonal block's store or
-// a mirror. 3·⌈d/128⌉ − 2 launches a call (34 at d = 1536). Separate
-// launches were chosen over one persistent cooperative grid: the kernel
-// boundary is the grid-wide barrier the panel order needs, each launch
-// takes the block shape and shared memory its step wants (the diagonal
-// step 49 KB in f32 on one block a system, the tile grids 8.7 KB on
-// hundreds), and no grid-wide barrier has to be written or kept
-// deadlock-free; look-ahead (the next diagonal block beside this panel's
-// trailing tiles) is later work.
+// a mirror. 3·⌈d/128⌉ − 2 launches (34 at d = 1536).
+//
+// The solve (cholesky_solve, and the sweep after its factor), the algebra
+// of _solve_panels on a right-looking schedule: with Z_p the inverse of
+// diagonal block p,
+//   * forward, for each panel p: y_p = Z_p · r_p over the panel's 64-row
+//     tiles (forward_apply_kernel), then r_{>p} −= L_{>p,p} · y_p over
+//     every 64-row tile below it (forward_update_kernel); r is b at the
+//     first panel, read in place (at stride 0 for the sweep's Q), and the
+//     running right-hand side in x after it;
+//   * backward, mirrored, for p from the last panel down: x_p = Z_pᵀ · s_p,
+//     then s_{<p} −= L_{p,<p}ᵀ · x_p, with s the forward result y, updated
+//     in place.
+// Each tile is 64 rows × 16 right-hand-side columns of one system (more
+// columns take more tiles), one thread a row and four columns, 32 steps of
+// the reduction staged in shared memory at a time. cholesky_solve first
+// inverts every diagonal block at once, a grid of ⌈d/128⌉ blocks × systems
+// running invert_blocked (the sweep has its inverses from the factor).
+// 2·(2·⌈d/128⌉ − 1) substitution launches (46 at d = 1536), and one more
+// for cholesky_solve's inverses.
 //
 // Bound at the path's shapes (d³/3 flops a factor, 2d²c a solve; each input
 // read once, of a, L and C only the lower triangle, and each output written
@@ -78,29 +83,24 @@
 // 18 us against 14.2 MB = 4.2 us, operations; cholesky_solve (1, 1536, 16)
 // 75.5 MFLOP = 1.1 us against 4.9 MB = 1.5 us, bytes; multi_gamma_solve
 // (2304, 16, 16 γs) 68.0 GFLOP = 1.01 ms against 13.1 MB = 3.9 us,
-// operations. The factor's critical path is its 12 diagonal blocks, one
-// after the other on one SM each, and 34 launches; its flops run on the
-// tile grids. cholesky_solve and multi_gamma_solve use one SM per system
-// (the sweep 16), with the column loops of the diagonal blocks (2b steps a
-// panel, each behind a barrier) one after the other: spreading them over
-// SMs and moving them onto tri_blocked.cuh is later work.
-//
-// Shared memory (kSmemValues values a block): 60.8 KB in f32, 121.6 KB in
-// f64, under the 227 KB a block can take, so the f64 instances keep the
-// panel width of 128 and the same schedule.
+// operations. The factor's critical path is its diagonal blocks, one after
+// the other on one SM a system, and its launches; its flops run on the
+// tile grids. The solve is a chain of 2·(2·⌈d/128⌉ − 1) small steps: its
+// launches bound it, not its bytes.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libblocked.so blocked.cu
 // Each entry point launches on the caller's stream, does not synchronise,
-// allocates nothing and returns a CUDA error code (0 on success).
-// blocked_cholesky takes two scratches of the input's type: zs (m, 128,
-// 128) and panels (m, d, 128).
+// allocates nothing and returns a CUDA error code (0 on success). Scratch
+// of the input's type: blocked_cholesky zs (m, 128, 128) and panels
+// (m, d, 128); cholesky_solve zs (m, ⌈d/128⌉, 128, 128) and y (m, d, c);
+// multi_gamma_solve the factors (n_g, d, d), zs (n_g, ⌈d/128⌉, 128, 128),
+// panels (n_g, d, 128) and y (n_g, d, c).
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "packed_tri.cuh"
 #include "tile_gemm.cuh"
 #include "tri_blocked.cuh"
 
@@ -115,303 +115,47 @@ using afl_tri::tri;
 
 constexpr int kPanel = 128;                    // panel width (DEFAULT_BLOCK)
 constexpr int kPanelValues = kPanel * kPanel;
-constexpr int kSolveK = 32;                    // K staged per step of a solve product
-constexpr int kSolveCols = 16;                 // right-hand-side columns per pass
-constexpr int kSolvePad = kPanel + 1;
-
-// Dynamic shared memory, in values of the type: the packed triangle and a
-// row or column of it, the tile loop's two staging buffers, the solve
-// products' staging.
-constexpr int kTriValues = kPanel * (kPanel + 1) / 2 + kPanel;   // 8384
-constexpr int kStageValues = kStep * (kTile + afl_tile::kPad);            // 1088
-constexpr int kSolveAValues = kSolveK * kSolvePad;                        // 4128
-constexpr int kSolveYValues = kSolveK * kSolveCols;                       // 512
-constexpr int kSmemValues = kTriValues + 2 * kStageValues + kSolveAValues + kSolveYValues;
-template <class T>
-constexpr int kSmemBytes = kSmemValues * static_cast<int>(sizeof(T));   // 60.8 / 121.6 KB
-// blocked_cholesky's diagonal kernel: the packed triangle and the scratch
-// of factor_blocked and invert_blocked (49 KB in f32, 98 KB in f64)
+// The diagonal kernels' dynamic shared memory: the packed triangle and the
+// scratch of factor_blocked and invert_blocked (49 KB in f32, 98 KB in f64)
 constexpr int kDiagValues = kPanel * (kPanel + 1) / 2 + afl_tri::kScratchValues<kPanel>;
-static_assert(kTriValues % 4 == 0 && kStageValues % 4 == 0 && kSolveAValues % 4 == 0,
-              "16-byte aligned staging buffers");
-static_assert(kThreads == 2 * kPanel, "two threads for each row of a solve product");
 
-template <class T>
-struct Smem {
-  T* tri;                     // packed lower triangle of a diagonal block
-  T* buf;                     // kPanel values: a column or a row of it
-  afl_tile::Stage<T> a_tile;
-  afl_tile::Stage<T> b_tile;
-  T* solve_a;                 // [kSolveK][kSolvePad]
-  T* solve_y;                 // [kSolveK][kSolveCols]
-};
-
-template <class T>
-__device__ Smem<T> carve(unsigned char* raw) {
-  T* smem = reinterpret_cast<T*>(raw);
-  Smem<T> s;
-  s.tri = smem;
-  s.buf = smem + kTriValues - kPanel;
-  s.a_tile = reinterpret_cast<afl_tile::Stage<T>>(smem + kTriValues);
-  s.b_tile = reinterpret_cast<afl_tile::Stage<T>>(smem + kTriValues + kStageValues);
-  s.solve_a = smem + kTriValues + 2 * kStageValues;
-  s.solve_y = s.solve_a + kSolveAValues;
-  return s;
-}
+// A substitution tile: kRows rows × kCols right-hand-side columns, the
+// reduction staged kK indices at a time
+constexpr int kRows = 64;
+constexpr int kCols = 16;
+constexpr int kK = 32;
+static_assert(kThreads == kRows * kCols / 4, "one thread a row and four columns");
 
 __device__ __forceinline__ size_t at(int row, int col, int ld) {
   return static_cast<size_t>(row) * ld + col;
 }
 
-// out (rows, cols) = A (rows, k) · Y (k, cols) for rows <= kPanel, the
-// sums handed to store(i, j, value). a_at(i, kk) and y_at(kk, j) read the
-// operands; kATransposed says that neighbouring i (rather than kk) are
-// neighbouring addresses of A, so the staging reads stay coalesced. Each
-// thread owns one row and eight of each pass's 16 columns; sums run over k
-// in order.
-template <bool kATransposed, class T, class AAt, class YAt, class Store>
-__device__ void solve_product(int rows, int cols, int k, AAt a_at, YAt y_at,
-                              Store store, const Smem<T>& sm) {
-  const int i = threadIdx.x % kPanel;
-  const int half = threadIdx.x / kPanel;
-  for (int j0 = 0; j0 < cols; j0 += kSolveCols) {
-    T acc[8];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[q] = T(0);
-    for (int k0 = 0; k0 < k; k0 += kSolveK) {
-#pragma unroll 4
-      for (int l = 0; l < kSolveK * kPanel / kThreads; ++l) {
-        const int e = threadIdx.x + l * kThreads;
-        const int kk = kATransposed ? e / kPanel : e % kSolveK;
-        const int r = kATransposed ? e % kPanel : e / kSolveK;
-        sm.solve_a[kk * kSolvePad + r] =
-            (r < rows && k0 + kk < k) ? a_at(r, k0 + kk) : T(0);
-      }
-#pragma unroll
-      for (int l = 0; l < kSolveK * kSolveCols / kThreads; ++l) {
-        const int e = threadIdx.x + l * kThreads;
-        const int kk = e / kSolveCols;
-        const int jj = e % kSolveCols;
-        sm.solve_y[kk * kSolveCols + jj] =
-            (k0 + kk < k && j0 + jj < cols) ? y_at(k0 + kk, j0 + jj) : T(0);
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kSolveK; ++kk) {
-        const T a = sm.solve_a[kk * kSolvePad + i];
-        T y0[4], y1[4];
-        afl::load4(&sm.solve_y[kk * kSolveCols + half * 8], y0);
-        afl::load4(&sm.solve_y[kk * kSolveCols + half * 8 + 4], y1);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc[q] = fma_(a, y0[q], acc[q]);
-          acc[q + 4] = fma_(a, y1[q], acc[q + 4]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int j = j0 + half * 8 + q;
-      if (i < rows && j < cols) store(i, j, acc[q]);
-    }
-  }
-}
+__host__ __device__ __forceinline__ int panels_of(int d) { return (d + kPanel - 1) / kPanel; }
 
-// One panel's trsm and trailing update. The panel is columns [o, e) of the
-// (d, d) system w; z is its inverse diagonal block, packed in shared
-// memory; panel is a (d, kPanel) scratch.
+// The inverse diagonal block of panel p of system sys: one slot a system,
+// or one a panel when every inverse is kept.
 template <class T>
-__device__ void trsm_and_update(T* w, int d, int o, int e, const T* z,
-                                T* panel, const Smem<T>& sm) {
-  const int bw = e - o;
-  const int t = d - e;
-  // trsm: panel (t, bw) = A21 · Z11ᵀ, Z11 lower triangular in shared memory
-  for (int i0 = 0; i0 < t; i0 += kTile)
-    for (int j0 = 0; j0 < bw; j0 += kTile)
-      afl_tile::tile_gemm<T>(
-          bw, sm.a_tile, sm.b_tile,
-          [=](afl_tile::Stage<T> a_tile, afl_tile::Stage<T> b_tile, int k0) {
-#pragma unroll
-            for (int l = 0; l < kLoadsPerThread; ++l) {
-              const int idx = threadIdx.x + l * kThreads;
-              const int r = idx / kStep;
-              const int kk = idx % kStep;
-              const int col = k0 + kk;
-              a_tile[kk][r] = (i0 + r < t && col < bw) ? w[at(e + i0 + r, o + col, d)] : T(0);
-              const int zr = j0 + r;
-              b_tile[kk][r] = (zr < bw && col <= zr) ? z[tri(zr) + col] : T(0);
-            }
-          },
-          [=](int r, int s, T v) {
-            if (i0 + r < t && j0 + s < bw) panel[at(i0 + r, j0 + s, kPanel)] = v;
-          });
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < t * bw; idx += kThreads) {
-    const int r = idx / bw;
-    const int c = idx % bw;
-    w[at(e + r, o + c, d)] = panel[at(r, c, kPanel)];
-  }
-  // trailing update of the lower triangle: A22 −= L21 · L21ᵀ
-  for (int i0 = 0; i0 < t; i0 += kTile)
-    for (int j0 = 0; j0 <= i0; j0 += kTile)
-      afl_tile::tile_gemm<T>(
-          bw, sm.a_tile, sm.b_tile,
-          [=](afl_tile::Stage<T> a_tile, afl_tile::Stage<T> b_tile, int k0) {
-#pragma unroll
-            for (int l = 0; l < kLoadsPerThread; ++l) {
-              const int idx = threadIdx.x + l * kThreads;
-              const int r = idx / kStep;
-              const int kk = idx % kStep;
-              const int col = k0 + kk;
-              a_tile[kk][r] = (i0 + r < t && col < bw) ? panel[at(i0 + r, col, kPanel)] : T(0);
-              b_tile[kk][r] = (j0 + r < t && col < bw) ? panel[at(j0 + r, col, kPanel)] : T(0);
-            }
-          },
-          [=](int r, int s, T v) {
-            const int row = i0 + r;
-            const int col = j0 + s;
-            if (row >= t || col > row) return;
-            T* dst = w + at(e + row, e + col, d);
-            *dst = *dst - v;
-          });
+__device__ __forceinline__ T* z_slot(T* zs, size_t sys, int p, int d, bool keep_all) {
+  return zs + (keep_all ? sys * panels_of(d) + p : sys) * kPanelValues;
 }
 
-// Factors the (d, d) system w (row stride d, lower triangle read) in place
-// into its lower factor; the entries above the diagonal are not written
-// outside the diagonal blocks, where they become zeros. Each panel's
-// inverse diagonal block goes to zkeep (row stride kPanel, one
-// kPanel² block per panel) when it is not null. panel is a
-// (d, kPanel) scratch.
-template <class T>
-__device__ void factor_system(T* w, int d, T* zkeep, T* panel, const Smem<T>& sm) {
-  for (int o = 0, p = 0; o < d; o += kPanel, ++p) {
-    const int e = min(o + kPanel, d);
-    const int bw = e - o;
-    const int t = d - e;
-    afl_tri::load_lower<kThreads>(w + at(o, o, d), d, bw, sm.tri);
-    __syncthreads();
-    afl_tri::factor_packed<kThreads>(sm.tri, sm.buf, bw);
-    afl_tri::store_lower<kThreads>(sm.tri, bw, w + at(o, o, d), d);
-    __syncthreads();             // the inverse overwrites what was stored
-    afl_tri::invert_packed<kThreads, kPanel>(sm.tri, sm.buf, bw);
-    if (zkeep != nullptr)
-      afl_tri::store_lower<kThreads>(sm.tri, bw, zkeep + static_cast<size_t>(p) * kPanelValues,
-                                     kPanel);
-    if (t > 0) trsm_and_update(w, d, o, e, sm.tri, panel, sm);
-    __syncthreads();
-  }
-}
-
-// Inverts the diagonal blocks of the lower factor l (row stride d) into
-// zkeep, as factor_system keeps them.
-template <class T>
-__device__ void invert_diagonal(const T* l, int d, T* zkeep, const Smem<T>& sm) {
-  for (int o = 0, p = 0; o < d; o += kPanel, ++p) {
-    const int bw = min(kPanel, d - o);
-    afl_tri::load_lower<kThreads>(l + at(o, o, d), d, bw, sm.tri);
-    __syncthreads();
-    afl_tri::invert_packed<kThreads, kPanel>(sm.tri, sm.buf, bw);
-    afl_tri::store_lower<kThreads>(sm.tri, bw, zkeep + static_cast<size_t>(p) * kPanelValues,
-                                   kPanel);
-    __syncthreads();
-  }
-}
-
-// L Lᵀ x = b for the lower factor l (row stride d) whose inverse diagonal
-// blocks are in zs: forward substitution into y (a (d, c) scratch; x holds
-// each panel's right-hand side meanwhile), then backward into x.
-template <class T>
-__device__ void solve_system(const T* l, int d, const T* zs, const T* b,
-                             T* y, T* x, int c, const Smem<T>& sm) {
-  const int n_panels = (d + kPanel - 1) / kPanel;
-  for (int p = 0; p < n_panels; ++p) {
-    const int o = p * kPanel;
-    const int bw = min(kPanel, d - o);
-    const T* z = zs + static_cast<size_t>(p) * kPanelValues;
-    // rhs = b[o:e] − L[o:e, :o] · y[:o]
-    solve_product<false>(
-        bw, c, o, [=](int i, int k) { return l[at(o + i, k, d)]; },
-        [=](int k, int j) { return y[at(k, j, c)]; },
-        [=](int i, int j, T v) { x[at(o + i, j, c)] = b[at(o + i, j, c)] - v; }, sm);
-    __syncthreads();
-    // y[o:e] = Z · rhs
-    solve_product<false>(
-        bw, c, bw, [=](int i, int k) { return z[at(i, k, kPanel)]; },
-        [=](int k, int j) { return x[at(o + k, j, c)]; },
-        [=](int i, int j, T v) { y[at(o + i, j, c)] = v; }, sm);
-    __syncthreads();
-  }
-  for (int p = n_panels - 1; p >= 0; --p) {
-    const int o = p * kPanel;
-    const int e = min(o + kPanel, d);
-    const int bw = e - o;
-    const T* z = zs + static_cast<size_t>(p) * kPanelValues;
-    // y[o:e] −= L[e:, o:e]ᵀ · x[e:]
-    solve_product<true>(
-        bw, c, d - e, [=](int i, int k) { return l[at(e + k, o + i, d)]; },
-        [=](int k, int j) { return x[at(e + k, j, c)]; },
-        [=](int i, int j, T v) { y[at(o + i, j, c)] = y[at(o + i, j, c)] - v; }, sm);
-    __syncthreads();
-    // x[o:e] = Zᵀ · y[o:e]
-    solve_product<true>(
-        bw, c, bw, [=](int i, int k) { return z[at(k, i, kPanel)]; },
-        [=](int k, int j) { return y[at(o + k, j, c)]; },
-        [=](int i, int j, T v) { x[at(o + i, j, c)] = v; }, sm);
-    __syncthreads();
-  }
-}
-
-template <class T>
-__global__ void __launch_bounds__(kThreads)
-cholesky_solve_kernel(const T* l, const T* b, T* x, T* zs, T* y, int d, int c) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem<T> sm = carve<T>(smem);
-  const size_t sys = blockIdx.x;
-  const size_t n_panels = (d + kPanel - 1) / kPanel;
-  const T* lm = l + sys * d * d;
-  T* zm = zs + sys * n_panels * kPanelValues;
-  invert_diagonal(lm, d, zm, sm);
-  solve_system(lm, d, static_cast<const T*>(zm), b + sys * d * c, y + sys * d * c,
-               x + sys * d * c, c, sm);
-}
-
-template <class T>
-__global__ void __launch_bounds__(kThreads)
-multi_gamma_kernel(const T* cm, const T* q, const T* gammas, T* work, T* zs, T* panels,
-                   T* y, T* w_out, int d, int c) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem<T> sm = carve<T>(smem);
-  const size_t g = blockIdx.x;
-  const size_t dd = static_cast<size_t>(d) * d;
-  const size_t n_panels = (d + kPanel - 1) / kPanel;
-  const T gamma = gammas[g];
-  T* w = work + g * dd;
-  // C + γ_j I, lower triangle (the rest is never read)
-  for (int r = threadIdx.x / 32; r < d; r += kThreads / 32)
-    for (int col = threadIdx.x % 32; col <= r; col += 32)
-      w[at(r, col, d)] = col < r ? cm[at(r, col, d)] : cm[at(r, col, d)] + gamma;
-  __syncthreads();
-  T* zg = zs + g * n_panels * kPanelValues;
-  factor_system(w, d, zg, panels + g * static_cast<size_t>(d) * kPanel, sm);
-  solve_system(static_cast<const T*>(w), d, static_cast<const T*>(zg), q, y + g * d * c,
-               w_out + g * d * c, c, sm);
-}
-
-// --- blocked_cholesky: a panel schedule over all SMs --------------------------
+// --- the factor: a panel schedule over all SMs ---------------------------------
 //
-// Per panel [o, e) of every system w (row stride d), three launches: the
-// diagonal block (one block a system), the trsm L21 = A21 · Z11ᵀ (64×64
-// tiles × systems) and the trailing update A22 −= L21 · L21ᵀ (the lower
-// triangle's tiles × systems). src is the input a at the first panel and
-// the output after it, so a is read in place and never copied.
+// Per panel [o, e) of every system, three launches: the diagonal block (one
+// block a system), the trsm L21 = A21 · Z11ᵀ (64×64 tiles × systems) and the
+// trailing update A22 −= L21 · L21ᵀ (the lower triangle's tiles × systems).
+// src is the input at the first panel, at src_stride values a system (0
+// when every system reads one matrix), and the output after it. gammas is
+// non-null at the first panel of the sweep only.
 
-// The diagonal block at (o, o): factored and stored as L11 (zeros above
-// its diagonal) by factor_blocked; inverted by invert_blocked into zs (one
-// kPanel² block a system, zeros above) unless it is the last panel.
+// The diagonal block at (o, o), plus γ_sys on its diagonal where gammas is
+// given: factored and stored as L11 (zeros above its diagonal) by
+// factor_blocked; inverted by invert_blocked into the system's slot of zs
+// (zeros above) unless it is the last panel and not every inverse is kept.
 template <class T>
 __global__ void __launch_bounds__(kThreads)
-chol_diag_kernel(const T* src, T* out, T* zs, int d, int o) {
+chol_diag_kernel(const T* src, size_t src_stride, const T* gammas, T* out, T* zs,
+                 bool keep_all, int d, int o) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* s = reinterpret_cast<T*>(smem);
   T* scratch = s + kPanel * (kPanel + 1) / 2;
@@ -419,12 +163,17 @@ chol_diag_kernel(const T* src, T* out, T* zs, int d, int o) {
   const size_t dd = static_cast<size_t>(d) * d;
   const int bw = min(kPanel, d - o);
   const int bp = afl_tri::padded(bw);
-  afl_tri::load_lower_padded<kThreads>(src + sys * dd + at(o, o, d), d, bw, s);
-  afl_tri::factor_blocked<kThreads>(s, scratch, bp);
+  afl_tri::load_lower_padded<kThreads>(src + sys * src_stride + at(o, o, d), d, bw, s);
+  if (gammas != nullptr) {
+    __syncthreads();
+    const T g = gammas[sys];
+    for (int i = threadIdx.x; i < bw; i += kThreads) s[tri(i) + i] += g;
+  }
+  afl_tri::factor_blocked<kThreads>(s, scratch, bp);   // starts with a barrier
   afl_tri::store_lower<kThreads>(s, bw, out + sys * dd + at(o, o, d), d);
-  if (o + bw < d) {
+  if (keep_all || o + bw < d) {
     afl_tri::invert_blocked<kThreads>(s, scratch, bp);   // after a barrier: the store has read s
-    afl_tri::store_lower<kThreads>(s, bw, zs + sys * kPanelValues, kPanel);
+    afl_tri::store_lower<kThreads>(s, bw, z_slot(zs, sys, o / kPanel, d, keep_all), kPanel);
   }
 }
 
@@ -432,10 +181,11 @@ chol_diag_kernel(const T* src, T* out, T* zs, int d, int o) {
 // tile (blockIdx.y rows, blockIdx.x columns) of system blockIdx.z.
 template <class T>
 __global__ void __launch_bounds__(kThreads)
-chol_trsm_kernel(const T* src, const T* zs, T* panels, int d, int o) {
+chol_trsm_kernel(const T* src, size_t src_stride, const T* zs, bool keep_all, T* panels,
+                 int d, int o) {
   const size_t sys = blockIdx.z;
-  const T* w = src + sys * d * d;
-  const T* z = zs + sys * kPanelValues;
+  const T* w = src + sys * src_stride;
+  const T* z = z_slot(zs, sys, o / kPanel, d, keep_all);
   T* panel = panels + sys * d * kPanel;
   const int bw = min(kPanel, d - o);
   const int e = o + bw;
@@ -461,17 +211,20 @@ chol_trsm_kernel(const T* src, const T* zs, T* panels, int d, int o) {
       });
 }
 
-// One lower tile of A22 −= L21 · L21ᵀ (read from src, written to out):
-// tile blockIdx.x of the lower triangle's, row by row, of system
-// blockIdx.y. The diagonal tile of each row of tiles then copies those
-// rows of L21 into place, and zeros into their mirror above the diagonal.
+// One lower tile of A22 −= L21 · L21ᵀ (read from src, written to out), a
+// diagonal entry (a + γ_sys) − v where gammas is given: tile blockIdx.x of
+// the lower triangle's, row by row, of system blockIdx.y. The diagonal tile
+// of each row of tiles then copies those rows of L21 into place, and zeros
+// into their mirror above the diagonal.
 template <class T>
 __global__ void __launch_bounds__(kThreads)
-chol_trailing_kernel(const T* src, T* out, const T* panels, int d, int o) {
+chol_trailing_kernel(const T* src, size_t src_stride, const T* gammas, T* out,
+                     const T* panels, int d, int o) {
   const size_t sys = blockIdx.y;
-  const T* a = src + sys * d * d;
+  const T* a = src + sys * src_stride;
   T* w = out + sys * d * d;
   const T* panel = panels + sys * d * kPanel;
+  const T g = gammas != nullptr ? gammas[sys] : T(0);
   const int bw = min(kPanel, d - o);
   const int e = o + bw;
   const int t = d - e;
@@ -499,7 +252,8 @@ chol_trailing_kernel(const T* src, T* out, const T* panels, int d, int o) {
         const int row = i0 + r;
         const int col = j0 + c;
         if (row >= t || col > row) return;
-        w[at(e + row, e + col, d)] = a[at(e + row, e + col, d)] - v;
+        const T entry = a[at(e + row, e + col, d)];
+        w[at(e + row, e + col, d)] = (gammas != nullptr && row == col ? entry + g : entry) - v;
       });
   if (ti != tj) return;
   const int rows = min(kTile, t - i0);
@@ -515,6 +269,151 @@ chol_trailing_kernel(const T* src, T* out, const T* panels, int d, int o) {
   }
 }
 
+// --- the solve: a substitution spread over all SMs -----------------------------
+
+// Every diagonal block of the factors l inverted into zs (one slot a
+// panel): block (blockIdx.x panel, blockIdx.y system).
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+solve_inverse_kernel(const T* l, T* zs, int d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s = reinterpret_cast<T*>(smem);
+  T* scratch = s + kPanel * (kPanel + 1) / 2;
+  const size_t sys = blockIdx.y;
+  const int o = blockIdx.x * kPanel;
+  const int bw = min(kPanel, d - o);
+  afl_tri::load_lower_padded<kThreads>(l + sys * d * d + at(o, o, d), d, bw, s);
+  afl_tri::invert_blocked<kThreads>(s, scratch, afl_tri::padded(bw));   // barriers at both ends
+  afl_tri::store_lower<kThreads>(s, bw, z_slot(zs, sys, blockIdx.x, d, true), kPanel);
+}
+
+// One substitution tile: out (rows <= kRows, cols <= kCols) = A (rows, k) ·
+// Y (k, cols), each sum handed to store(i, j, value). a_at(i, kk) and
+// y_at(kk, j) read the operands; kATransposed says that neighbouring i
+// (rather than kk) are neighbouring addresses of A, so the staging reads
+// stay coalesced. Thread t owns row t / 4 and columns 4·(t % 4) .. +3; its
+// sums run over k in order.
+template <bool kATransposed, class T, class AAt, class YAt, class Store>
+__device__ __forceinline__ void sub_tile(int rows, int cols, int k, AAt a_at, YAt y_at,
+                                         Store store) {
+  __shared__ T sa[kK][kRows + 1];
+  __shared__ __align__(16) T sy[kK][kCols];
+  const int r = threadIdx.x / 4;
+  const int q = 4 * (threadIdx.x % 4);
+  T acc[4] = {T(0), T(0), T(0), T(0)};
+  for (int k0 = 0; k0 < k; k0 += kK) {
+#pragma unroll
+    for (int l = 0; l < kK * kRows / kThreads; ++l) {
+      const int e = threadIdx.x + l * kThreads;
+      const int kk = kATransposed ? e / kRows : e % kK;
+      const int i = kATransposed ? e % kRows : e / kK;
+      sa[kk][i] = (i < rows && k0 + kk < k) ? a_at(i, k0 + kk) : T(0);
+    }
+#pragma unroll
+    for (int l = 0; l < kK * kCols / kThreads; ++l) {
+      const int e = threadIdx.x + l * kThreads;
+      const int kk = e / kCols;
+      const int j = e % kCols;
+      sy[kk][j] = (k0 + kk < k && j < cols) ? y_at(k0 + kk, j) : T(0);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kK; ++kk) {
+      const T a = sa[kk][r];
+      T yv[4];
+      afl::load4(&sy[kk][q], yv);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[t] = fma_(a, yv[t], acc[t]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    if (r < rows && q + t < cols) store(r, q + t, acc[t]);
+}
+
+// Each substitution kernel takes tile (blockIdx.x of 64 rows, blockIdx.y of
+// 16 columns) of system blockIdx.z, for panel p = [o, e).
+struct Step {
+  int o, e, i0, j0;
+  size_t sys;
+};
+
+__device__ __forceinline__ Step step_of(int d, int p) {
+  Step s;
+  s.o = p * kPanel;
+  s.e = min(s.o + kPanel, d);
+  s.i0 = blockIdx.x * kRows;
+  s.j0 = blockIdx.y * kCols;
+  s.sys = blockIdx.z;
+  return s;
+}
+
+// Forward: y_p = Z_p · r_p, r at r_stride values a system.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+forward_apply_kernel(const T* zs, const T* r, size_t r_stride, T* y, int d, int c, int p) {
+  const Step s = step_of(d, p);
+  const T* z = z_slot(zs, s.sys, p, d, true);
+  const T* rs = r + s.sys * r_stride + at(s.o, s.j0, c);
+  T* ys = y + s.sys * d * c + at(s.o + s.i0, s.j0, c);
+  sub_tile<false, T>(
+      min(kRows, s.e - s.o - s.i0), min(kCols, c - s.j0), s.e - s.o,
+      [=](int i, int k) { return z[at(s.i0 + i, k, kPanel)]; },
+      [=](int k, int j) { return rs[at(k, j, c)]; },
+      [=](int i, int j, T v) { ys[at(i, j, c)] = v; });
+}
+
+// Forward: x_{>p} = r_{>p} − L_{>p,p} · y_p, the rows below the panel.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+forward_update_kernel(const T* l, const T* y, const T* r, size_t r_stride, T* x, int d, int c,
+                      int p) {
+  const Step s = step_of(d, p);
+  const int row0 = s.e + s.i0;
+  const T* ls = l + s.sys * d * d + at(row0, s.o, d);
+  const T* ys = y + s.sys * d * c + at(s.o, s.j0, c);
+  const T* rs = r + s.sys * r_stride + at(row0, s.j0, c);
+  T* xs = x + s.sys * d * c + at(row0, s.j0, c);
+  sub_tile<false, T>(
+      min(kRows, d - row0), min(kCols, c - s.j0), s.e - s.o,
+      [=](int i, int k) { return ls[at(i, k, d)]; },
+      [=](int k, int j) { return ys[at(k, j, c)]; },
+      [=](int i, int j, T v) { xs[at(i, j, c)] = rs[at(i, j, c)] - v; });
+}
+
+// Backward: x_p = Z_pᵀ · y_p.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+backward_apply_kernel(const T* zs, const T* y, T* x, int d, int c, int p) {
+  const Step s = step_of(d, p);
+  const T* z = z_slot(zs, s.sys, p, d, true);
+  const T* ys = y + s.sys * d * c + at(s.o, s.j0, c);
+  T* xs = x + s.sys * d * c + at(s.o + s.i0, s.j0, c);
+  sub_tile<true, T>(
+      min(kRows, s.e - s.o - s.i0), min(kCols, c - s.j0), s.e - s.o,
+      [=](int i, int k) { return z[at(k, s.i0 + i, kPanel)]; },
+      [=](int k, int j) { return ys[at(k, j, c)]; },
+      [=](int i, int j, T v) { xs[at(i, j, c)] = v; });
+}
+
+// Backward: y_{<p} −= L_{p,<p}ᵀ · x_p, the rows above the panel, in place.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+backward_update_kernel(const T* l, const T* x, T* y, int d, int c, int p) {
+  const Step s = step_of(d, p);
+  const T* ls = l + s.sys * d * d + at(s.o, s.i0, d);
+  const T* xs = x + s.sys * d * c + at(s.o, s.j0, c);
+  T* ys = y + s.sys * d * c + at(s.i0, s.j0, c);
+  sub_tile<true, T>(
+      min(kRows, s.o - s.i0), min(kCols, c - s.j0), s.e - s.o,
+      [=](int i, int k) { return ls[at(k, i, d)]; },
+      [=](int k, int j) { return xs[at(k, j, c)]; },
+      [=](int i, int j, T v) { ys[at(i, j, c)] = ys[at(i, j, c)] - v; });
+}
+
+// --- host loops ----------------------------------------------------------------
+
 template <class Kernel>
 int prepare(Kernel kernel, int bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -522,53 +421,117 @@ int prepare(Kernel kernel, int bytes) {
 }
 
 template <class T>
-int blocked_cholesky(const void* a, void* out, void* zs, void* panels, int m, int d,
-                     void* stream) {
-  const int bytes = kDiagValues * static_cast<int>(sizeof(T));
-  if (int err = prepare(chol_diag_kernel<T>, bytes)) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  T* w = static_cast<T*>(out);
-  T* z = static_cast<T*>(zs);
-  T* p = static_cast<T*>(panels);
-  const T* src = static_cast<const T*>(a);
+constexpr int kDiagBytes = kDiagValues * static_cast<int>(sizeof(T));
+
+#define AFL_LAUNCHED()                                              \
+  do {                                                              \
+    if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err); \
+  } while (0)
+
+// The factors of m systems into out, the inverse diagonal blocks into zs:
+// the first panel reads a at a_stride values a system and adds gammas (if
+// not null) to the diagonal.
+template <class T>
+int factor(const T* a, size_t a_stride, const T* gammas, T* out, T* zs, bool keep_all,
+           T* panels, int m, int d, cudaStream_t st) {
+  if (int err = prepare(chol_diag_kernel<T>, kDiagBytes<T>)) return err;
+  const size_t dd = static_cast<size_t>(d) * d;
   for (int o = 0; o < d; o += kPanel) {
+    const T* src = o == 0 ? a : out;
+    const size_t stride = o == 0 ? a_stride : dd;
+    const T* g = o == 0 ? gammas : nullptr;
     const int e = min(o + kPanel, d);
     const int nt = (d - e + kTile - 1) / kTile;
-    chol_diag_kernel<T><<<m, kThreads, bytes, st>>>(src, w, z, d, o);
-    if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+    chol_diag_kernel<T><<<m, kThreads, kDiagBytes<T>, st>>>(src, stride, g, out, zs, keep_all,
+                                                            d, o);
+    AFL_LAUNCHED();
     if (nt > 0) {
       chol_trsm_kernel<T><<<dim3((e - o + kTile - 1) / kTile, nt, m), kThreads, 0, st>>>(
-          src, z, p, d, o);
-      if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-      chol_trailing_kernel<T><<<dim3(nt * (nt + 1) / 2, m), kThreads, 0, st>>>(src, w, p, d, o);
-      if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+          src, stride, zs, keep_all, panels, d, o);
+      AFL_LAUNCHED();
+      chol_trailing_kernel<T><<<dim3(nt * (nt + 1) / 2, m), kThreads, 0, st>>>(
+          src, stride, g, out, panels, d, o);
+      AFL_LAUNCHED();
     }
-    src = w;
+  }
+  return 0;
+}
+
+// L Lᵀ x = b for m factors l with their inverse diagonal blocks in zs (one
+// slot a panel): b at
+// b_stride values a system (read in place), y a (m, d, c) scratch.
+template <class T>
+int substitute(const T* l, const T* zs, const T* b, size_t b_stride, T* y, T* x, int m, int d,
+               int c, cudaStream_t st) {
+  const int n = panels_of(d);
+  const int chunks = (c + kCols - 1) / kCols;
+  const size_t dc = static_cast<size_t>(d) * c;
+  auto tiles = [](int rows) { return (rows + kRows - 1) / kRows; };
+  for (int p = 0; p < n; ++p) {
+    const int o = p * kPanel;
+    const int e = min(o + kPanel, d);
+    const T* r = p == 0 ? b : x;
+    const size_t r_stride = p == 0 ? b_stride : dc;
+    forward_apply_kernel<T><<<dim3(tiles(e - o), chunks, m), kThreads, 0, st>>>(
+        zs, r, r_stride, y, d, c, p);
+    AFL_LAUNCHED();
+    if (e < d) {
+      forward_update_kernel<T><<<dim3(tiles(d - e), chunks, m), kThreads, 0, st>>>(
+          l, y, r, r_stride, x, d, c, p);
+      AFL_LAUNCHED();
+    }
+  }
+  for (int p = n - 1; p >= 0; --p) {
+    const int o = p * kPanel;
+    const int e = min(o + kPanel, d);
+    backward_apply_kernel<T><<<dim3(tiles(e - o), chunks, m), kThreads, 0, st>>>(
+        zs, y, x, d, c, p);
+    AFL_LAUNCHED();
+    if (o > 0) {
+      backward_update_kernel<T><<<dim3(tiles(o), chunks, m), kThreads, 0, st>>>(l, x, y, d, c,
+                                                                                 p);
+      AFL_LAUNCHED();
+    }
   }
   return 0;
 }
 
 template <class T>
-int cholesky_solve(const void* l, const void* b, void* x, void* zs, void* y, int m, int d,
-                   int c, void* stream) {
-  if (int err = prepare(cholesky_solve_kernel<T>, kSmemBytes<T>)) return err;
-  cholesky_solve_kernel<T><<<m, kThreads, kSmemBytes<T>, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(l), static_cast<const T*>(b), static_cast<T*>(x),
-      static_cast<T*>(zs), static_cast<T*>(y), d, c);
-  return static_cast<int>(cudaGetLastError());
+int blocked_cholesky(const void* a, void* out, void* zs, void* panels, int m, int d,
+                     void* stream) {
+  return factor<T>(static_cast<const T*>(a), static_cast<size_t>(d) * d, nullptr,
+                   static_cast<T*>(out), static_cast<T*>(zs), false, static_cast<T*>(panels), m,
+                   d, static_cast<cudaStream_t>(stream));
 }
 
 template <class T>
-int multi_gamma_solve(const void* cm, const void* q, const void* gammas, void* work,
+int cholesky_solve(const void* l, const void* b, void* x, void* zs, void* y, int m, int d,
+                   int c, void* stream) {
+  if (int err = prepare(solve_inverse_kernel<T>, kDiagBytes<T>)) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* lm = static_cast<const T*>(l);
+  T* z = static_cast<T*>(zs);
+  solve_inverse_kernel<T><<<dim3(panels_of(d), m), kThreads, kDiagBytes<T>, st>>>(lm, z, d);
+  AFL_LAUNCHED();
+  return substitute<T>(lm, z, static_cast<const T*>(b), static_cast<size_t>(d) * c,
+                       static_cast<T*>(y), static_cast<T*>(x), m, d, c, st);
+}
+
+template <class T>
+int multi_gamma_solve(const void* cm, const void* q, const void* gammas, void* factors,
                       void* zs, void* panels, void* y, void* w, int n_g, int d, int c,
                       void* stream) {
-  if (int err = prepare(multi_gamma_kernel<T>, kSmemBytes<T>)) return err;
-  multi_gamma_kernel<T><<<n_g, kThreads, kSmemBytes<T>, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(cm), static_cast<const T*>(q), static_cast<const T*>(gammas),
-      static_cast<T*>(work), static_cast<T*>(zs), static_cast<T*>(panels),
-      static_cast<T*>(y), static_cast<T*>(w), d, c);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  T* l = static_cast<T*>(factors);
+  T* z = static_cast<T*>(zs);
+  if (int err = factor<T>(static_cast<const T*>(cm), 0, static_cast<const T*>(gammas), l, z,
+                          true, static_cast<T*>(panels), n_g, d, st))
+    return err;
+  return substitute<T>(l, z, static_cast<const T*>(q), 0, static_cast<T*>(y),
+                       static_cast<T*>(w), n_g, d, c, st);
 }
+
+#undef AFL_LAUNCHED
 
 }  // namespace
 
@@ -585,11 +548,11 @@ int multi_gamma_solve(const void* cm, const void* q, const void* gammas, void* w
     return cholesky_solve<T>(l, b, x, zs, y, m, d, c, stream);                          \
   }                                                                                     \
   extern "C" int afl_multi_gamma_solve_##SUFFIX(const void* cm, const void* q,          \
-                                                const void* gammas, void* work,         \
+                                                const void* gammas, void* factors,      \
                                                 void* zs, void* panels, void* y,        \
                                                 void* w, int n_g, int d, int c,         \
                                                 void* stream) {                         \
-    return multi_gamma_solve<T>(cm, q, gammas, work, zs, panels, y, w, n_g, d, c,       \
+    return multi_gamma_solve<T>(cm, q, gammas, factors, zs, panels, y, w, n_g, d, c,    \
                                 stream);                                                \
   }
 

@@ -2,8 +2,9 @@
 // memory as a lower triangle packed by rows, computed by one block of
 // kThreads threads in T (float or double): the column loops of the
 // reference's _factor_tile and _tri_inv_tile (src/repro/kernels/solve.py),
-// shared by panel.cu (1024 threads, b <= 256 in f32, b <= 128 in f64) and
-// blocked.cu (256 threads, b <= 128).
+// which panel.cu's panel_factor runs (1024 threads, b <= 256 in f32,
+// b <= 128 in f64), and the packed layout's helpers (tri, load_lower,
+// store_lower) that tri_blocked.cuh builds on.
 //
 // Only the lower triangle carries data: the upper half of the input is
 // never read and the output's is written as zeros. Every product is a

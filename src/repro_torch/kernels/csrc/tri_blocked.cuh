@@ -1,10 +1,10 @@
 // The factor and inverse of one diagonal block held in shared memory as a
 // lower triangle packed by rows, in sub-blocks of 32 with a handful of
 // block barriers, in T (float or double): the micro-routines that
-// panel.cu's panel_tri_inv and blocked.cu's diagonal step share. They
-// compute what the column loops of packed_tri.cuh compute (the reference's
-// _factor_tile and _tri_inv_tile, src/repro/kernels/solve.py), which
-// take two block barriers a column or a row: 2b = 512 barrier-separated
+// panel.cu's panel_tri_inv and blocked.cu's diagonal and inverse kernels
+// share. They compute what the column loops of packed_tri.cuh compute (the
+// reference's _factor_tile and _tri_inv_tile, src/repro/kernels/solve.py),
+// which take two block barriers a column or a row: 2b = 512 barrier-separated
 // steps for a 256-wide inverse, with half the block idle at each.
 //
 //   invert_blocked  L (bp, bp) lower  ->  Z = L^-1, in place

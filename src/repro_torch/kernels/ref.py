@@ -282,6 +282,82 @@ def multi_gamma_solve_ref(c: torch.Tensor, q: torch.Tensor,
     return out
 
 
+def solve_right_looking_ref(l: torch.Tensor, b: torch.Tensor,
+                            zs: Optional[list] = None) -> torch.Tensor:
+    """The CUDA ``cholesky_solve`` (``csrc/blocked.cu``) in plain PyTorch:
+    ``L Lᵀ x = b`` for (m, d, d) lower factors and (m, d, c) right-hand
+    sides as the kernel computes it, to prove its schedule on the CPU (no
+    path calls it).
+
+    Each diagonal block is inverted by :func:`invert_blocked_ref` (or
+    taken from ``zs``, one per panel). Forward, right-looking: y_p = Z_p ·
+    r_p, then the rows below the panel take r −= L_{>p,p} · y_p at once;
+    r is ``b`` at the first panel (read, never copied) and the running
+    right-hand side after it. Backward, mirrored: x_p = Z_pᵀ · y_p, then
+    y_{<p} −= L_{p,<p}ᵀ · x_p. The strict upper triangle of ``l`` is not
+    read.
+    """
+    d = l.shape[-1]
+    edges = _panel_edges(d)
+    if zs is None:
+        zs = [invert_blocked_ref(l[..., o:e, o:e]) for o, e in edges]
+    y = torch.empty(b.shape, dtype=b.dtype, device=b.device)
+    x = torch.empty(b.shape, dtype=b.dtype, device=b.device)
+    for (o, e), z in zip(edges, zs):
+        r = b if o == 0 else x
+        y[..., o:e, :] = z @ r[..., o:e, :]
+        if e < d:
+            x[..., e:, :] = r[..., e:, :] - l[..., e:, o:e] @ y[..., o:e, :]
+    for (o, e), z in reversed(list(zip(edges, zs))):
+        x[..., o:e, :] = _t(z) @ y[..., o:e, :]
+        if o:
+            y[..., :o, :] -= _t(l[..., o:e, :o]) @ x[..., o:e, :]
+    return x
+
+
+def multi_gamma_blocked_ref(c: torch.Tensor, q: torch.Tensor,
+                            gammas: torch.Tensor) -> torch.Tensor:
+    """The CUDA ``multi_gamma_solve`` (``csrc/blocked.cu``) in plain
+    PyTorch: ``(C + γ_j I) W_j = Q`` for each γ as the kernel computes it,
+    to prove its schedule on the CPU (no path calls it). Returns (n_g, d,
+    c); a singular γ gives NaNs in its W_j only.
+
+    Every γ's factor runs the ``blocked_cholesky`` panel schedule on C
+    itself (no C + γI is formed): the first panel reads C, adds γ_j to its
+    diagonal block's diagonal as it loads and writes a diagonal entry of
+    the trailing block as (a + γ_j) − v; later panels read the factor.
+    Each diagonal block is factored by :func:`factor_blocked_ref` and
+    inverted by :func:`invert_blocked_ref`, every inverse is kept, and the
+    solve is :func:`solve_right_looking_ref` with Q read by every γ. Only
+    the lower triangle of C is read.
+    """
+    d, n_cls = q.shape
+    g = gammas.to(c.dtype)
+    n_g = g.shape[0]
+    out = torch.zeros((n_g, d, d), dtype=c.dtype, device=c.device)
+    src = c.expand(n_g, d, d)
+    zs = []
+    for o, e in _panel_edges(d):
+        blk = src[..., o:e, o:e].clone()
+        if o == 0:
+            idx = torch.arange(e, device=c.device)
+            blk[..., idx, idx] += g[:, None]
+        l11 = factor_blocked_ref(blk)
+        z = invert_blocked_ref(l11)
+        zs.append(z)
+        out[..., o:e, o:e] = l11
+        if e < d:
+            l21 = src[..., e:, o:e] @ _t(z)
+            a22 = src[..., e:, e:].clone()
+            if o == 0:
+                idx = torch.arange(d - e, device=c.device)
+                a22[..., idx, idx] += g[:, None]
+            out[..., e:, e:] = a22 - l21 @ _t(l21)
+            out[..., e:, o:e] = l21
+        src = out
+    return solve_right_looking_ref(torch.tril(out), q.expand(n_g, d, n_cls), zs)
+
+
 def chol_rank_update_ref(l: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """Plain version of ``kernels.rank_update.chol_rank_update``:
     ``chol(L Lᵀ + xsᵀ xs)`` for a lower factor ``l`` (d, d) and update rows

@@ -342,8 +342,11 @@ def test_blocked_cholesky_non_pd_gives_nan_in_that_system_only(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,d,c", [(1, 1536, 16), (1, 128, 40), (2, 130, 7)])
+@pytest.mark.parametrize("m,d,c", [(1, 1536, 16), (1, 128, 40), (2, 130, 7), (3, 257, 1)])
 def test_cholesky_solve_matches_plain(cuda, m, d, c):
+    """Against the plain version, the plain twin of its right-looking
+    schedule and an f64 solve; the upper triangle of L is not read, and a
+    repeated call gives the same bits."""
     rng = np.random.default_rng(d + c)
     a = torch.stack([_spd_block(d + i, d, cuda) for i in range(m)])
     l = ref.blocked_cholesky_ref(a)
@@ -354,8 +357,31 @@ def test_cholesky_solve_matches_plain(cuda, m, d, c):
     assert B.cholesky_solve.launches == before + 1
     assert x.shape == (m, d, c)
     assert _rel(x, ref.cholesky_solve_ref(l, b)) < REL
+    assert _rel(x, ref.solve_right_looking_ref(l, b)) < REL
     want = torch.linalg.solve(a.double(), b.double())
     assert _rel(x, want) < REL
+    garbage = l + torch.triu(torch.full_like(l, 7.0), 1)
+    assert torch.equal(ops.cholesky_solve(garbage, b), x)
+    assert torch.equal(ops.cholesky_solve(l, b), x)
+
+
+@pytest.mark.cuda
+def test_cholesky_solve_f64_at_path_width_matches_numpy(cuda):
+    """The f64 instance at the narrow path's (1, 1536, 16) against numpy f64
+    at 1e-10, and against its twin."""
+    d, c = 1536, 16
+    rng = np.random.default_rng(d + 64)
+    x = rng.standard_normal((4 * d, d))
+    a = x.T @ x / (4 * d)
+    b = rng.standard_normal((1, d, c))
+    l = torch.from_numpy(np.linalg.cholesky(a))[None].to(cuda)
+    bt = torch.from_numpy(b).to(cuda)
+    got = ops.cholesky_solve(l, bt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64
+    assert _rel_x64(got, np.linalg.solve(a, b[0])[None]) < REL64
+    assert _rel(got, ref.solve_right_looking_ref(l, bt)) < REL64
+    assert torch.equal(ops.cholesky_solve(l, bt), got)
 
 
 @pytest.mark.cuda
@@ -371,8 +397,34 @@ def test_multi_gamma_solve_matches_plain(cuda, d, c, n_g):
     assert B.multi_gamma_solve.launches == before + 1
     assert w.shape == (n_g, d, c) and torch.isfinite(w).all()
     plain = ref.multi_gamma_solve_ref(a, q, gammas)
+    twin = ref.multi_gamma_blocked_ref(a, q, gammas)
     for j in range(n_g):
         assert _rel(w[j], plain[j]) < REL
+        assert _rel(w[j], twin[j]) < REL
+    assert torch.equal(ops.multi_gamma_solve(a, q, gammas), w)    # the same bits again
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,c,n_g", [(2304, 16, 16), (130, 7, 11)])   # path, ragged
+def test_multi_gamma_solve_f64_matches_plain_and_twin(cuda, d, c, n_g):
+    """The f64 instance against its plain version and the plain twin of its
+    schedule at 1e-10; C's upper triangle is not read; the same bits again."""
+    rng = np.random.default_rng(d + 64)
+    a = _spd_block(d, d, cuda).double()
+    q = torch.from_numpy(rng.standard_normal((d, c))).to(cuda)
+    gammas = torch.logspace(-4, 0, n_g, device=cuda, dtype=torch.float64) * float(
+        torch.trace(a)) / d
+    w = ops.multi_gamma_solve(a, q, gammas)
+    torch.cuda.synchronize()
+    assert w.dtype == torch.float64 and torch.isfinite(w).all()
+    plain = ref.multi_gamma_solve_ref(a, q, gammas)
+    twin = ref.multi_gamma_blocked_ref(a, q, gammas)
+    for j in range(n_g):
+        assert _rel(w[j], plain[j]) < REL64
+        assert _rel(w[j], twin[j]) < REL64
+    garbage = a + torch.triu(torch.full_like(a, 7.0), 1)
+    assert torch.equal(ops.multi_gamma_solve(garbage, q, gammas), w)
+    assert torch.equal(ops.multi_gamma_solve(a, q, gammas), w)
 
 
 @pytest.mark.cuda
@@ -562,6 +614,47 @@ def test_blocked_cholesky_cuda_launches_match_profiler(cuda, m, d):
                and "chol_" in e.name]
     assert B.blocked_cholesky.launches == before + 1
     assert len(kernels) == B.cuda_launches(d)
+
+
+BLOCKED_KERNELS = ("chol_", "solve_inverse_kernel", "forward_", "backward_")
+
+
+def _cuda_kernels(fn) -> int:
+    """The blocked kernels torch.profiler counts in one synchronised call of
+    ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and any(k in e.name for k in BLOCKED_KERNELS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,c", [(1, 1536, 16), (3, 130, 7), (1, 128, 40)])
+def test_cholesky_solve_cuda_launches_match_profiler(cuda, m, d, c):
+    """One wrapper call makes blocked.solve_cuda_launches(d) CUDA launches."""
+    l = ref.blocked_cholesky_ref(torch.stack([_spd_block(d + i, d, cuda) for i in range(m)]))
+    b = torch.ones((m, d, c), device=cuda)
+    before = B.cholesky_solve.launches
+    assert _cuda_kernels(lambda: ops.cholesky_solve(l, b)) == B.solve_cuda_launches(d)
+    assert B.cholesky_solve.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,c,n_g", [(2304, 16, 16), (130, 7, 11), (64, 3, 2)])
+def test_multi_gamma_solve_cuda_launches_match_profiler(cuda, d, c, n_g):
+    """One wrapper call makes blocked.sweep_cuda_launches(d) CUDA launches."""
+    a = _spd_block(d, d, cuda)
+    q = torch.ones((d, c), device=cuda)
+    gammas = torch.linspace(0.1, 1.0, n_g, device=cuda)
+    before = B.multi_gamma_solve.launches
+    assert _cuda_kernels(lambda: ops.multi_gamma_solve(a, q, gammas)) == B.sweep_cuda_launches(d)
+    assert B.multi_gamma_solve.launches == before + 2
 
 
 @pytest.mark.cuda

@@ -16,7 +16,11 @@ right-hand sides:
     panel kernels, ``panel_tri_inv`` for every diagonal block of the solve)
     at γ = 0.01·tr/d;
   * ``narrow_f32`` / ``narrow_f64``: d = 1536 (``blocked_cholesky`` and
-    ``cholesky_solve``).
+    ``cholesky_solve``);
+  * ``sweep_f32`` / ``sweep_f64``: ``solve_multi_gamma`` on the d = 2304
+    system at 16 ridges γ = ρ·tr/d, ρ from 1e-4 to 1 (one
+    ``multi_gamma_solve`` call and the engine's check that every weight is
+    finite).
 
 Needs a CUDA GPU; exits non-zero without one.
 """
@@ -82,6 +86,14 @@ def main() -> None:
         if not bool(torch.isfinite(w).all()):
             sys.exit(f"{name}: the solve is not finite")
         out[name] = _median_ms(lambda: eng.solve(stats, target_gamma=gamma), args.reps)
+        if d >= 2048:
+            sweep = f"sweep_{name.rsplit('_', 1)[1]}"
+            gammas = [float(rho) * float(torch.trace(gram)) / d
+                      for rho in torch.logspace(-4, 0, 16, dtype=torch.float64)]
+            ws = eng.solve_multi_gamma(stats, gammas)
+            if not all(bool(torch.isfinite(wg).all()) for wg in ws):
+                sys.exit(f"{sweep}: the sweep is not finite")
+            out[sweep] = _median_ms(lambda: eng.solve_multi_gamma(stats, gammas), args.reps)
     print(json.dumps(out), flush=True)
 
 
