@@ -29,9 +29,12 @@ without the repository around it. Phases, each fatal on failure:
      update profiled by kernel; then the f64 instance of each solve-side kernel
      at its f64 path's shape against its f64 plain version (relative
      1e-10); each timed beside the plain version, one library call that
-     computes the same function, and the card's bound; the times of the
-     earlier designs of the redesigned kernels and paths (PERF.md) are
-     logged beside this run's;
+     computes the same function, and the card's bound; the times of the earlier
+     designs of the redesigned kernels and paths (PERF.md) are logged beside
+     this run's; the two products summed over one streamed factor at
+     d = 2304 (f32 and f64) beside torch.mm / torch.addmm over the same
+     shapes, and one streamed factor at d = 2304 (f32, f64) and d = 6144
+     profiled into panel_factor, panel_trsm, panel_update and the rest;
   3. streamed factor and solve of one SPD system at d = 6144 (the width
      of nemotron4_15b and grok1): the kernel route against the plain
      route on the card, timed beside torch.linalg, and an indefinite
@@ -247,9 +250,10 @@ PANEL_REL = 1e-4
 PANEL_B = 256
 # the shapes the d = 2304 main path gives the kernels (b = 256, 9 panels):
 # panel_trsm gets the full-height (d, b) slab, panel_update the trailing
-# (d, d − o − b) slab, largest at the first panel; then d = 6144 and ragged
+# (d, d − o − b) slab, widest at the first panel and narrowest at the last;
+# then d = 6144 and ragged
 TRSM_SHAPES = [(2304, 256), (1000, 200)]
-UPDATE_SHAPES = [(2304, 2048, 256), (6144, 5888, 256), (1000, 777, 200)]
+UPDATE_SHAPES = [(2304, 2048, 256), (2304, 256, 256), (6144, 5888, 256), (1000, 777, 200)]
 FACTOR_WIDTHS = [256, 200]
 
 
@@ -290,13 +294,19 @@ def _kernel_row(name, shape, err, rel, ms, plain_ms, library_ms, flops, nbytes, 
 
 
 # The times of the earlier designs of the kernels and paths that were
-# redesigned onto tri_blocked.cuh and the panel schedules (PERF.md §6 and
-# §5: chip_smoke.py, NVIDIA H100 80GB HBM3 at 700.00 W), logged beside
-# this run's: panel_tri_inv, blocked_cholesky and the streamed solves
-# before their move onto tri_blocked.cuh; cholesky_solve, multi_gamma_solve,
-# the sweeps and the narrow solves before the solve's and the sweep's move
-# onto grids over all SMs
+# redesigned onto tri_blocked.cuh, the panel schedules and gemm_nt.cuh
+# (PERF.md §6 and §5: chip_smoke.py, NVIDIA H100 80GB HBM3 at 700.00 W),
+# logged beside this run's: panel_tri_inv, blocked_cholesky and the
+# streamed solves before their move onto tri_blocked.cuh; cholesky_solve,
+# multi_gamma_solve, the sweeps and the narrow solves before the solve's
+# and the sweep's move onto grids over all SMs; panel_trsm and
+# panel_update on tile_gemm.cuh's loop
 EARLIER_MS = {("panel_tri_inv", 256, "float32"): 0.3376, ("panel_tri_inv", 128, "float64"): 0.1209,
+           ("panel_trsm", (2304, 256), "float32"): 0.0240,
+           ("panel_trsm", (2304, 128), "float64"): 0.0215,
+           ("panel_update", (2304, 2048, 256), "float32"): 0.0965,
+           ("panel_update", (6144, 5888, 256), "float32"): 0.6848,
+           ("panel_update", (2304, 2176, 128), "float64"): 0.1555,
            ("blocked_cholesky", 1536, "float32"): 16.616,
            ("blocked_cholesky", 128, "float32"): 0.2376,
            ("blocked_cholesky", 1536, "float64"): 27.9598,
@@ -376,7 +386,7 @@ def panel_phase(P, ref):
             time_cuda(lambda: ref.panel_trsm_ref(raw, zinv)),
             time_cuda(lambda: torch.mm(raw, zinv.T)),
             # zinv is lower triangular: its b(b+1)/2 entries, r·b·(b+1) flops
-            r * b * (b + 1), 4 * (2 * r * b + b * (b + 1) // 2)))
+            r * b * (b + 1), 4 * (2 * r * b + b * (b + 1) // 2), _earlier("panel_trsm", (r, b))))
     for r, w, b in UPDATE_SHAPES:
         trail = _slab(gen, r, w, w + b)
         lp = torch.randn((r, b), generator=gen, device="cuda")
@@ -390,8 +400,72 @@ def panel_phase(P, ref):
             time_cuda(lambda: P.panel_update(trail, lp, pt, out=trail)),
             time_cuda(lambda: ref.panel_update_ref(trail, lp, pt, out=trail)),
             time_cuda(lambda: torch.addmm(trail, lp, pt.T, alpha=-1)),
-            2 * r * w * b, 4 * (2 * r * w + r * b + w * b)))
+            2 * r * w * b, 4 * (2 * r * w + r * b + w * b), _earlier("panel_update", (r, w, b))))
     return rows
+
+
+def _earlier(name, shape, dtype=torch.float32) -> str:
+    """The earlier time of a product row (on tile_gemm.cuh's loop), for the log."""
+    t = EARLIER_MS.get((name, shape, str(dtype).removeprefix("torch.")))
+    return "" if t is None else f"; tile_gemm.cuh's loop before {t} ms"
+
+
+def streamed_products(S, P, dtype, d=2304):
+    """The two products over one streamed factor at d: panel_trsm on the
+    full-height (d, b) slab at each of the d/b panels, panel_update on each
+    trailing (d, d − o − b) slab; each summed over the factor's calls,
+    beside torch.mm / torch.addmm summed over the same shapes."""
+    b = S.stream_block(dtype)
+    n = d // b
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(d + b)
+    work = torch.randn((d, d), generator=gen, device="cuda").to(dtype)
+    zinv = torch.tril(torch.randn((b, b), generator=gen, device="cuda")).to(dtype)
+    lp = torch.randn((d, b), generator=gen, device="cuda").to(dtype)
+    raw = work[:, :b]
+    t_trsm = time_cuda(lambda: P.panel_trsm(raw, zinv))
+    t_mm = time_cuda(lambda: torch.mm(raw, zinv.T))
+    upd, lib = [], []
+    for o in range(0, d - b, b):
+        trail = work[:, o + b:]
+        pt = work[o + b:, :b]
+        upd.append(time_cuda(lambda: P.panel_update(trail, lp, pt, out=trail)))
+        lib.append(time_cuda(lambda: torch.addmm(trail, lp, pt.T, alpha=-1)))
+    out = dict(dtype=str(dtype).removeprefix("torch."), d=d, b=b, trsm_calls=n,
+               trsm_ms=n * t_trsm, trsm_library_ms=n * t_mm, update_calls=len(upd),
+               update_ms=sum(upd), update_library_ms=sum(lib),
+               update_widths=[d - o - b for o in range(0, d - b, b)],
+               update_each_ms=upd, update_each_library_ms=lib)
+    log(f"one streamed factor at d={d} {out['dtype']} (b = {b}): panel_trsm {n} x "
+        f"{t_trsm:.4f} = {out['trsm_ms']:.4f} ms (torch.mm {out['trsm_library_ms']:.4f}); "
+        f"panel_update over widths {out['update_widths'][0]}..{out['update_widths'][-1]}: "
+        f"{len(upd)} calls, {out['update_ms']:.4f} ms (torch.addmm {out['update_library_ms']:.4f})")
+    return out
+
+
+# the streamed factor's kernels, as the profiler names them: panel_factor's
+# kernel, then the two products by their epilogue (panel_trsm stores the
+# product, panel_update subtracts it from T)
+FACTOR_PARTS = ("factor_kernel", "StoreProduct", "SubtractFrom")
+
+
+def factor_profiles(S):
+    """One streamed factor under torch.profiler at d = 2304 (f32 and f64)
+    and d = 6144 (f32): device milliseconds in panel_factor, panel_trsm,
+    panel_update and the rest, and the idle share of the span."""
+    out = []
+    for d, dtype in ((2304, torch.float32), (2304, torch.float64), (6144, torch.float32)):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(d)
+        x = torch.randn((4 * d, d), generator=gen, device="cuda")
+        a = (x.T @ x / (4 * d)).to(dtype)
+        del x
+        prof = kernel_breakdown(lambda: S.streamed_cholesky(a), FACTOR_PARTS)
+        what = f"streamed factor d={d} {str(dtype).removeprefix('torch.')}, one call profiled"
+        _log_breakdown(what, prof, dict(zip(FACTOR_PARTS, ("panel_factor", "panel_trsm",
+                                                          "panel_update"))))
+        out.append(dict(d=d, dtype=str(dtype).removeprefix("torch."), profile=prof))
+    return out
 
 
 STREAM_D = 6144     # nemotron4_15b's and grok1's d_model
@@ -961,11 +1035,12 @@ def kernel_breakdown(fn, parts) -> dict:
     return dict(by=by, span_ms=span, idle_share=1 - _busy_ms(spans) / span)
 
 
-def _log_breakdown(what, r) -> None:
+def _log_breakdown(what, r, names=None) -> None:
     if r is None:
         log(f"{what}: the profiler saw no device activity (not measured)")
         return
-    parts = ", ".join(f"{p} {ms:.4f} ms in {n} ({1e3 * ms / n:.2f} us each)"
+    names = names or {}
+    parts = ", ".join(f"{names.get(p, p)} {ms:.4f} ms in {n} ({1e3 * ms / n:.2f} us each)"
                       for p, (ms, n) in r["by"].items())
     log(f"{what}: device span {r['span_ms']:.4f} ms (idle share {r['idle_share']:.3f}); {parts}")
 
@@ -1024,16 +1099,18 @@ def f64_kernel_phase(K, ref):
     zinv = torch.tril(torch.randn((b, b), generator=gen, device="cuda")).double()
     add("panel_trsm", (d, b), P.panel_trsm(raw, zinv), ref.panel_trsm_ref(raw, zinv),
         lambda: P.panel_trsm(raw, zinv), lambda: ref.panel_trsm_ref(raw, zinv),
-        lambda: torch.mm(raw, zinv.T), d * b * (b + 1), 8 * (2 * d * b + tri))
-    w = d - b
-    trail = _slab(gen, d, w, w + b).double()
-    lp = torch.randn((d, b), generator=gen, device="cuda").double()
-    pt = torch.randn((w, b), generator=gen, device="cuda").double()
-    add("panel_update", (d, w, b), P.panel_update(trail, lp, pt),
-        ref.panel_update_ref(trail, lp, pt), lambda: P.panel_update(trail, lp, pt, out=trail),
-        lambda: ref.panel_update_ref(trail, lp, pt, out=trail),
-        lambda: torch.addmm(trail, lp, pt.T, alpha=-1), 2 * d * w * b,
-        8 * (2 * d * w + d * b + w * b))
+        lambda: torch.mm(raw, zinv.T), d * b * (b + 1), 8 * (2 * d * b + tri),
+        _earlier("panel_trsm", (d, b), f64))
+    # the f64 path's widest and narrowest trailing updates (first and last panel)
+    for w in (d - b, b):
+        trail = _slab(gen, d, w, w + b).double()
+        lp = torch.randn((d, b), generator=gen, device="cuda").double()
+        pt = torch.randn((w, b), generator=gen, device="cuda").double()
+        add("panel_update", (d, w, b), P.panel_update(trail, lp, pt),
+            ref.panel_update_ref(trail, lp, pt), lambda: P.panel_update(trail, lp, pt, out=trail),
+            lambda: ref.panel_update_ref(trail, lp, pt, out=trail),
+            lambda: torch.addmm(trail, lp, pt.T, alpha=-1), 2 * d * w * b,
+            8 * (2 * d * w + d * b + w * b), _earlier("panel_update", (d, w, b), f64))
 
     n = NARROW_WIDE_D
     a = _spd_block(gen, n).double()[None]
@@ -1874,6 +1951,8 @@ def main() -> None:
     for name, more in f64_kernel_phase(K, ref).items():
         rows[name].extend(more)
     rows["flash_attention"] = attention_phase(FA, ref)
+    products = [streamed_products(S, P, dt) for dt in (torch.float32, torch.float64)]
+    profiles = factor_profiles(S)
     streamed = streamed_phase(S, P)
     small_check(get_config, D, T, train, FLConfig)
     slice_launches, server, x_te, y_te = slice_phase(K, get_config, D, T, train,
@@ -1919,6 +1998,7 @@ def main() -> None:
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shapes=rows[name]))
     log(json.dumps({"streamed": streamed}))
+    log(json.dumps({"streamed_products": products, "factor_profiles": profiles}))
     log(json.dumps({"f64_engine": f64_times}))
     log(json.dumps({"serve": served}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")

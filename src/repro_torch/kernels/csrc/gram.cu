@@ -14,7 +14,7 @@
 // dimension to a block multiple in its wrapper. On Hopper blocks run in
 // parallel and in no order, so here each block owns one 64×64 output tile,
 // loops over all N rows itself and keeps its tile in registers (the tile
-// loop of tile_gemm.cuh, shared with panel.cu); Q gets its own column of
+// loop of tile_gemm.cuh, shared with blocked.cu); Q gets its own column of
 // blocks after G's; the ragged edges of N, d and C are masked in the loads
 // and stores instead of padded.
 //

@@ -9,8 +9,9 @@
 // They replace the Pallas TPU kernels of src/repro/kernels/solve.py:
 // panel_factor (_factor_tile then _tri_inv_tile), panel_tri_inv
 // (_tri_inv_tile), panel_trsm and panel_update (one tiled matmul each).
-// Every product is a plain FMA in the input's type (no TF32, no mma; the
-// f64 instances use the card's native FP64), sqrt and division are IEEE
+// Every product is IEEE in the input's type: f32 FMA (no TF32), f64 FMA
+// or, in panel_trsm and panel_update, the FP64 tensor cores (DMMA, whose
+// products and sums are f64); sqrt and division are IEEE
 // (no fast math), and no pivot is clamped, so a block that is not
 // positive definite gives NaN (sqrt of a negative pivot) as the reference
 // does. The upper triangles of L and Z are written as exact zeros.
@@ -51,23 +52,37 @@
 // each column of panel_factor's inverse; the streamed schedule runs f64
 // systems at b = 128 (kernels/solve.py, STREAM_BLOCK_F64).
 //
-// panel_trsm / panel_update. One tiled kernel computes C = A·Bᵀ, or
-// C = T − A·Bᵀ, in 64×64 output tiles: the tile loop of tile_gemm.cuh
-// (one tile per 256-thread block, 4×4 register micro-tiles, K staged 16 at
-// a time through shared memory), which gram.cu shares. Each operand comes
-// as a pointer and a row stride, so the column slabs of the (d, d) work
-// matrix are read and written where they lie, without a copy; C may be T
-// itself (each element is read and then written by one thread). Ragged
-// edges are masked. At the shapes of the d = 2304 path, panel_update
-// (2304, 2048, 256) needs 2·r·w·b = 2.42 GFLOP (36 us) against
-// 4·(2rw + rb + wb) = 42.2 MB (12.6 us). Z is lower triangular (both
-// panel kernels write its upper half as zeros), so panel_trsm (2304, 256)
-// needs r·b·(b+1) = 0.152 GFLOP (2.3 us) against 4·(2rb + b(b+1)/2) =
-// 4.85 MB (1.4 us); this kernel does twice those flops, since it
-// multiplies the zero half too. Both are bound by operations. Skipping Z's
-// zero half, skipping the rows of the full-height slab that the schedule
-// masks to zero, cp.async/TMA staging and wgmma (at a lower precision than
-// this port's f32) are later work. The f64 instance stages 17.4 KB.
+// panel_trsm / panel_update. One kernel template computes C = A·Bᵀ, or
+// C = T − A·Bᵀ, one output tile per block, on the tile routine of
+// gemm_nt.cuh (its header states the loop in each type). Each operand
+// comes as a pointer and a row stride, so the column slabs of the (d, d)
+// work matrix are read and written where they lie, without a copy; C may
+// be T itself. The product stays whole: Z's zero upper half is multiplied
+// and every row of the full-height slab computed, as the Pallas kernels
+// do. Bounds on an H100 SXM at the paths' shapes (bytes at 3.35 TB/s, f32
+// at 67 TFLOP/s on the FMA pipes, f64 at 67 TFLOP/s on DMMA):
+//   f32 panel_update (2304, 2048, 256): 2.42 GFLOP (36 us) against 42.2 MB
+//     (12.6 us), and (6144, 5888, 256): 18.5 GFLOP (276 us) against 302 MB
+//     (90 us): operations. The FMA loop keeps 8×8 or 8×4 outputs a thread,
+//     each 16-byte shared-memory read feeding 32 FMAs, and the next
+//     slice's loads in flight while one computes.
+//   f32 panel_trsm (2304, 256): r·b·(b+1) = 0.152 GFLOP (2.3 us) against
+//     4.85 MB (1.4 us): operations, but too small a grid to reach them; it
+//     is a chain of 16 dependent slices on one round of 96 blocks.
+//   f64 panel_update (2304, 2176, 128): 1.28 GFLOP (19 us) against 84.8 MB
+//     (25 us): bytes, T's read and C's write. DMMA takes the products off
+//     the FMA pipes' 34 TFLOP/s, and T's tile is fetched into shared memory
+//     while the last slice computes.
+//   f64 panel_trsm (2304, 128): 0.038 GFLOP (0.6 us) against 4.79 MB
+//     (1.4 us): bytes, but again a short chain on 72 blocks; it runs the
+//     whole k = 128 as two 64-deep slices, split four ways over the
+//     block's 16 warps. A scheduler with one warp whose eight chains of mma
+//     are all it has gets 58% of the DMMA rate (tools/dmma_probe.cu), so
+//     each of the 72 SMs wants four warps a scheduler.
+// The tile for each call comes from the output's shape (launch_f32,
+// launch_f64). Nothing is split across blocks and a block adds its split
+// sums in a fixed order, so a call gives the same bits every time. Skipping Z's zero half and the schedule's masked rows
+// is later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libpanel.so panel.cu
@@ -78,8 +93,8 @@
 
 #include <cstddef>
 
+#include "gemm_nt.cuh"
 #include "packed_tri.cuh"
-#include "tile_gemm.cuh"
 #include "tri_blocked.cuh"
 
 namespace {
@@ -150,56 +165,82 @@ int launch_tri_inv(const void* l, int ldl, int b, void* z, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-using afl_tile::kLoadsPerThread;
-using afl_tile::kStep;
-using afl_tile::kThreads;
-using afl_tile::kTile;
+// panel_trsm and panel_update: one block per output tile of gemm_nt.cuh.
+template <class Tile, class Epi, class T>
+__global__ void __launch_bounds__(Tile::kThreads)
+gemm_nt_kernel(afl_gemm::Problem<T> p, Epi epi) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int i0 = blockIdx.y * Tile::kRows, j0 = blockIdx.x * Tile::kCols;
+  if constexpr (sizeof(T) == 4)
+    afl_gemm::ffma_tile<Tile>(p, i0, j0, epi, reinterpret_cast<float*>(smem_raw));
+  else
+    afl_gemm::dmma_tile<Tile>(p, i0, j0, epi, reinterpret_cast<double*>(smem_raw));
+}
+
+// The tiles. f32: 128×64 (8×4 outputs a thread, three blocks an SM fit)
+// and, for outputs at most 256 wide (panel_trsm at b = 256, the last
+// update), 96×64 (4×4, 384 threads): 96 blocks at m = 2304 fill the card
+// in one round where 64×64 tiles would leave 12 SMs with two. f64: 64×64
+// in 16-deep slices, and for outputs at most 128 wide (panel_trsm at
+// b = 128, the last update: 72 blocks at m = 2304) 64-deep slices, so
+// that the whole k = 128 is in flight in two stages, each slice split
+// over four groups of four warps.
+using F32Mid = afl_gemm::FfmaTile<16, 16, 8, 4, 16>;
+using F32Narrow = afl_gemm::FfmaTile<24, 16, 4, 4, 16>;
+using F64Mid = afl_gemm::DmmaTile<2, 2, 16, 3>;
+using F64Narrow = afl_gemm::DmmaTile<2, 2, 64, 2, 4>;
+
+template <class Kernel>
+int prepare_once(Kernel kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  if (int err = static_cast<int>(cudaGetDevice(&dev))) return err;
+  if (dev >= 0 && dev < 64 && done[dev]) return 0;
+  if (int err = prepare(kernel, bytes)) return err;
+  if (dev >= 0 && dev < 64) done[dev] = true;
+  return 0;
+}
+
+template <class Tile, class Epi, class T>
+int launch_tile(const afl_gemm::Problem<T>& p, Epi epi, cudaStream_t stream) {
+  static bool prepared[64] = {};
+  const dim3 grid((p.n + Tile::kCols - 1) / Tile::kCols, (p.m + Tile::kRows - 1) / Tile::kRows);
+  auto kernel = gemm_nt_kernel<Tile, Epi, T>;
+  constexpr int kBytes = Tile::template smem_bytes<Epi>();
+  if (int err = prepare_once(kernel, kBytes, prepared)) return err;
+  kernel<<<grid, Tile::kThreads, kBytes, stream>>>(p, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Epi>
+int launch_f32(const afl_gemm::Problem<float>& p, Epi epi, cudaStream_t s) {
+  return p.n <= 256 ? launch_tile<F32Narrow>(p, epi, s) : launch_tile<F32Mid>(p, epi, s);
+}
+
+template <class Epi>
+int launch_f64(const afl_gemm::Problem<double>& p, Epi epi, cudaStream_t s) {
+  return p.n <= 128 ? launch_tile<F64Narrow>(p, epi, s) : launch_tile<F64Mid>(p, epi, s);
+}
 
 // C (m, n) = A (m, k) · B (n, k)ᵀ, or T − A · Bᵀ. Row strides lda, ldb,
 // ldt, ldc; unit column strides. t and c may be the same matrix.
 template <class T, bool kSubtract>
-__global__ void __launch_bounds__(kThreads)
-gemm_nt_kernel(const T* __restrict__ a, int lda,
-               const T* __restrict__ bm, int ldb, const T* t, int ldt,
-               T* c, int ldc, int m, int n, int k) {
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  afl_tile::tile_gemm<T>(
-      k,
-      // the reduction runs along the rows of A and B: neighbouring threads
-      // read neighbouring entries of one row
-      [=](afl_tile::Stage<T> a_tile, afl_tile::Stage<T> b_tile, int k0) {
-#pragma unroll
-        for (int l = 0; l < kLoadsPerThread; ++l) {
-          const int e = threadIdx.x + l * kThreads;
-          const int r = e / kStep;
-          const int kk = e % kStep;
-          const int col = k0 + kk;
-          a_tile[kk][r] = (i0 + r < m && col < k)
-                              ? a[static_cast<size_t>(i0 + r) * lda + col]
-                              : T(0);
-          b_tile[kk][r] = (j0 + r < n && col < k)
-                              ? bm[static_cast<size_t>(j0 + r) * ldb + col]
-                              : T(0);
-        }
-      },
-      [=](int r, int s, T v) {
-        const int row = i0 + r;
-        const int col = j0 + s;
-        if (row >= m || col >= n) return;
-        if (kSubtract) v = t[static_cast<size_t>(row) * ldt + col] - v;
-        c[static_cast<size_t>(row) * ldc + col] = v;
-      });
-}
-
-template <class T, bool kSubtract>
-int launch_gemm(const void* t, int ldt, const void* a, int lda, const void* b,
-                int ldb, void* c, int ldc, int m, int n, int k, void* stream) {
-  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  gemm_nt_kernel<T, kSubtract><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), lda, static_cast<const T*>(b), ldb,
-      static_cast<const T*>(t), ldt, static_cast<T*>(c), ldc, m, n, k);
-  return static_cast<int>(cudaGetLastError());
+int launch_gemm(const void* t, int ldt, const void* a, int lda, const void* b, int ldb,
+                void* c, int ldc, int m, int n, int k, void* stream) {
+  using afl_gemm::vec16;
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  const afl_gemm::Problem<T> p{
+      {static_cast<const T*>(a), lda, vec16(a, lda, kSize)},
+      {static_cast<const T*>(b), ldb, vec16(b, ldb, kSize)},
+      {static_cast<const T*>(t), ldt, t != nullptr && vec16(t, ldt, kSize)},
+      static_cast<T*>(c), ldc, vec16(c, ldc, kSize), m, n, k};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (sizeof(T) == 4) {
+    if constexpr (kSubtract) return launch_f32(p, afl_gemm::SubtractFrom{}, s);
+    else return launch_f32(p, afl_gemm::StoreProduct{}, s);
+  } else {
+    if constexpr (kSubtract) return launch_f64(p, afl_gemm::SubtractFrom{}, s);
+    else return launch_f64(p, afl_gemm::StoreProduct{}, s);
+  }
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
 // One 64×64 output tile of a matrix product in T (float or double),
 // computed by one block of 256 threads: the tile loop shared by gram.cu
-// (G = XᵀX, Q = XᵀY, f32), panel.cu (A·Bᵀ and T − A·Bᵀ) and blocked.cu
-// (trsm and trailing update), the last two in f32 and f64.
+// (G = XᵀX, Q = XᵀY, f32) and blocked.cu (trsm and trailing update, f32
+// and f64). panel.cu's products run on gemm_nt.cuh instead.
 //
 // The reduction runs kStep = 16 indices at a time. For each step the
 // caller's `load(a_tile, b_tile, k0)` stages, for reduction indices

@@ -6,7 +6,9 @@ The ports of the Pallas TPU kernels ``repro.kernels.solve.panel_factor``,
 call them once per panel of a wide system.
 
 The kernels are ``csrc/panel.cu`` (its header states the designs and the
-bounds on an H100), built by ``kernels.build`` and bound with ``ctypes``.
+bounds on an H100; the two products run on the tile routine of
+``csrc/gemm_nt.cuh``: the FP64 tensor cores in f64, FMA in f32), built by
+``kernels.build`` and bound with ``ctypes``.
 They take CUDA tensors whose rows have unit column stride, every operand
 of one call f32 or every one f64 (each kernel has an instance of each); a
 row stride larger than the width is passed to the kernel, so a column slab

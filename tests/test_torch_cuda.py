@@ -184,52 +184,92 @@ def test_panel_factor_non_pd_gives_nan(cuda):
     assert not torch.triu(l, 1).any()                 # NaN stays off the upper half
 
 
+def _column_slab(x, width):
+    """``x`` (r, c) as the last c columns of an (r, width) work matrix (row
+    stride ``width``), as the schedule hands the products its slabs."""
+    big = torch.full((x.shape[0], width), float("nan"), dtype=x.dtype, device=x.device)
+    big[:, width - x.shape[1]:] = x
+    return big[:, width - x.shape[1]:]
+
+
+def _assert_product(got, want):
+    """The products' bars: the Gram tolerances in f32, relative 1e-10 of
+    the largest entry in f64."""
+    if got.dtype == torch.float64:
+        assert _rel(got, want) < REL64
+    else:
+        rtol, atol = TOL[torch.float32]
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+# (r, b, dtype, ld): the d = 2304 path's slab in f32 (b = 256) and f64
+# (b = 128), read where it lies in the (d, d) work matrix (16-byte aligned
+# rows); ragged, with row strides and bases that are not 16-byte multiples;
+# smaller than one tile
+TRSM_CASES = [(2304, 256, torch.float32, 2304), (2304, 128, torch.float64, 2304),
+              (1000, 200, torch.float32, 977), (1000, 200, torch.float64, 977),
+              (20, 12, torch.float32, 15), (20, 12, torch.float64, 15)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,b", [(2304, 256), (1000, 200)])
-def test_panel_trsm_matches_plain(cuda, r, b):
-    rng = np.random.default_rng(r)
-    raw = _inside(torch.from_numpy(rng.standard_normal((r, b))).to(cuda, torch.float32))
-    zinv = torch.from_numpy(np.tril(rng.standard_normal((b, b)))).to(cuda, torch.float32)
+@pytest.mark.parametrize("r,b,dtype,ld", TRSM_CASES)
+def test_panel_trsm_matches_plain(cuda, r, b, dtype, ld):
+    rng = np.random.default_rng(r + b)
+    raw = _column_slab(torch.from_numpy(rng.standard_normal((r, b))).to(cuda, dtype), ld)
+    zinv = torch.from_numpy(np.tril(rng.standard_normal((b, b)))).to(cuda, dtype)
     before = P.panel_trsm.launches
     out = ops.panel_trsm(raw, zinv)
     torch.cuda.synchronize()
     assert P.panel_trsm.launches == before + 1
     assert out.shape == (r, b) and out.is_contiguous()
-    rtol, atol = TOL[torch.float32]
-    torch.testing.assert_close(out, ref.panel_trsm_ref(raw, zinv), rtol=rtol, atol=atol)
+    _assert_product(out, ref.panel_trsm_ref(raw, zinv))
+    assert torch.equal(ops.panel_trsm(raw, zinv), out)     # the same bits again
+
+
+# (r, w, b, dtype, odd): the d = 2304 path's widest and narrowest trailing
+# updates in f32 (b = 256) and f64 (b = 128), d = 6144's widest; ragged,
+# with every operand's row stride and base off 16-byte multiples (odd);
+# smaller than one tile
+UPDATE_CASES = [(2304, 2048, 256, torch.float32, False), (2304, 256, 256, torch.float32, False),
+                (6144, 5888, 256, torch.float32, False),
+                (2304, 2176, 128, torch.float64, False), (2304, 128, 128, torch.float64, False),
+                (1000, 777, 200, torch.float32, True), (1000, 777, 200, torch.float64, True),
+                (30, 20, 12, torch.float32, True), (30, 20, 12, torch.float64, True)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,w,b", [(2304, 2048, 256), (6144, 5888, 256), (1000, 777, 200)])
-def test_panel_update_matches_plain_in_place(cuda, r, w, b):
-    rng = np.random.default_rng(w)
-    f32 = lambda a: torch.from_numpy(a).to(cuda, torch.float32)  # noqa: E731
-    work = f32(rng.standard_normal((r, w + b)))
-    lp = f32(rng.standard_normal((r, b)))
-    pt = f32(rng.standard_normal((w, b)))
-    trail = work[:, b:]                               # a slab of the work matrix
+@pytest.mark.parametrize("r,w,b,dtype,odd", UPDATE_CASES)
+def test_panel_update_matches_plain_in_place(cuda, r, w, b, dtype, odd):
+    rng = np.random.default_rng(w + b)
+    dev = lambda a: torch.from_numpy(a).to(cuda, dtype)  # noqa: E731
+    work = dev(rng.standard_normal((r, w + b + odd)))
+    lp = dev(rng.standard_normal((r, b)))
+    pt = dev(rng.standard_normal((w, b)))
+    if odd:
+        lp, pt = _column_slab(lp, b + 1), _column_slab(pt, b + 1)
+    trail = work[:, b + odd:]                         # a slab of the work matrix
+    orig = trail.clone()
     want = ref.panel_update_ref(trail, lp, pt)
-    head = work[:, :b].clone()
+    head = work[:, :b + odd].clone()
     before = P.panel_update.launches
     got = ops.panel_update(trail, lp, pt, out=trail)
     torch.cuda.synchronize()
     assert P.panel_update.launches == before + 1
     assert got.data_ptr() == trail.data_ptr()
-    rtol, atol = TOL[torch.float32]
-    torch.testing.assert_close(trail, want, rtol=rtol, atol=atol)
-    assert torch.equal(work[:, :b], head)             # nothing outside the slab
-    fresh = ops.panel_update(want, lp, pt)            # and into a new tensor
-    torch.testing.assert_close(fresh, ref.panel_update_ref(want, lp, pt),
-                               rtol=rtol, atol=atol)
+    _assert_product(trail, want)
+    assert torch.equal(work[:, :b + odd], head)       # nothing outside the slab
+    fresh = ops.panel_update(orig, lp, pt)            # into a new tensor, the same bits
+    assert fresh.is_contiguous() and torch.equal(fresh, trail)
 
 
 @pytest.mark.cuda
-def test_panel_products_carry_nan(cuda):
-    lp = torch.ones((70, 16), device=cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_panel_products_carry_nan(cuda, dtype):
+    lp = torch.ones((70, 16), device=cuda, dtype=dtype)
     lp[5, 3] = float("nan")
-    pt = torch.ones((40, 16), device=cuda)
-    out = ops.panel_update(torch.zeros((70, 40), device=cuda), lp, pt)
-    trsm = ops.panel_trsm(lp, torch.eye(16, device=cuda))
+    pt = torch.ones((40, 16), device=cuda, dtype=dtype)
+    out = ops.panel_update(torch.zeros((70, 40), device=cuda, dtype=dtype), lp, pt)
+    trsm = ops.panel_trsm(lp, torch.eye(16, device=cuda, dtype=dtype))
     torch.cuda.synchronize()
     assert torch.isnan(out[5]).all() and torch.isfinite(out[:5]).all()
     assert torch.isnan(trsm[5, 3]) and torch.isfinite(trsm[6:]).all()

@@ -22,6 +22,12 @@ right-hand sides:
     ``multi_gamma_solve`` call and the engine's check that every weight is
     finite).
 
+Each streamed key also gets one call under torch.profiler
+(``<key>_profile``): its host milliseconds to a synchronised end, the
+card's kernels, and the milliseconds in the union of their intervals
+(``busy_ms``), so that a difference between two checkouts can be split
+into device time and the host's.
+
 Needs a CUDA GPU; exits non-zero without one.
 """
 
@@ -48,6 +54,30 @@ def _median_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         out.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(out)
+
+
+def _profile(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: host milliseconds to a
+    synchronised end, the card's kernels, and the milliseconds in the union
+    of their intervals."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, reach = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reach:
+            busy += (end - max(start, reach)) / 1e3
+            reach = end
+    return {"wall_ms": wall_ms, "kernels": len(spans), "busy_ms": busy}
 
 
 def main() -> None:
@@ -86,6 +116,8 @@ def main() -> None:
         if not bool(torch.isfinite(w).all()):
             sys.exit(f"{name}: the solve is not finite")
         out[name] = _median_ms(lambda: eng.solve(stats, target_gamma=gamma), args.reps)
+        if d >= 2048:
+            out[f"{name}_profile"] = _profile(lambda: eng.solve(stats, target_gamma=gamma))
         if d >= 2048:
             sweep = f"sweep_{name.rsplit('_', 1)[1]}"
             gammas = [float(rho) * float(torch.trace(gram)) / d
