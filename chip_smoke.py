@@ -23,7 +23,14 @@ without the repository around it. Phases, each fatal on failure:
      ``blocked_cholesky``, ``cholesky_solve`` and ``multi_gamma_solve``
      also against themselves on a repeated call (the same bits), the last
      two also against the plain twins of their schedules
-     (``ref.solve_right_looking_ref``, ``ref.multi_gamma_blocked_ref``);
+     (``ref.solve_right_looking_ref``, ``ref.multi_gamma_blocked_ref``),
+     ``gram_update`` also against ``ref.gram_upper_ref`` (its upper-tile
+     schedule) and for an exactly symmetric G; ``flash_attention`` also at
+     the split-KV decode's edges (a one-key cache, a band that is no
+     multiple of the chunk, a window inside one chunk, a cache unwritten
+     past q_offset, rows past every key, a GQA group of 8, bf16), with
+     each call's regime, chunks and CUDA launches (two for a split decode)
+     logged and checked;
      one f32 call of ``blocked_cholesky`` (1, 1536), ``cholesky_solve``
      (1, 1536, 16), ``multi_gamma_solve`` (2304, 16, 16 γs) and the rank
      update profiled by kernel; then the f64 instance of each solve-side kernel
@@ -43,7 +50,8 @@ without the repository around it. Phases, each fatal on failure:
      the same run on the CPU (plain versions), same weights;
   5. slice: ``run_analytic`` at the full width of minicpm_2b (all 40
      layers, random f32 weights from a seed), with the Gram kernel's and
-     the flash kernel's launches counted over exactly that run; then, at
+     the flash kernel's launches (wrapper calls, and the CUDA launches
+     they made) counted over exactly that run; then, at
      the same width, the
      kernel's fold of a real batch against the plain fold, the card's
      pooled embeddings against the CPU's, the same aggregate solved at
@@ -77,7 +85,9 @@ without the repository around it. Phases, each fatal on failure:
      gemma3_12b at full width (all 48 layers, random f32 weights from a
      seed), a prefill of 4 × 2048 tokens and 15 greedy decode steps
      against a 2064-slot KV cache, with the flash kernel's launches
-     counted over exactly that run (48 + 48 × 15); then a teacher-forced
+     counted over exactly that run (48 + 48 × 15 calls; 48 + 2 × 48 × 15
+     CUDA launches, every decode call split); a profiled decode step's
+     flash time logged; then a teacher-forced
      forward over the prompt and the generated tokens that must give the
      logits decode gave, layers 0 (local) and 5 (global) of the prefill
      through the kernel against the plain version on their real q, k, v,
@@ -221,6 +231,8 @@ def kernel_phase(G, ref):
         rtol, atol = GRAM_TOL[dtype]
         torch.testing.assert_close(g, g_ref, rtol=rtol, atol=atol)
         torch.testing.assert_close(q, q_ref, rtol=rtol, atol=atol)
+        g_twin, _ = ref.gram_upper_ref(x, y)          # the kernel's schedule, plain
+        torch.testing.assert_close(g, g_twin, rtol=rtol, atol=atol)
         if not torch.equal(g, g.T):
             fail(f"gram kernel G is not symmetric at {(n, d, c)}")
         err = max(float((g - g_ref).abs().max()), float((q - q_ref).abs().max()))
@@ -228,16 +240,20 @@ def kernel_phase(G, ref):
         plain_ms = time_cuda(lambda: ref.gram_ref(x, y))
         library_ms = time_cuda(lambda: torch.mm(x.T, torch.cat([x, y], 1)))
         bound_ms, bound_by, flops, nbytes = gram_bound(n, d, c, dtype)
-        row = dict(n=n, d=d, c=c, dtype=str(dtype).removeprefix("torch."),
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        dt = str(dtype).removeprefix("torch.")
+        row = dict(n=n, d=d, c=c, dtype=dt, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, flops=flops, bytes=nbytes)
+                   bound_by=bound_by, flops=flops, bytes=nbytes,
+                   earlier_ms=EARLIER_MS.get(("gram_update", (n, d, c), dt)))
         rows.append(row)
-        log(f"gram_update N={n} d={d} C={c} {row['dtype']}: max|err|={err:.3e} "
+        rows_per_split = G.split_rows(n, d, c, torch.cuda.get_device_properties(0).multi_processor_count)
+        row["splits"] = -(-n // rows_per_split)
+        log(f"gram_update N={n} d={d} C={c} {dt}: {G.blocks(d, c)} tiles ({len(G.upper_tiles(d))} "
+            f"of G), N in {row['splits']} split(s); max|err|={err:.3e} "
             f"(rtol {rtol} atol {atol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"torch.mm {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
             f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) = "
-            f"{100 * bound_ms / ms:.1f}% of bound")
+            f"{100 * bound_ms / ms:.1f}% of bound (before: {row['earlier_ms'] or 'n/a'} ms)")
     return rows
 
 
@@ -300,8 +316,18 @@ def _kernel_row(name, shape, err, rel, ms, plain_ms, library_ms, flops, nbytes, 
 # streamed solves before their move onto tri_blocked.cuh; cholesky_solve,
 # multi_gamma_solve, the sweeps and the narrow solves before the solve's
 # and the sweep's move onto grids over all SMs; panel_trsm and
-# panel_update on tile_gemm.cuh's loop
-EARLIER_MS = {("panel_tri_inv", 256, "float32"): 0.3376, ("panel_tri_inv", 128, "float64"): 0.1209,
+# panel_update on tile_gemm.cuh's loop; gram_update on that loop over both
+# triangles of G; flash_attention as one 64-row tile for every regime
+EARLIER_MS = {("gram_update", (64, 2304, 16), "float32"): 0.0359,
+           ("gram_update", (8192, 2304, 16), "float32"): 3.3555,
+           ("flash_attention", "serve prefill, local"): 4.1803,
+           ("flash_attention", "serve prefill, global"): 5.5774,
+           ("flash_attention", "serve decode, local"): 0.1328,
+           ("flash_attention", "serve decode, global"): 0.2563,
+           ("flash_attention", "trainer forward"): 0.1150,
+           "train_s": 12.539, "prefill_s": 2.935, "decode_ms_per_token": 63.67,
+           "decode_step_flash_ms": 7.36,
+           ("panel_tri_inv", 256, "float32"): 0.3376, ("panel_tri_inv", 128, "float64"): 0.1209,
            ("panel_trsm", (2304, 256), "float32"): 0.0240,
            ("panel_trsm", (2304, 128), "float64"): 0.0215,
            ("panel_update", (2304, 2048, 256), "float32"): 0.0965,
@@ -354,6 +380,7 @@ def panel_phase(P, ref):
             None, 2 * b ** 3 / 3, 4 * (tri + 2 * b * b),
             f"; torch.linalg.cholesky + solve_triangular {pair_ms:.4f} ms; "
             f"{2 * b} sequential steps"))
+        rows["panel_factor"][-1]["pair_ms"] = pair_ms
         rows["panel_tri_inv"].append(_kernel_row(
             "panel_tri_inv", (b,), _abs(zi, zi_ref), rel_i,
             time_cuda(lambda: P.panel_tri_inv(l)),
@@ -618,12 +645,18 @@ def slice_phase(K, get_config, D, T, train, FLConfig, api):
     launches = _read(K)
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = {"gram_update": expected, "flash_attention": cfg.num_layers * forwards}
-    log(f"slice: run_analytic acc={acc:.4f} train_s={train_s:.3f} wall_s={wall:.3f} "
+    fa_cuda = K.FA.flash_attention.cuda_launches
+    log(f"slice: run_analytic acc={acc:.4f} train_s={train_s:.3f} (before: "
+        f"{EARLIER_MS['train_s']}) wall_s={wall:.3f} "
         f"gram_update launches={launches['gram_update']} (expected {expected}) "
         f"flash_attention launches={launches['flash_attention']} (expected "
-        f"{cfg.num_layers} layers x {forwards} forwards = {want['flash_attention']}) "
-        f"peak_mem={peak:.2f} GB")
+        f"{cfg.num_layers} layers x {forwards} forwards = {want['flash_attention']}), "
+        f"{fa_cuda} CUDA launches (one each: the short tile) peak_mem={peak:.2f} GB")
     _only(launches, want, "run_analytic")
+    if fa_cuda != want["flash_attention"]:
+        fail(f"run_analytic: flash_attention made {fa_cuda} CUDA launches, expected "
+             f"{want['flash_attention']}")
+    launches["flash_attention_cuda"] = fa_cuda
     if not (math.isfinite(acc) and 0.0 <= acc <= 1.0):
         fail(f"accuracy {acc} is not a fraction")
     x_te = slice_checks(cfg, params, tr, te, server, acc, train, fl, api)
@@ -750,6 +783,7 @@ def _card_stats(server, engine):
 def _zero(K):
     for f in K.ALL.values():
         f.launches = 0
+    K.FA.flash_attention.cuda_launches = 0
 
 
 def _read(K) -> dict:
@@ -1084,9 +1118,12 @@ def f64_kernel_phase(K, ref):
     torch.cuda.synchronize()
     check("panel_factor", (b,), l, l_ref)
     tri, eye = b * (b + 1) // 2, torch.eye(b, device="cuda", dtype=f64)
+    pair_ms = time_auto(lambda: torch.linalg.solve_triangular(
+        torch.linalg.cholesky(a), eye, upper=False))
     add("panel_factor", (b,), z, z_ref, lambda: P.panel_factor(a),
         lambda: ref.panel_factor_ref(a), None, 2 * b ** 3 / 3, 8 * (tri + 2 * b * b),
-        f"; {2 * b} sequential steps")
+        f"; torch.linalg.cholesky + solve_triangular {pair_ms:.4f} ms; {2 * b} sequential steps")
+    rows["panel_factor"][-1]["pair_ms"] = pair_ms
     zi = P.panel_tri_inv(l)
     check("panel_tri_inv against the blocked twin", (b,), zi, ref.invert_blocked_ref(l))
     add("panel_tri_inv", (b,), zi, ref.panel_tri_inv_ref(l),
@@ -1587,7 +1624,8 @@ def f64_engine_phase(K, S, engine, api, server, x_te, y_te, fl):
 ATTN_TOL = {torch.float32: (2e-5, 4e-4), torch.bfloat16: (2e-2, 0.4)}
 # (name, (B, Hq, Hkv, Sq, Skv, D), kw, dtype): the serve path's prefill and
 # decode step first (gemma3_12b, window 1024 on local layers), then slice
-# 1's trainer forward (minicpm_2b), then the reference tests' ragged cases
+# 1's trainer forward (minicpm_2b), then the reference tests' ragged cases,
+# then the split-KV decode's edges at the serve step's widths
 ATTN_SHAPES = [
     ("serve prefill, local", (4, 16, 8, 2048, 2048, 256), dict(window=1024), torch.float32),
     ("serve prefill, global", (4, 16, 8, 2048, 2048, 256), dict(), torch.float32),
@@ -1600,7 +1638,30 @@ ATTN_SHAPES = [
     ("non-causal 64 x 200", (1, 4, 4, 64, 200, 64), dict(causal=False), torch.float32),
     ("bf16 GQA", (2, 8, 2, 128, 128, 64), dict(), torch.bfloat16),
     ("bf16 MQA, ragged", (1, 4, 1, 96, 96, 80), dict(), torch.bfloat16),
+    ("decode, one-key cache", (4, 16, 8, 1, 1, 256), dict(q_offset=0), torch.float32),
+    ("decode, Skv not a chunk multiple", (4, 16, 8, 1, 1001, 256), dict(q_offset=1000),
+     torch.float32),
+    ("decode, window inside one chunk", (4, 16, 8, 1, 2064, 256), dict(window=12, q_offset=2048),
+     torch.float32),
+    ("decode, cache past q_offset unwritten", (4, 16, 8, 1, 2064, 256), dict(q_offset=300),
+     torch.float32),
+    ("decode, rows past every key", (4, 16, 8, 1, 40, 256), dict(window=50, q_offset=100),
+     torch.float32),
+    ("decode, GQA group of 8", (4, 32, 4, 1, 2064, 128), dict(q_offset=2048), torch.float32),
+    ("decode, bf16", (4, 16, 8, 1, 2064, 256), dict(window=1024, q_offset=2048), torch.bfloat16),
 ]
+
+
+def attention_plan(FA, shape, kw) -> tuple[str, int, int]:
+    """(regime, chunks, CUDA launches) of one flash call at ``shape``."""
+    b, hq, hkv, sq, skv, d = shape
+    rows = hq // hkv * sq
+    if rows > FA.DECODE_MAX_ROWS:
+        return ("short tile" if rows <= 32 else "prefill tile"), 1, 1
+    splits = FA.decode_plan(b, hkv, sq, skv, causal=kw.get("causal", True),
+                            window=kw.get("window"), q_offset=kw.get("q_offset", 0),
+                            sms=torch.cuda.get_device_properties(0).multi_processor_count)[3]
+    return "split decode", splits, 2 if splits > 1 else 1
 
 
 def _mask_kw(kw) -> dict:
@@ -1652,21 +1713,30 @@ def attention_phase(FA, ref):
         gen.manual_seed(100 + i)
         q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
                    for s in [(b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)])
+        before = FA.flash_attention.cuda_launches
         _, err = check_attention(FA, ref, q, k, v, kw, f"{what} {shape}")
+        regime, splits, cuda_launches = attention_plan(FA, shape, kw)
+        if FA.flash_attention.cuda_launches - before != cuda_launches:
+            fail(f"flash_attention {what}: {FA.flash_attention.cuda_launches - before} CUDA "
+                 f"launches, expected {cuda_launches} ({regime}, {splits} chunks)")
         ms = time_auto(lambda: FA.flash_attention(q, k, v, **kw))
         plain_ms = time_auto(lambda: ref.mha_ref(q, k, v, **kw))
         library_ms = time_auto(_sdpa_library(ref, q, k, v, kw))
         bound_ms, bound_by, flops, nbytes = attention_bound(ref, shape, kw, dtype)
         dt = str(dtype).removeprefix("torch.")
         rtol, atol = ATTN_TOL[dtype]
+        earlier = EARLIER_MS.get(("flash_attention", what))
         rows.append(dict(case=what, shape=list(shape), kw=kw, dtype=dt, max_abs_err=err,
                          ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, flops=flops, bytes=nbytes))
-        log(f"flash_attention {what} (B, Hq, Hkv, Sq, Skv, D)={shape} {kw} {dt}: "
+                         bound_by=bound_by, flops=flops, bytes=nbytes, regime=regime,
+                         chunks=splits, cuda_launches_per_call=cuda_launches,
+                         earlier_ms=earlier))
+        log(f"flash_attention {what} (B, Hq, Hkv, Sq, Skv, D)={shape} {kw} {dt}: {regime}, "
+            f"{splits} chunk(s), {cuda_launches} CUDA launch(es) a call; "
             f"max|err|={err:.3e} (rtol {rtol} atol {atol}) kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) "
-            f"= {100 * bound_ms / ms:.2f}% of bound")
+            f"= {100 * bound_ms / ms:.2f}% of bound (before: {earlier or 'n/a'} ms)")
     return rows
 
 
@@ -1688,7 +1758,7 @@ PROFILE_DECODE_STEPS = 4
 
 
 def _kernel_category(name: str) -> str:
-    if "flash_kernel" in name:
+    if "flash_" in name:
         return "flash_attention"
     if any(t in name.lower() for t in ("gemm", "gemv", "cutlass")):
         return "matmul"
@@ -1781,6 +1851,9 @@ def serve_profile(ST, cfg, params, out, p, g) -> dict:
             f"{r['kernels'] / n:.0f} kernels; kernel time flash_attention "
             f"{r['by_ms']['flash_attention'] / n:.2f} ms, matmul {r['by_ms']['matmul'] / n:.2f} ms, "
             f"other {r['by_ms']['other'] / n:.2f} ms")
+    if dec is not None:
+        log(f"serve profile: flash_attention per decode step {dec['by_ms']['flash_attention'] / PROFILE_DECODE_STEPS:.3f} ms "
+            f"(before: {EARLIER_MS['decode_step_flash_ms']} ms)")
     log(f"serve profile: decode steps one by one to a synchronised end, before any "
         f"profiling (2 warm-up first): "
         f"{', '.join(f'{t:.2f}' for t in step_ms)} ms")
@@ -1814,13 +1887,25 @@ def serve_phase(K, get_config, T, L, serve_mod, ST, ref):
         on_step=lambda i, logits: steps.append(logits))
     torch.cuda.synchronize()
     launches = _read(K)
+    fa_cuda = FA.flash_attention.cuda_launches
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = cfg.num_layers * g                      # one prefill, g - 1 decode steps
-    log(f"serve: prefill_s={prefill_s:.3f} decode {1e3 * decode_s / (g - 1):.2f} ms/token "
+    # a decode call split over several chunks launches two kernels
+    want_cuda = cfg.num_layers + sum(
+        attention_plan(FA, (b, cfg.num_heads, cfg.num_kv_heads, 1, p + g, cfg.resolved_head_dim),
+                       dict(q_offset=pos, window=int(w) or None))[2]
+        for pos in range(p, p + g - 1) for w in window)
+    log(f"serve: prefill_s={prefill_s:.3f} (before: {EARLIER_MS['prefill_s']}) decode "
+        f"{1e3 * decode_s / (g - 1):.2f} ms/token (before: "
+        f"{EARLIER_MS['decode_ms_per_token']}) "
         f"({b * (g - 1) / decode_s:.1f} tok/s over {g - 1} steps of batch {b}) "
         f"peak_mem={peak:.2f} GB flash_attention launches={launches['flash_attention']} "
-        f"(expected {cfg.num_layers} prefill + {cfg.num_layers} x {g - 1} decode = {want})")
+        f"(expected {cfg.num_layers} prefill + {cfg.num_layers} x {g - 1} decode = {want}), "
+        f"{fa_cuda} CUDA launches (expected {want_cuda})")
     _only(launches, {"flash_attention": want}, "serve")
+    if fa_cuda != want_cuda:
+        fail(f"serve: flash_attention made {fa_cuda} CUDA launches, expected {want_cuda}")
+    launches["flash_attention_cuda"] = fa_cuda
     dec = torch.stack(steps, 1)                    # (B, g, V)
     if out.shape != (b, p + g) or not torch.isfinite(dec).all():
         fail(f"serve gave tokens {out.shape} and finite logits {bool(torch.isfinite(dec).all())}")
@@ -1973,6 +2058,7 @@ def main() -> None:
     launches = {name: sum(p[name] for p in paths) for name in K.ALL}
     if not all(launches.values()):
         fail(f"a kernel of the path was never launched: {launches}")
+    flash_cuda = sum(p.get("flash_attention_cuda", 0) for p in paths)
 
     sources = {"gram_update": ("gram.cu", "gram.py:86"),
                "panel_factor": ("panel.cu", "solve.py:469"),
@@ -1996,7 +2082,8 @@ def main() -> None:
             launches=launches[name], max_abs_err=max_err, max_err=max_err,
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"], shapes=rows[name]))
+            library_ms=main_row["library_ms"], shapes=rows[name],
+            **({"cuda_launches": flash_cuda} if name == "flash_attention" else {})))
     log(json.dumps({"streamed": streamed}))
     log(json.dumps({"streamed_products": products, "factor_profiles": profiles}))
     log(json.dumps({"f64_engine": f64_times}))

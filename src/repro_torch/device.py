@@ -8,6 +8,7 @@ card never silently measures the CPU.
 
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -27,3 +28,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
     return dev
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the kernels'
+    wrappers size their split grids by it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

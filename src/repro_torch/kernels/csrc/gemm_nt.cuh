@@ -5,7 +5,7 @@
 // writes the product, `SubtractFrom` writes T − product. T may be C
 // itself: each element of T is read by the thread that writes it, before
 // it writes it. panel.cu's panel_trsm and panel_update run on it, in f32
-// and f64; gram.cu and blocked.cu keep the tile loop of tile_gemm.cuh.
+// and f64; blocked.cu keeps the tile loop of tile_gemm.cuh.
 //
 // f64 (DmmaTile, dmma_tile): the FP64 tensor cores (DMMA) through
 // mma.sync.m16n8k16, the widest f64 shape sm_90's PTX has (m8n8k4,
@@ -41,6 +41,8 @@
 
 #include <cstddef>
 #include <cstdint>
+
+#include "cp_async.cuh"
 
 namespace afl_gemm {
 
@@ -131,29 +133,12 @@ __device__ __forceinline__ void write_out(const Problem<T>& p, Epi epi, int row,
   }
 }
 
-// ---- cp.async --------------------------------------------------------------
+// ---- cp.async (cp_async.cuh) -----------------------------------------------
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Copy 16 (8) bytes, of which the first `bytes` are read and the rest
-// zero-filled; `bytes` = 0 reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using afl::cp_async16;
+using afl::cp_async8;
+using afl::cp_async_commit;
+using afl::cp_async_wait;
 
 // Stage rows r0 .. r0 + ROWS − 1 and columns c0 .. c0 + COLS − 1 of x into
 // dst with row stride LD, zeros past `rows` and `cols`. Neighbouring

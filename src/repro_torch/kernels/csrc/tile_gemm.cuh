@@ -1,7 +1,7 @@
 // One 64×64 output tile of a matrix product in T (float or double),
-// computed by one block of 256 threads: the tile loop shared by gram.cu
-// (G = XᵀX, Q = XᵀY, f32) and blocked.cu (trsm and trailing update, f32
-// and f64). panel.cu's products run on gemm_nt.cuh instead.
+// computed by one block of 256 threads: the tile loop of blocked.cu's
+// trsm and trailing update (f32 and f64). panel.cu's products run on
+// gemm_nt.cuh instead, and gram.cu on its own upper-tile loop.
 //
 // The reduction runs kStep = 16 indices at a time. For each step the
 // caller's `load(a_tile, b_tile, k0)` stages, for reduction indices
@@ -14,9 +14,7 @@
 // layouts differ only in `load`, epilogues only in `store`. The two
 // staging buffers take 8.7 KB in f32 and 17.4 KB in f64.
 //
-// The sums of one output run over k in order, one FMA chain per element,
-// so an element whose two operands are swapped (G[i][j] and G[j][i]) comes
-// out bit for bit the same.
+// The sums of one output run over k in order, one FMA chain per element.
 
 #pragma once
 

@@ -19,6 +19,13 @@ contiguous), so the transposed head views of ``models.layers`` go in
 without a copy. The output is allocated position-major, ``(B, Sq, Hq, D)``,
 and returned as its ``(B, Hq, Sq, D)`` view, so that merging the heads
 afterwards is free.
+
+With ``group · Sq <= DECODE_MAX_ROWS`` (a decode step) the kernel splits the
+keys: :func:`decode_plan` cuts the band of visible keys into chunks, one
+block each, whose partials go to a workspace this wrapper allocates and a
+second kernel merges (``ref.mha_split_ref`` is the plain twin of that
+schedule). ``flash_attention.launches`` counts wrapper calls,
+``flash_attention.cuda_launches`` the kernels they launched.
 """
 
 from __future__ import annotations
@@ -30,13 +37,20 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build as _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 256       # the largest head-dim template (D in {64, 128, 256})
 
+# rows (group · Sq) up to which a call is a split-KV decode (the kernel's kDecodeMaxRows)
+DECODE_MAX_ROWS = 16
+SPLIT_BLOCKS_PER_SM = 2  # a decode grid fills each SM at least this many times over
+SPLIT_STEP = 4           # keys a decode warp takes at a time: chunks are multiples of it
+SPLIT_MIN_CHUNK = 16     # the 4 warps' first step: no chunk is shorter
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] * 6 + [ctypes.c_float] + [_I] * 5 + [_P]
+_ARGTYPES = [_P] * 5 + [_I] * 6 + [ctypes.c_float] + [_I] * 9 + [_P, _P]
 _INT_MAX = 2**31 - 1
 
 
@@ -60,6 +74,24 @@ def _vector_loads(ts, d: int) -> bool:
         t.data_ptr() % align == 0 and all(s % 4 == 0 for s in t.stride()[:3]) for t in ts)
 
 
+def decode_plan(b: int, hkv: int, sq: int, skv: int, *, causal: bool, window: Optional[int],
+                q_offset: int, sms: int) -> tuple[int, int, int, int]:
+    """(lo, hi, chunk, splits) of a split-KV decode: the keys ``[lo, hi)``
+    that some query row sees, from the first visible to the last, cut into
+    ``splits`` chunks of ``chunk`` keys (the last one shorter), so that the
+    ``splits · b · hkv`` blocks fill each of ``sms`` SMs at least
+    ``SPLIT_BLOCKS_PER_SM`` times where the band is long enough. An empty
+    band is one empty chunk: the kernel writes zeros."""
+    lo = 0 if window is None else max(0, q_offset - window + 1)
+    hi = min(skv, q_offset + sq) if causal else skv
+    if hi <= lo:
+        return 0, 0, SPLIT_MIN_CHUNK, 1
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // (b * hkv))
+    chunk = -(-(hi - lo) // want)
+    chunk = max(SPLIT_MIN_CHUNK, -(-chunk // SPLIT_STEP) * SPLIT_STEP)
+    return lo, hi, chunk, -(-(hi - lo) // chunk)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None, q_offset: int = 0) -> torch.Tensor:
@@ -72,7 +104,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     None); a row that sees no key is zeros. f32 or bf16 CUDA tensors of one
     type on one device, ``D <= 256`` with the last dim contiguous; the
     result has the inputs' type. Launches on the current stream;
-    ``flash_attention.launches`` counts the launches.
+    ``flash_attention.launches`` counts the calls that launched,
+    ``flash_attention.cuda_launches`` their kernels (two for a decode split
+    over several chunks, else one).
     """
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
         raise ValueError(
@@ -110,16 +144,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = lib.afl_flash_attention_f32 if q.dtype == torch.float32 else lib.afl_flash_attention_bf16
     # a window wider than every row's position masks nothing
     has_window = window is not None and int(window) <= int(q_offset) + sq
+    window = int(window) if has_window else None
+    split = (0, 0, 0, 1)
+    ws = None
+    if hq // hkv * sq <= DECODE_MAX_ROWS:
+        split = decode_plan(b, hkv, sq, skv, causal=bool(causal), window=window,
+                            q_offset=int(q_offset), sms=sm_count(q.device.index))
+        if split[3] > 1:
+            ws = torch.empty(split[3] * b * hq * sq * (d + 2), dtype=torch.float32,
+                             device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
                  b, hq, hkv, sq, skv, d, scale, int(bool(causal)), int(has_window),
-                 int(window) if has_window else 0, int(q_offset),
-                 int(_vector_loads((q, k, v), d)), stream)
+                 window or 0, int(q_offset), int(_vector_loads((q, k, v), d)),
+                 *split, None if ws is None else ws.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.cuda_launches += 2 if ws is not None else 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.cuda_launches = 0

@@ -15,12 +15,37 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gram as _gram
+
+MASKED = -1e30           # the kernels' masked logit
+
 
 def gram_ref(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``kernels.gram.gram_update``: (XᵀX, XᵀY) in f32."""
     xf = x.to(torch.float32)
     yf = y.to(torch.float32)
     return xf.T @ xf, xf.T @ yf
+
+
+def gram_upper_ref(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of ``csrc/gram.cu``'s schedule: G from its tiles on and
+    above the diagonal only (``gram.upper_tiles``), each written where col
+    >= row and mirrored where col > row, so G is exactly symmetric; Q =
+    XᵀY."""
+    xf = x.to(torch.float32)
+    d = xf.shape[1]
+    tile = _gram.TILE
+    g = torch.empty((d, d), dtype=torch.float32, device=x.device)
+    for i0, j0 in _gram.upper_tiles(d):
+        rows = slice(i0, i0 + tile[0])
+        cols = slice(j0, j0 + tile[1])
+        t = xf[:, rows].T @ xf[:, cols]
+        r = torch.arange(i0, min(i0 + tile[0], d), device=x.device)[:, None]
+        c = torch.arange(j0, min(j0 + tile[1], d), device=x.device)[None, :]
+        g[rows, cols] = torch.where(c >= r, t, g[rows, cols])
+        g[cols, rows] = torch.where((c > r).T, t.T, g[cols, rows])
+    return g, xf.T @ y.to(torch.float32)
 
 
 def attention_mask(sq: int, skv: int, *, causal: bool = True, window: Optional[int] = None,
@@ -59,6 +84,42 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool =
     probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
     probs = torch.nan_to_num(probs, nan=0.0)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.to(torch.float32))
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def mha_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                  window: Optional[int] = None, scale: Optional[float] = None,
+                  q_offset: int = 0, sms: int = 132) -> torch.Tensor:
+    """Plain twin of ``csrc/flash_attention.cu``'s split-KV decode (its
+    regime for group · Sq <= ``flash_attention.DECODE_MAX_ROWS``): the band
+    of visible keys cut by the wrapper's ``decode_plan`` (for ``sms`` SMs),
+    each chunk's partial (m, l, unnormalised acc) over its keys, masked
+    logits ``MASKED`` and their probabilities exactly 0, so a chunk that
+    sees no key adds nothing; then the partials rescaled by their max and
+    merged in chunk order, a row that sees no key giving zeros."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    lo, hi, chunk, splits = _fa.decode_plan(b, hkv, sq, skv, causal=causal, window=window,
+                                            q_offset=q_offset, sms=sms)
+    qf = (q.to(torch.float32) * scale).reshape(b, hkv, group, sq, d)
+    mask = attention_mask(sq, skv, causal=causal, window=window, q_offset=q_offset,
+                          device=q.device)
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        k0, k1 = lo + s * chunk, min(lo + (s + 1) * chunk, hi)
+        logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k[:, :, k0:k1].to(torch.float32))
+        logits = logits.masked_fill(~mask[:, k0:k1], MASKED)
+        m = torch.cat([logits, torch.full_like(qf[..., :1], MASKED)], -1).amax(-1, keepdim=True)
+        p = torch.where(logits > MASKED, torch.exp(logits - m), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        accs.append(torch.einsum("bhgqk,bhkd->bhgqd", p, v[:, :, k0:k1].to(torch.float32)))
+    top = torch.stack(ms).amax(0)
+    l = sum(torch.exp(m - top) * x for m, x in zip(ms, ls))
+    acc = sum(torch.exp(m - top) * x for m, x in zip(ms, accs))
+    out = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 

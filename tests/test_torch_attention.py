@@ -6,7 +6,9 @@
 block_k=64``, as tests/test_kernels_attention.py runs it), over every case
 of that file, with its tolerances: rtol 2e-5 / atol 4e-4 in f32, 2e-2 /
 0.4 in bf16 (both packages round the f32 result to bf16, so an output may
-land one bf16 step apart). Inputs are made with numpy from a seed.
+land one bf16 step apart). ``kernels.ref.mha_split_ref``, the plain twin of
+the CUDA kernel's split-KV decode, is held to the same at decode shapes.
+Inputs are made with numpy from a seed.
 """
 
 import jax.numpy as jnp
@@ -133,3 +135,70 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention(q, k, v)
     assert FA.flash_attention.launches == before
+
+
+# the split-KV decode's twin (group · Sq <= 16): (b, hq, hkv, sq, skv, d), kw,
+# dtype, sms (the SM count decode_plan cuts the band for)
+SPLIT_CASES = [
+    ((1, 2, 1, 1, 2064, 64), dict(window=1000, q_offset=2048), "float32", 132),  # 32 chunks, the last short
+    ((2, 8, 2, 1, 256, 64), dict(q_offset=255), "float32", 132),       # 8 chunks
+    ((1, 2, 2, 1, 90, 64), dict(causal=False), "float32", 132),        # no causal mask: the whole cache
+    ((1, 4, 4, 1, 1, 64), dict(q_offset=0), "float32", 132),           # a one-key cache
+    ((1, 4, 2, 4, 300, 64), dict(window=10, q_offset=296), "float32", 132),  # window inside one chunk
+    ((2, 4, 4, 1, 40, 64), dict(window=50, q_offset=100), "float32", 132),   # rows past every key
+    ((1, 2, 1, 8, 200, 64), dict(window=70, q_offset=192), "float32", 16),   # rows at 8 positions
+    ((1, 8, 1, 1, 100, 80), dict(q_offset=99), "float32", 132),        # a GQA group of 8, ragged D
+    ((1, 4, 1, 4, 130, 64), dict(q_offset=126), "float32", 132),       # 16 rows, the regime's edge
+    ((1, 4, 2, 1, 300, 64), dict(window=128, q_offset=299), "bfloat16", 132),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: _ids(c[:3]))
+def test_split_kv_twin_matches_reference_and_pallas(case):
+    """``ref.mha_split_ref`` (the CUDA decode's chunks, partials and merge,
+    cut by the wrapper's own ``decode_plan``) against ``mha_ref`` of both
+    packages and the Pallas kernel in interpret mode."""
+    shape, kw, dtype, sms = case
+    b, hq, hkv, sq, skv, d = shape
+    assert hq // hkv * sq <= FA.DECODE_MAX_ROWS
+    (jq, jk, jv), (q, k, v) = _inputs(sum(shape) + 1, *shape, dtype)
+    want_ref = jref.mha_ref(jq, jk, jv, **kw)
+    want_pallas = pallas_flash(jq, jk, jv, interpret=True, block_q=64, block_k=64, **kw)
+    got = ref.mha_split_ref(q, k, v, sms=sms, **kw)
+    assert got.shape == (b, hq, sq, d) and got.dtype == getattr(torch, dtype)
+    rtol, atol = TOL[dtype]
+    for want in (want_ref, want_pallas, ref.mha_ref(q, k, v, **kw)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: _ids(c[:3]))
+def test_decode_plan_cuts_the_visible_band(case):
+    """The chunks cover exactly the keys some row sees, in multiples of the
+    warp step, and fill each SM at least SPLIT_BLOCKS_PER_SM times where
+    the band is long enough."""
+    (b, hq, hkv, sq, skv, d), kw, _, sms = case
+    causal = kw.get("causal", True)
+    window, q_offset = kw.get("window"), kw.get("q_offset", 0)
+    lo, hi, chunk, splits = FA.decode_plan(b, hkv, sq, skv, causal=causal, window=window,
+                                           q_offset=q_offset, sms=sms)
+    seen = ref.attention_mask(sq, skv, causal=causal, window=window,
+                              q_offset=q_offset).any(0).nonzero()
+    if len(seen) == 0:
+        assert splits == 1 and hi <= lo
+        return
+    assert (lo, hi) == (int(seen[0]), int(seen[-1]) + 1)
+    assert chunk % FA.SPLIT_STEP == 0 and chunk >= FA.SPLIT_MIN_CHUNK
+    assert (splits - 1) * chunk < hi - lo <= splits * chunk
+    if hi - lo >= FA.SPLIT_BLOCKS_PER_SM * sms * FA.SPLIT_MIN_CHUNK:
+        assert splits * b * hkv >= FA.SPLIT_BLOCKS_PER_SM * sms
+
+
+@pytest.mark.parametrize("kw", [dict(window=1024, q_offset=2048), dict(q_offset=2048)],
+                         ids=["local", "global"])
+def test_decode_plan_fills_an_h100_at_the_serve_step(kw):
+    """gemma3_12b's decode step (B 4, Hkv 8, a 2064-slot cache) on 132 SMs:
+    at least two blocks an SM."""
+    lo, hi, chunk, splits = FA.decode_plan(4, 8, 1, 2064, causal=True, q_offset=2048,
+                                           window=kw.get("window"), sms=132)
+    assert splits * 4 * 8 >= 2 * 132
+    assert hi == 2049 and lo == (1025 if "window" in kw else 0)

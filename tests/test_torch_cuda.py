@@ -963,3 +963,101 @@ def test_reduced_serve_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(tg, tc)
     top = float(lc.abs().max())
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4 * top)
+
+
+# --- gram_update's tiles and flash_attention's regimes ------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,c,dtype", [
+    (1, 2304, 16, torch.float32),      # N = 1
+    (64, 2304, 16, torch.float32),     # the main path's per-batch shape
+    (300, 130, 70, torch.float32),     # d not a tile multiple, C above a tile
+    (7, 33, 5, torch.float32),         # d below a tile and odd: value-by-value copies
+    (100, 200, 37, torch.bfloat16),
+    (8000, 128, 40, torch.float32),    # 5 tiles: N split 50 ways, then reduced
+    (2048, 384, 128, torch.bfloat16),  # 33 tiles, 8 splits
+])
+def test_gram_kernel_upper_tiles_are_symmetric_and_match_plain(cuda, n, d, c, dtype):
+    """The upper-tile kernel: G exactly symmetric (the mirror is a copy), G
+    and Q within the Gram tolerances of the plain version and of the
+    schedule's twin, the same bits on a repeated call."""
+    x, y = _data(5, n, d, c, dtype, cuda)
+    before = G.gram_update.launches
+    g, q = G.gram_update(x, y)
+    g2, q2 = G.gram_update(x, y)
+    torch.cuda.synchronize()
+    assert G.gram_update.launches == before + 2
+    assert torch.equal(g, g.T)
+    assert torch.equal(g, g2) and torch.equal(q, q2)
+    rtol, atol = TOL[dtype]
+    for g_ref, q_ref in (ref.gram_ref(x, y), ref.gram_upper_ref(x, y)):
+        torch.testing.assert_close(g, g_ref, rtol=rtol, atol=atol)
+        torch.testing.assert_close(q, q_ref, rtol=rtol, atol=atol)
+
+
+def _cuda_launches(q, k, **kw):
+    """The kernels a flash call launches: two for a decode split into
+    several chunks, else one."""
+    b, hq, sq, _ = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hq // hkv * sq > FA.DECODE_MAX_ROWS:
+        return 1
+    splits = FA.decode_plan(b, hkv, sq, skv, causal=kw.get("causal", True),
+                            window=kw.get("window"), q_offset=kw.get("q_offset", 0),
+                            sms=torch.cuda.get_device_properties(q.device).multi_processor_count)[3]
+    return 2 if splits > 1 else 1
+
+
+# each side of each regime's edge: (b, hq, hkv, sq, skv, d), kw
+REGIME_CASES = [
+    ((2, 8, 1, 2, 300, 128), dict(q_offset=298)),             # 16 rows: split decode
+    ((2, 17, 1, 1, 300, 128), dict(q_offset=299)),            # 17 rows: the short tile
+    ((2, 4, 1, 8, 100, 64), dict(q_offset=92)),               # 32 rows: the short tile
+    ((2, 11, 1, 3, 100, 64), dict(q_offset=97)),              # 33 rows: the prefill tile
+    ((1, 4, 4, 1, 20, 64), dict(q_offset=19)),                # Skv below one chunk: one split
+    ((1, 4, 4, 1, 3000, 256), dict(q_offset=2999)),           # many splits, D = 256
+    ((2, 8, 1, 1, 1, 64), dict(q_offset=0)),                  # a one-key cache
+    ((1, 8, 1, 1, 500, 80), dict(window=12, q_offset=499)),   # a group of 8, window in one chunk
+    ((2, 4, 4, 1, 40, 64), dict(window=50, q_offset=100)),    # rows past every key: zeros
+    ((1, 2, 2, 1, 333, 64), dict(causal=False)),              # the whole cache, 333 keys
+    ((64, 36, 36, 32, 32, 64), dict()),                       # the trainer's forward
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kw", REGIME_CASES)
+def test_flash_attention_regimes_match_plain(cuda, shape, kw, dtype):
+    q, k, v = _attn_inputs(12, *shape, dtype, cuda)
+    want = _cuda_launches(q, k, **kw)
+    before = FA.flash_attention.cuda_launches
+    _attn_check(q, k, v, **kw)
+    assert FA.flash_attention.cuda_launches == before + want
+    out = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, FA.flash_attention(q, k, v, **kw))     # the same bits again
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_reads_the_kv_cache_in_place(cuda, dtype):
+    """The decode step's operands (models/transformer.py): q a transposed
+    (B, 1, Hq, hd) view, k and v one layer of the stacked (L, B, Hkv,
+    max_seq, hd) cache, slots past the position not yet written. The kernel
+    reads them in place and gives what their contiguous copies give."""
+    rng = np.random.default_rng(13)
+    layers, b, hq, hkv, max_seq, hd, pos = 3, 4, 16, 8, 600, 256, 517
+    cache = {n: torch.zeros((layers, b, hkv, max_seq, hd), device=cuda, dtype=dtype)
+             for n in ("k", "v")}
+    for n in cache:
+        cache[n][:, :, :, :pos + 1] = torch.from_numpy(
+            rng.standard_normal((layers, b, hkv, pos + 1, hd)).astype(np.float32)).to(cuda, dtype)
+    q = torch.from_numpy(rng.standard_normal((b, 1, hq, hd)).astype(np.float32)).to(
+        cuda, dtype).transpose(1, 2)
+    for kw in (dict(q_offset=pos), dict(q_offset=pos, window=128)):
+        k, v = cache["k"][1], cache["v"][1]
+        out = ops.flash_attention(q, k, v, **kw)
+        want = FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        _attn_check(q, k, v, **kw)
