@@ -20,6 +20,8 @@ without the repository around it. Phases, each fatal on failure:
      paths, ragged shapes and (the factors and the sweep) an input that is
      not positive definite; ``panel_tri_inv`` also against
      ``ref.invert_blocked_ref`` (the plain twin of its blocked inverse),
+     ``panel_factor`` against ``ref.panel_factor_blocked_ref`` (that of
+     its blocked factor and inverse),
      ``blocked_cholesky``, ``cholesky_solve`` and ``multi_gamma_solve``
      also against themselves on a repeated call (the same bits), the last
      two also against the plain twins of their schedules
@@ -253,7 +255,8 @@ def kernel_phase(G, ref):
             f"(rtol {rtol} atol {atol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"torch.mm {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
             f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) = "
-            f"{100 * bound_ms / ms:.1f}% of bound (before: {row['earlier_ms'] or 'n/a'} ms)")
+            f"{100 * bound_ms / ms:.1f}% of bound, torch.mm / kernel {library_ms / ms:.2f} "
+            f"(before: {row['earlier_ms'] or 'n/a'} ms)")
     return rows
 
 
@@ -312,8 +315,9 @@ def _kernel_row(name, shape, err, rel, ms, plain_ms, library_ms, flops, nbytes, 
 # The times of the earlier designs of the kernels and paths that were
 # redesigned onto tri_blocked.cuh, the panel schedules and gemm_nt.cuh
 # (PERF.md §6 and §5: chip_smoke.py, NVIDIA H100 80GB HBM3 at 700.00 W),
-# logged beside this run's: panel_tri_inv, blocked_cholesky and the
-# streamed solves before their move onto tri_blocked.cuh; cholesky_solve,
+# logged beside this run's: panel_tri_inv, panel_factor, blocked_cholesky
+# and the streamed solves before their move onto tri_blocked.cuh (the
+# streamed factor's profiled span and its panel_factor part); cholesky_solve,
 # multi_gamma_solve, the sweeps and the narrow solves before the solve's
 # and the sweep's move onto grids over all SMs; panel_trsm and
 # panel_update on tile_gemm.cuh's loop; gram_update on that loop over both
@@ -328,6 +332,10 @@ EARLIER_MS = {("gram_update", (64, 2304, 16), "float32"): 0.0359,
            "train_s": 12.539, "prefill_s": 2.935, "decode_ms_per_token": 63.67,
            "decode_step_flash_ms": 7.36,
            ("panel_tri_inv", 256, "float32"): 0.3376, ("panel_tri_inv", 128, "float64"): 0.1209,
+           ("panel_factor", 256, "float32"): 0.6935, ("panel_factor", 128, "float64"): 0.2328,
+           ("streamed_factor", 2304, "float32"): (6.4195, 5.5564),
+           ("streamed_factor", 2304, "float64"): (8.5145, 3.9926),
+           ("streamed_factor", 6144, "float32"): (24.1273, 15.9952),
            ("panel_trsm", (2304, 256), "float32"): 0.0240,
            ("panel_trsm", (2304, 128), "float64"): 0.0215,
            ("panel_update", (2304, 2048, 256), "float32"): 0.0965,
@@ -350,6 +358,17 @@ def _merge_levels(b: int) -> int:
     return max(0, math.ceil(math.log2(-(-b // 32))))
 
 
+def _factor_design(b: int, dtype) -> str:
+    """panel_factor's design at width b, for a kernel row's note, with the
+    column loops' time before it where PERF.md has one."""
+    subs = -(-b // 32)
+    dt = str(dtype).removeprefix("torch.")
+    before = EARLIER_MS.get(("panel_factor", b, dt))
+    return (f"blocked factor with a look-ahead ({subs} sub-panels of 32, 3 barriers each) "
+            f"then invert_blocked ({_merge_levels(b)} merge levels), one launch"
+            + ("" if before is None else f"; the column loops before {before} ms"))
+
+
 def panel_phase(P, ref):
     """Each panel kernel against its plain version at the path's shapes."""
     gen = torch.Generator(device="cuda")
@@ -360,9 +379,10 @@ def panel_phase(P, ref):
         l, z = P.panel_factor(a)
         zi = P.panel_tri_inv(l)
         l_ref, z_ref = ref.panel_factor_ref(a)
+        l_twin, z_twin = ref.panel_factor_blocked_ref(a)
         zi_ref = ref.panel_tri_inv_ref(l)
         torch.cuda.synchronize()
-        rel = max(_rel(l, l_ref), _rel(z, z_ref))
+        rel = max(_rel(l, l_ref), _rel(z, z_ref), _rel(l, l_twin), _rel(z, z_twin))
         rel_i = max(_rel(zi, zi_ref), _rel(zi, ref.invert_blocked_ref(l)))
         if rel > PANEL_REL or rel_i > PANEL_REL:
             fail(f"panel kernels at b={b}: relative error {rel:.2e} / {rel_i:.2e} "
@@ -379,7 +399,7 @@ def panel_phase(P, ref):
             time_cuda(lambda: ref.panel_factor_ref(a), reps=3, trials=3, warmup=1),
             None, 2 * b ** 3 / 3, 4 * (tri + 2 * b * b),
             f"; torch.linalg.cholesky + solve_triangular {pair_ms:.4f} ms; "
-            f"{2 * b} sequential steps"))
+            f"{_factor_design(b, torch.float32)}"))
         rows["panel_factor"][-1]["pair_ms"] = pair_ms
         rows["panel_tri_inv"].append(_kernel_row(
             "panel_tri_inv", (b,), _abs(zi, zi_ref), rel_i,
@@ -488,10 +508,13 @@ def factor_profiles(S):
         a = (x.T @ x / (4 * d)).to(dtype)
         del x
         prof = kernel_breakdown(lambda: S.streamed_cholesky(a), FACTOR_PARTS)
-        what = f"streamed factor d={d} {str(dtype).removeprefix('torch.')}, one call profiled"
+        dt = str(dtype).removeprefix("torch.")
+        span, pf = EARLIER_MS[("streamed_factor", d, dt)]
+        what = (f"streamed factor d={d} {dt}, one call profiled (before: span {span} ms, "
+                f"panel_factor {pf} ms on the column loops)")
         _log_breakdown(what, prof, dict(zip(FACTOR_PARTS, ("panel_factor", "panel_trsm",
                                                           "panel_update"))))
-        out.append(dict(d=d, dtype=str(dtype).removeprefix("torch."), profile=prof))
+        out.append(dict(d=d, dtype=dt, profile=prof))
     return out
 
 
@@ -1115,14 +1138,17 @@ def f64_kernel_phase(K, ref):
     a = _spd_block(gen, b).double()
     l, z = P.panel_factor(a)
     l_ref, z_ref = ref.panel_factor_ref(a)
+    l_twin, z_twin = ref.panel_factor_blocked_ref(a)
     torch.cuda.synchronize()
     check("panel_factor", (b,), l, l_ref)
+    check("panel_factor against the blocked twin", (b,), l, l_twin)
+    check("panel_factor's inverse against the blocked twin", (b,), z, z_twin)
     tri, eye = b * (b + 1) // 2, torch.eye(b, device="cuda", dtype=f64)
     pair_ms = time_auto(lambda: torch.linalg.solve_triangular(
         torch.linalg.cholesky(a), eye, upper=False))
     add("panel_factor", (b,), z, z_ref, lambda: P.panel_factor(a),
         lambda: ref.panel_factor_ref(a), None, 2 * b ** 3 / 3, 8 * (tri + 2 * b * b),
-        f"; torch.linalg.cholesky + solve_triangular {pair_ms:.4f} ms; {2 * b} sequential steps")
+        f"; torch.linalg.cholesky + solve_triangular {pair_ms:.4f} ms; {_factor_design(b, f64)}")
     rows["panel_factor"][-1]["pair_ms"] = pair_ms
     zi = P.panel_tri_inv(l)
     check("panel_tri_inv against the blocked twin", (b,), zi, ref.invert_blocked_ref(l))

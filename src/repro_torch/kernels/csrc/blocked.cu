@@ -169,7 +169,7 @@ chol_diag_kernel(const T* src, size_t src_stride, const T* gammas, T* out, T* zs
     const T g = gammas[sys];
     for (int i = threadIdx.x; i < bw; i += kThreads) s[tri(i) + i] += g;
   }
-  afl_tri::factor_blocked<kThreads>(s, scratch, bp);   // starts with a barrier
+  afl_tri::factor_blocked<kThreads, kPanel>(s, scratch, bp);   // starts with a barrier
   afl_tri::store_lower<kThreads>(s, bw, out + sys * dd + at(o, o, d), d);
   if (keep_all || o + bw < d) {
     afl_tri::invert_blocked<kThreads>(s, scratch, bp);   // after a barrier: the store has read s

@@ -17,22 +17,23 @@
 // does. The upper triangles of L and Z are written as exact zeros.
 //
 // panel_factor. On the TPU the whole (b, b) tile sits in VMEM and a
-// fori_loop sweeps its columns. Here one block of 1024 threads does the
-// same, with the column loops of packed_tri.cuh. At b = 256 an f32 tile is
-// 256 KB: more than a block's 227 KB of shared memory, and the whole
-// register file of the SM. Only the lower triangle carries data (the upper
-// half of the input is never read, and the output's is zero), so the block
-// keeps that triangle, packed by rows, in 128.5 KB of dynamic shared
-// memory. The factor is right-looking: at column j one barrier publishes
-// the scaled column, then warps take the rows and lanes the columns of the
-// trailing triangle for the rank-1 update. The inverse then runs in place,
-// row by row, over the same packed triangle: row i of Z needs row i of L,
-// copied to a buffer first, and the rows of Z above it, which have already
-// overwritten theirs; four threads share each column's dot product and add
-// their parts with shuffles. Bound at b = 256: 2b³/3 = 11.2 MFLOP (0.17 us
+// fori_loop sweeps its columns. At b = 256 an f32 tile is 256 KB: more
+// than a block's 227 KB of shared memory. Only the lower triangle carries
+// data (the upper half of the input is never read, and the output's is
+// zero), so one block keeps that triangle, packed by rows, in 128.5 KB of
+// dynamic shared memory, and factors and inverts it there in one launch:
+// the blocked factor of tri_blocked.cuh (eight sub-panels of 32 at 256,
+// three barriers each), L stored, then invert_blocked in place (three
+// merge levels), Z stored. Bound at b = 256: 2b³/3 = 11.2 MFLOP (0.17 us
 // at 67 TFLOP/s f32) against 4·(b(b+1)/2 + 2b²) = 0.66 MB (0.20 us at
-// 3.35 TB/s), so bytes. Neither is what limits it: it is 2b = 512 steps
-// that must run one after the other, each behind a barrier, on one SM.
+// 3.35 TB/s), so bytes. Neither is what limits it: it is the chains of
+// 32 pivots of the eight diagonal sub-blocks (a sqrt and a division
+// each), the rows below each, and the merge products, on one SM. So the
+// factor runs with load_factor_ahead's look-ahead (warp 0's chains beside
+// the rank-32 updates, the first beside the load), on 512 threads, in
+// both types; tools/panel_factor_probe.cu times it, with a hot L2 and a
+// cold one, against 256 and 1024 threads and against load_rows and
+// factor_blocked without the look-ahead (PERF.md).
 //
 // panel_tri_inv. One block of 512 threads inverts the packed triangle with
 // invert_blocked (tri_blocked.cuh): the eight 32-wide diagonal sub-blocks
@@ -46,10 +47,9 @@
 // merge products, about 1.3 M FMAs with their operands read from shared
 // memory on one SM, are what remains.
 //
-// In f64 the packed triangle doubles: 257 KB at b = 256, more than a block
-// can hold, so the f64 instances take panels of at most 128 (65.5 KB, and
-// 33.5 KB more of scratch for the inverse) and eight threads share
-// each column of panel_factor's inverse; the streamed schedule runs f64
+// In f64 the packed triangle doubles: 257 KB at b = 256, more than a
+// block can hold, so the f64 instances take panels of at most 128 (64.5
+// KB, and 33.5 KB more of scratch); the streamed schedule runs f64
 // systems at b = 128 (kernels/solve.py, STREAM_BLOCK_F64).
 //
 // panel_trsm / panel_update. One kernel template computes C = A·Bᵀ, or
@@ -94,12 +94,9 @@
 #include <cstddef>
 
 #include "gemm_nt.cuh"
-#include "packed_tri.cuh"
 #include "tri_blocked.cuh"
 
 namespace {
-
-constexpr int kPanelThreads = 1024;
 
 // The widest panel one block holds as a packed triangle in T.
 template <class T>
@@ -107,21 +104,35 @@ constexpr int kMaxPanel = sizeof(T) == 4 ? 256 : 128;
 
 using afl_tri::tri;
 
+// Dynamic shared memory of a kernel on one (b, b) block: the packed
+// triangle padded to a multiple of 32, and the scratch of factor_blocked
+// and invert_blocked at the widest panel (193 KiB at b = 256 in f32).
 template <class T>
-__global__ void __launch_bounds__(kPanelThreads)
-factor_kernel(const T* __restrict__ a, int lda, int b,
-              T* __restrict__ l_out, T* __restrict__ z_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);   // tri(b) values: the packed lower triangle
-  T* buf = s + tri(b);                     // kMaxPanel values: a column or a row of L
-  afl_tri::load_lower<kPanelThreads>(a, lda, b, s);
-  __syncthreads();
-  afl_tri::factor_packed<kPanelThreads>(s, buf, b);
-  afl_tri::store_lower<kPanelThreads>(s, b, l_out, b);
-  __syncthreads();             // the inverse overwrites what was stored
-  afl_tri::invert_packed<kPanelThreads, kMaxPanel<T>>(s, buf, b);
-  afl_tri::store_lower<kPanelThreads>(s, b, z_out, b);
+int tri_bytes(int b) {
+  const int bp = afl_tri::padded(b);
+  return (bp * (bp + 1) / 2 + afl_tri::kScratchValues<kMaxPanel<T>>) * static_cast<int>(sizeof(T));
 }
+
+// panel_factor: load and factor with load_factor_ahead, store L, invert
+// in place, store Z. mark: afl_tri::NoMarks here, clock stamps in
+// tools/panel_factor_probe.cu, which also builds other block sizes.
+template <class T, int kThreads, class Marks>
+__global__ void __launch_bounds__(kThreads)
+factor_kernel(const T* __restrict__ a, int lda, int b, T* __restrict__ l_out,
+              T* __restrict__ z_out, Marks mark) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  mark(afl_tri::marks::kStart);
+  const int bp = afl_tri::padded(b);
+  T* s = reinterpret_cast<T*>(smem_raw);   // tri(bp) values: the packed lower triangle
+  T* scratch = s + tri(bp);                // the factor's work, then the inverse's
+  afl_tri::load_factor_ahead<kThreads, kMaxPanel<T>>(a, lda, b, s, scratch, mark);
+  afl_tri::store_lower<kThreads>(s, b, l_out, b);
+  afl_tri::invert_blocked<kThreads>(s, scratch, bp, mark);   // after a barrier: the store has read s
+  afl_tri::store_lower<kThreads>(s, b, z_out, b);
+  mark(afl_tri::marks::kDone);
+}
+
+constexpr int kFactorThreads = 512;
 
 constexpr int kInvThreads = 512;
 
@@ -146,19 +157,19 @@ int prepare(Kernel kernel, int bytes) {
 template <class T>
 int launch_factor(const void* a, int lda, int b, void* l, void* z, void* stream) {
   if (b < 1 || b > kMaxPanel<T>) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = (b * (b + 1) / 2 + kMaxPanel<T>) * static_cast<int>(sizeof(T));
-  if (int err = prepare(factor_kernel<T>, bytes)) return err;
-  factor_kernel<T><<<1, kPanelThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), lda, b, static_cast<T*>(l), static_cast<T*>(z));
+  auto kernel = factor_kernel<T, kFactorThreads, afl_tri::NoMarks>;
+  const int bytes = tri_bytes<T>(b);
+  if (int err = prepare(kernel, bytes)) return err;
+  kernel<<<1, kFactorThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a), lda, b, static_cast<T*>(l), static_cast<T*>(z),
+      afl_tri::NoMarks{});
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
 int launch_tri_inv(const void* l, int ldl, int b, void* z, void* stream) {
   if (b < 1 || b > kMaxPanel<T>) return static_cast<int>(cudaErrorInvalidValue);
-  const int bp = afl_tri::padded(b);
-  const int bytes =
-      (bp * (bp + 1) / 2 + afl_tri::kScratchValues<kMaxPanel<T>>) * static_cast<int>(sizeof(T));
+  const int bytes = tri_bytes<T>(b);
   if (int err = prepare(tri_inv_kernel<T>, bytes)) return err;
   tri_inv_kernel<T><<<1, kInvThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(l), ldl, b, static_cast<T*>(z));

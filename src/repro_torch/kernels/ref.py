@@ -237,6 +237,16 @@ def panel_factor_ref(diag: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return l, tri_inv_tile(l)
 
 
+def panel_factor_blocked_ref(diag: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA ``panel_factor`` (``csrc/panel.cu``) in plain PyTorch:
+    ``(L, L⁻¹)`` of one SPD block as the kernel computes them, the blocked
+    factor (:func:`factor_blocked_ref`) and then the blocked inverse of that
+    factor (:func:`invert_blocked_ref`), to prove its algebra on the CPU (no
+    path calls it; the CPU route takes :func:`panel_factor_ref`)."""
+    l = factor_blocked_ref(diag)
+    return l, invert_blocked_ref(l)
+
+
 def panel_tri_inv_ref(l: torch.Tensor) -> torch.Tensor:
     """Plain version of ``kernels.panel.panel_tri_inv``: ``L⁻¹``."""
     return tri_inv_tile(l)

@@ -625,6 +625,39 @@ def test_panel_tri_inv_matches_blocked_twin_and_plain(cuda, b, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,dtype", [(256, torch.float32), (200, torch.float32),
+                                     (33, torch.float32), (16, torch.float32),
+                                     (128, torch.float64), (100, torch.float64)])
+def test_panel_factor_matches_blocked_twin_and_plain(cuda, b, dtype):
+    """The redesigned panel_factor (factor_blocked with its look-ahead,
+    then invert_blocked, one launch) against the plain twin of that
+    schedule and the column loops, at REL in f32 and REL64 in f64; clean
+    lower triangles, the input's upper half never read, the same bits on a
+    second call, NaN on a rank-3 block."""
+    rel = REL if dtype == torch.float32 else REL64
+    x = np.random.default_rng(b).standard_normal((4 * b, b))
+    a = torch.from_numpy(x.T @ x / (4 * b)).to(cuda, dtype)
+    before = P.panel_factor.launches
+    l, z = ops.panel_factor(_inside(a + torch.triu(torch.full_like(a, 7.0), 1)))
+    torch.cuda.synchronize()
+    assert P.panel_factor.launches == before + 1
+    for t in (l, z):
+        assert t.dtype == dtype and torch.isfinite(t).all() and not torch.triu(t, 1).any()
+    l_twin, z_twin = ref.panel_factor_blocked_ref(a)
+    l_ref, z_ref = ref.panel_factor_ref(a)
+    assert _rel(l, l_twin) < rel and _rel(z, z_twin) < rel
+    assert _rel(l, l_ref) < rel and _rel(z, z_ref) < rel
+    l2, z2 = ops.panel_factor(a)                         # no garbage above: the same bits
+    assert torch.equal(l2, l) and torch.equal(z2, z)
+    assert P.panel_factor.launches == before + 2
+    r3 = torch.from_numpy(x[:3].T @ x[:3]).to(cuda, dtype)
+    l3, z3 = ops.panel_factor(r3)
+    torch.cuda.synchronize()
+    assert torch.isnan(l3).any() and torch.isnan(z3).any()
+    assert not torch.triu(l3, 1).any() and not torch.triu(z3, 1).any()
+
+
+@pytest.mark.cuda
 def test_blocked_cholesky_f64_at_path_width_matches_numpy(cuda):
     d = 1536
     x = np.random.default_rng(d).standard_normal((4 * d, d))

@@ -119,7 +119,7 @@ def test_twins_give_nan_on_a_block_that_is_not_positive_definite(b, dtype):
     assert not torch.triu(l, 1).any() and not torch.triu(z, 1).any()
 
 
-@pytest.mark.parametrize("b", [32, 33, 64, 130])
+@pytest.mark.parametrize("b", [32, 33, 64, 130, 200, 256])
 def test_twins_match_pallas_panel_kernels(b):
     """f32, against the reference's panel_factor and panel_tri_inv run in
     interpret mode on the same block."""
@@ -132,6 +132,37 @@ def test_twins_match_pallas_panel_kernels(b):
     assert _rel(z, np.asarray(z_ref)) < REL[torch.float32]
     z_tri = RS.panel_tri_inv(jnp.asarray(lf), interpret=True)
     assert _rel(z, np.asarray(z_tri)) < REL[torch.float32]
+
+
+@pytest.mark.parametrize("b,dtype", [(256, torch.float32), (128, torch.float64)])
+def test_panel_factor_twin_matches_column_loops_and_numpy(b, dtype):
+    """The CUDA panel_factor's schedule (the blocked factor, then the
+    blocked inverse of it) at the streamed path's widths: the f32 panel of
+    256 and the f64 panel of 128."""
+    a = _spd(b, seed=3)
+    at = torch.from_numpy(a).to(dtype)
+    l, z = ref.panel_factor_blocked_ref(at)
+    assert l.dtype == z.dtype == dtype and l.shape == z.shape == (b, b)
+    for t in (l, z):
+        assert torch.isfinite(t).all() and not torch.triu(t, 1).any()
+    l_ref, z_ref = ref.panel_factor_ref(at)
+    assert _rel(l, l_ref) < REL[dtype] and _rel(z, z_ref) < REL[dtype]
+    lo = np.linalg.cholesky(a)
+    assert _rel(l, lo) < REL[dtype] and _rel(z, np.linalg.inv(lo)) < REL[dtype]
+    assert torch.equal(ref.panel_factor_blocked_ref(_garbage_above(at))[1], z)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_panel_factor_twin_gives_nan_on_a_block_that_is_not_positive_definite(dtype):
+    """A rank-3 block: NaN in L and in Z, as the column loops give it; the
+    upper triangles stay exact zeros."""
+    b = 256 if dtype == torch.float32 else 128
+    x = np.random.default_rng(b + 1).standard_normal((3, b))
+    a = torch.from_numpy(x.T @ x).to(dtype)
+    l, z = ref.panel_factor_blocked_ref(a)
+    assert torch.isnan(l).any() and torch.isnan(z).any()
+    assert torch.isnan(ref.panel_factor_ref(a)[0]).any()
+    assert not torch.triu(l, 1).any() and not torch.triu(z, 1).any()
 
 
 @pytest.mark.parametrize("d,launches", [(1, 1), (128, 1), (129, 4), (130, 4), (257, 7),

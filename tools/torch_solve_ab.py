@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -58,8 +59,9 @@ def _median_ms(fn, reps: int) -> float:
 
 def _profile(fn) -> dict:
     """One call of ``fn`` under torch.profiler: host milliseconds to a
-    synchronised end, the card's kernels, and the milliseconds in the union
-    of their intervals."""
+    synchronised end, the card's kernels, the milliseconds in the union of
+    their intervals, and each kernel's milliseconds and launches by its
+    function's name (``by_kernel``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -70,14 +72,27 @@ def _profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, reach = 0.0, float("-inf")
     for start, end in spans:
         if end > reach:
             busy += (end - max(start, reach)) / 1e3
             reach = end
-    return {"wall_ms": wall_ms, "kernels": len(spans), "busy_ms": busy}
+    by_kernel: dict[str, list] = {}
+    for e in events:
+        entry = by_kernel.setdefault(_kernel_name(e.name), [0.0, 0])
+        entry[0] += (e.time_range.end - e.time_range.start) / 1e3
+        entry[1] += 1
+    return {"wall_ms": wall_ms, "kernels": len(spans), "busy_ms": busy, "by_kernel": by_kernel}
+
+
+def _kernel_name(name: str) -> str:
+    """A kernel's function name without its namespaces, template arguments
+    and parameters: ``(anonymous namespace)::factor_kernel<double, 512,
+    afl_tri::NoMarks>(...)`` is ``factor_kernel``."""
+    head = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", head, maxsplit=1)[0].rsplit("::", 1)[-1].strip() or name
 
 
 def main() -> None:
