@@ -83,7 +83,24 @@ without the repository around it. Phases, each fatal on failure:
      straggler's rank update, each route's launches counted, each answer
      within 10·κ·u64 of the numpy_f64 engine, each timed beside
      torch.linalg in f64;
- 11. serve, after the minicpm weights are freed: ``launch.serve.serve`` of
+ 11. paper round: the paper's single round (``fl.afl.run_afl``) on the
+     card's pooled embeddings of the slice's data (the flash kernel's
+     launches counted over exactly that call, 40 a forward): Table 1's
+     partitions at K = 100 (iid, NIID-1 α = 0.1, NIID-2 s = 2) and Figure
+     2's K = 1000 (NIID-1 α = 0.1), each with the joint solve's test
+     accuracy and a weight within 10·κ·u64 of ``joint_ridge`` (accuracy
+     only if the host Gram is singular), its host seconds split into local
+     stages, submits and solve; ``run_afl(backbone_fn=…)`` with the
+     backbone on the card, the same accuracy; then the same round on the
+     card at K = 16: each client an ``AnalyticState`` on the card, its rows
+     folded 64 at a time by ``launch.steps.make_analytic_train_step``
+     (``use_kernel=True``: one ``gram_update`` launch a batch, 40 flash
+     launches, nothing else), the 16 states merged in both orders, the
+     merged Gram within 1e-5 (relative Frobenius) of the host's f64 XᵀX,
+     and ``core.streaming.solve`` at ρ ∈ {1e-2, 1} within 10·κ·u32 of the
+     host server's weight with its test accuracy; its own JSON line
+     ``{"paper_round": ...}``;
+ 12. serve, after the minicpm weights are freed: ``launch.serve.serve`` of
      gemma3_12b at full width (all 48 layers, random f32 weights from a
      seed), a prefill of 4 × 2048 tokens and 15 greedy decode steps
      against a 2064-slot KV cache, with the flash kernel's launches
@@ -683,7 +700,8 @@ def slice_phase(K, get_config, D, T, train, FLConfig, api):
     if not (math.isfinite(acc) and 0.0 <= acc <= 1.0):
         fail(f"accuracy {acc} is not a fraction")
     x_te = slice_checks(cfg, params, tr, te, server, acc, train, fl, api)
-    return launches, server, x_te, te.y[:len(x_te)]
+    return (launches, server, x_te, te.y[:len(x_te)],
+            SimpleNamespace(cfg=cfg, params=params, tr=tr, te=te))
 
 
 # γ = ρ·tr(G)/d: the same aggregate solved ridgeless and at three ridges
@@ -1644,6 +1662,260 @@ def f64_engine_phase(K, S, engine, api, server, x_te, y_te, fl):
     return total, times
 
 
+# --- the paper's single round: fl/afl.run_afl and core/streaming ----------------
+
+# Table 1's partitions at K = 100 and Figure 2's largest K (about 3 rows a
+# client, far below d): (K, scheme, options)
+PAPER_SETTINGS = [
+    (100, "iid", {}),
+    (100, "niid1", dict(alpha=0.1)),
+    (100, "niid2", dict(shards_per_client=2)),
+    (1000, "niid1", dict(alpha=0.1)),
+]
+PAPER_BACKBONE = (100, "niid1", dict(alpha=0.1))    # run_afl's own embedding branch
+PAPER_KU = 10.0          # AFL weight vs the joint solve: within 10·κ·u64
+DEVICE_ROUND_K = 16      # the device round: NIID-1 α = 0.1 over 16 clients
+# merged device Gram vs host f64 XᵀX, relative Frobenius: f32 accumulation
+# over 3072 rows is about √N·u32 ≈ 3e-6
+DEVICE_GRAM_REL = 1e-5
+
+
+class _TimedCoordinator:
+    """An ``AFLServer`` whose submits and solves are timed on the host clock
+    (``run_afl`` takes any object with ``dim``, ``gamma``, ``submit`` and
+    ``solve``)."""
+
+    def __init__(self, server):
+        self.server, self.submit_s, self.solve_s = server, 0.0, 0.0
+        self.dim, self.gamma = server.dim, server.gamma
+
+    def submit(self, report):
+        t0 = time.perf_counter()
+        out = self.server.submit(report)
+        self.submit_s += time.perf_counter() - t0
+        return out
+
+    def solve(self, target_gamma=0.0):
+        t0 = time.perf_counter()
+        out = self.server.solve(target_gamma=target_gamma)
+        self.solve_s += time.perf_counter() - t0
+        return out
+
+
+def _fro(a, b) -> float:
+    """‖a − b‖_F / ‖b‖_F."""
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _add_launches(total: dict, K) -> None:
+    for name, n in _read(K).items():
+        total[name] = total.get(name, 0) + n
+    total["flash_attention_cuda"] = (total.get("flash_attention_cuda", 0)
+                                     + K.FA.flash_attention.cuda_launches)
+
+
+def paper_round_phase(K, sl, train, afl, partition, streaming, ST, api, D, FLConfig):
+    """The paper's single round on the card's embeddings of the slice's data
+    (full-width minicpm_2b): Table 1's partitions and Figure 2's K = 1000
+    through ``run_afl`` against the joint solve, ``run_afl`` with the
+    backbone itself, and the same round on the card through
+    ``make_analytic_train_step`` and ``core.streaming`` (K = 16)."""
+    cfg, params, tr, te = sl.cfg, sl.params, sl.tr, sl.te
+    d, c, batch = cfg.d_model, cfg.num_classes, SLICE["batch"]
+    total = {}
+
+    def backbone(tokens):
+        """The port's pooled forward on the card, ``batch`` rows a forward
+        (the slice's grouping, whatever ``run_afl`` hands it)."""
+        return torch.cat([train.embed(params, cfg, tokens[i:i + batch])
+                          for i in range(0, len(tokens), batch)])
+
+    # 1. embeddings of the train and test sets, counted over exactly that call
+    forwards = -(-len(tr) // batch) + -(-len(te) // batch)
+    _zero(K)
+    t0 = time.perf_counter()
+    x_tr = afl.embed_with_backbone(backbone, tr.x)
+    x_te = afl.embed_with_backbone(backbone, te.x)
+    embed_s = time.perf_counter() - t0
+    got = _read(K)
+    _only(got, {"flash_attention": cfg.num_layers * forwards}, "the paper round's embeddings")
+    _add_launches(total, K)
+    log(f"paper round: embedded {len(tr)} train + {len(te)} test rows on the card in "
+        f"{embed_s:.3f} s, {forwards} forwards, flash_attention launches "
+        f"{got['flash_attention']} (expected {cfg.num_layers} x {forwards})")
+    if x_tr.shape != (len(tr), d) or not np.isfinite(x_tr).all() \
+            or not np.isfinite(x_te).all():
+        fail(f"paper round: embeddings {x_tr.shape} not finite or not ({len(tr)}, {d})")
+    ds_tr, ds_te = D.Dataset(x_tr, tr.y, c), D.Dataset(x_te, te.y, c)
+    x64 = x_tr.astype(np.float64)
+    y64 = np.eye(c)[tr.y]
+    gram, moment = x64.T @ x64, x64.T @ y64
+    evals = np.linalg.eigvalsh(gram)
+    kappa = float(evals[-1] / evals[0]) if evals[0] > 0 else math.inf
+    case = ("the host Gram is positive definite: each weight held within "
+            f"{PAPER_KU:g}·κ·u64 and on accuracy" if math.isfinite(kappa) else
+            "the host Gram is singular (κ = ∞): accuracy held only")
+    t0 = time.perf_counter()
+    w_joint, acc_joint = afl.joint_ridge(ds_tr, ds_te, gamma=0.0)
+    joint_s = time.perf_counter() - t0
+    log(f"paper round: host Gram d={d} eigenvalues [{evals[0]:.4e}, {evals[-1]:.4e}], "
+        f"κ={kappa:.4e}; {case}; joint ridge (γ=0) acc={acc_joint:.4f} in {joint_s:.3f} s")
+
+    # 2. Table 1's partitions and Figure 2's K = 1000 on those embeddings
+    settings, servers = [], {}
+    for k, scheme, kw in PAPER_SETTINGS:
+        fl = FLConfig(num_clients=k, gamma=1.0, partition=scheme, **kw)
+        coord = _TimedCoordinator(api.AFLServer(d, c, gamma=fl.gamma))
+        t0 = time.perf_counter()
+        res = afl.run_afl(ds_tr, ds_te, fl, coordinator=coord)
+        wall = time.perf_counter() - t0
+        rel = float(np.abs(res.weight - w_joint).max() / np.abs(w_joint).max())
+        sizes = np.array(res.client_sizes)
+        row = dict(K=k, partition=scheme, **kw, accuracy=res.accuracy,
+                   rel_to_joint=rel, rel_to_joint_ku=(rel / (kappa * F64_U)
+                                                      if math.isfinite(kappa) else None),
+                   train_seconds=res.train_seconds, wall_s=wall,
+                   local_stages_s=res.train_seconds - coord.submit_s - coord.solve_s,
+                   submits_s=coord.submit_s, solve_s=coord.solve_s,
+                   rows_min=int(sizes.min()), rows_median=float(np.median(sizes)),
+                   rows_max=int(sizes.max()), empty_clients=int((sizes == 0).sum()))
+        settings.append(row)
+        servers[(k, scheme)] = coord.server
+        opts = "".join(f" {n}={v}" for n, v in kw.items())
+        log(f"paper round: run_afl K={k} {scheme}{opts}: acc={res.accuracy:.4f} "
+            f"(joint {acc_joint:.4f}); weight vs joint {rel:.3e} relative"
+            + (f" = {row['rel_to_joint_ku']:.4f}·κ·u64" if math.isfinite(kappa) else "")
+            + f"; train_seconds={res.train_seconds:.3f} (local stages and partition "
+            f"{row['local_stages_s']:.3f}, submits {coord.submit_s:.3f}, solve "
+            f"{coord.solve_s:.3f}); rows a client min {row['rows_min']} median "
+            f"{row['rows_median']:g} max {row['rows_max']}, {row['empty_clients']} empty")
+        if res.accuracy != acc_joint:
+            fail(f"run_afl K={k} {scheme}: accuracy {res.accuracy} != the joint "
+                 f"solve's {acc_joint}")
+        if math.isfinite(kappa) and not rel <= PAPER_KU * kappa * F64_U:
+            fail(f"run_afl K={k} {scheme}: weight {rel:.3e} from the joint solve, more "
+                 f"than {PAPER_KU:g}·κ·u64 = {PAPER_KU * kappa * F64_U:.3e}")
+
+    # 3. run_afl's own embedding branch, the backbone on the card
+    k, scheme, kw = PAPER_BACKBONE
+    _zero(K)
+    res = afl.run_afl(tr, te, FLConfig(num_clients=k, gamma=1.0, partition=scheme, **kw),
+                      backbone_fn=backbone)
+    got = _read(K)
+    _only(got, {"flash_attention": cfg.num_layers * forwards}, "run_afl(backbone_fn=…)")
+    _add_launches(total, K)
+    same = next(s for s in settings if (s["K"], s["partition"]) == (k, scheme))
+    w_same = servers[(k, scheme)].solve(target_gamma=0.0)
+    backbone_rel = float(np.abs(res.weight - w_same).max() / np.abs(w_same).max())
+    log(f"paper round: run_afl(backbone_fn=…) K={k} {scheme}: acc={res.accuracy:.4f} "
+        f"(step 2: {same['accuracy']:.4f}), weight vs step 2's {backbone_rel:.3e} relative, "
+        f"train_seconds={res.train_seconds:.3f} with the embedding, flash_attention "
+        f"launches {got['flash_attention']}")
+    if res.accuracy != same["accuracy"]:
+        fail(f"run_afl(backbone_fn=…) accuracy {res.accuracy} != {same['accuracy']} on "
+             "the same embeddings")
+
+    # 4. the device round: K = 16 clients, each an AnalyticState on the card
+    parts = partition.make_partition(tr.y, DEVICE_ROUND_K, "niid1", alpha=0.1, seed=0)
+    step = ST.make_analytic_train_step(cfg, use_kernel=True)
+    batches = sum(-(-len(p) // batch) for p in parts)
+    _zero(K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = []
+    for idx in parts:
+        s = streaming.init_state(d, c, device="cuda")
+        for i in range(0, len(idx), batch):
+            rows = idx[i:i + batch]
+            s = step(params, s, {"tokens": tr.x[rows], "labels": tr.y[rows]})
+        states.append(s)
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    got = _read(K)
+    _only(got, {"gram_update": batches, "flash_attention": cfg.num_layers * batches},
+          "the device round's fold")
+    _add_launches(total, K)
+    _zero(K)
+    t0 = time.perf_counter()
+    merged = states[0]
+    for s in states[1:]:
+        merged = streaming.merge_states(merged, s)
+    torch.cuda.synchronize()
+    merge_ms = 1e3 * (time.perf_counter() - t0)
+    reverse = states[-1]
+    for s in states[-2::-1]:
+        reverse = streaming.merge_states(reverse, s)
+    g_dev = merged.gram.double().cpu().numpy()
+    gram_rel = _fro(g_dev, gram)
+    gram_rel_rev = _fro(reverse.gram.double().cpu().numpy(), gram)
+    order_rel = _fro(reverse.gram.double().cpu().numpy(), g_dev)
+    moment_rel = _fro(merged.moment.double().cpu().numpy(), moment)
+    sizes = [len(p) for p in parts]
+    log(f"paper round: device round K={DEVICE_ROUND_K} niid1 α=0.1 (rows a client "
+        f"{sizes}): {batches} batches of at most {batch} folded in {fold_s:.3f} s, "
+        f"gram_update launches {got['gram_update']} (expected Σ⌈n_k/{batch}⌉ = "
+        f"{batches}), flash_attention {got['flash_attention']} (expected "
+        f"{cfg.num_layers} x {batches}); {DEVICE_ROUND_K} states merged in "
+        f"{merge_ms:.3f} ms; merged Gram vs host f64 XᵀX {gram_rel:.3e} relative "
+        f"Frobenius (reverse order {gram_rel_rev:.3e}, the two orders {order_rel:.3e}; "
+        f"limit {DEVICE_GRAM_REL:g}), moment {moment_rel:.3e}, count "
+        f"{float(merged.count):g}")
+    if float(merged.count) != len(tr):
+        fail(f"device round: merged count {float(merged.count)} != {len(tr)}")
+    if not max(gram_rel, gram_rel_rev) <= DEVICE_GRAM_REL:
+        fail(f"device round: merged Gram {max(gram_rel, gram_rel_rev):.3e} from host "
+             f"f64, more than {DEVICE_GRAM_REL:g}")
+
+    host = servers[(k, scheme)]          # K = 100 NIID-1: the host f64 aggregate
+    scale = float(np.trace(gram)) / d
+    solves = []
+    for rho in DEVICE_ACC_RHOS:
+        gamma = rho * scale
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w = streaming.solve(merged, gamma)
+        torch.cuda.synchronize()
+        solve_ms = 1e3 * (time.perf_counter() - t0)
+        w = w.double().cpu().numpy()
+        w_host = host.solve(target_gamma=gamma)
+        w_own = np.linalg.solve(g_dev + gamma * np.eye(d),
+                                merged.moment.double().cpu().numpy())
+        cond = float((evals[-1] + gamma) / (evals[0] + gamma))
+        ku = cond * F32_U
+        rel = float(np.abs(w - w_host).max() / np.abs(w_host).max())
+        rel_own = float(np.abs(w - w_own).max() / np.abs(w_own).max())
+        acc, acc_host = (api.evaluate_weight(w, x_te, te.y),
+                         api.evaluate_weight(w_host, x_te, te.y))
+        solves.append(dict(rho=rho, gamma=gamma, kappa=cond, rel_host=rel,
+                           rel_host_ku=rel / ku, rel_own_stats=rel_own,
+                           accuracy=acc, accuracy_host=acc_host, solve_ms=solve_ms))
+        log(f"paper round: streaming.solve ρ={rho:g} (γ={gamma:.4g}, κ={cond:.3e}) on the "
+            f"card in {solve_ms:.2f} ms: vs the host server's f64 weight {rel:.3e} = "
+            f"{rel / ku:.3f}·κ·u32 (limit {DEVICE_HOST_KU:g}·κ·u32), vs host f64 on the "
+            f"card's own merged statistics {rel_own:.3e}; accuracy card {acc:.4f} host "
+            f"{acc_host:.4f}")
+        if not rel <= DEVICE_HOST_KU * ku:
+            fail(f"streaming.solve at ρ={rho}: {rel:.3e} from the host's f64 weight, "
+                 f"more than {DEVICE_HOST_KU:g}·κ·u32")
+        if acc != acc_host:
+            fail(f"streaming.solve at ρ={rho}: accuracy {acc} on the card vs {acc_host} "
+                 "on the host")
+    _only(_read(K), {}, "the device round's merges and solves (torch.linalg)")
+    log(json.dumps({"paper_round": dict(
+        arch=cfg.name, d=d, classes=c, train_rows=len(tr), test_rows=len(te),
+        embed_s=embed_s, kappa=kappa if math.isfinite(kappa) else None,
+        gram_case="positive definite" if math.isfinite(kappa) else "singular",
+        joint_accuracy=acc_joint, joint_s=joint_s, settings=settings,
+        backbone_run=dict(K=k, partition=scheme, accuracy=res.accuracy,
+                          rel_to_step2=backbone_rel, train_seconds=res.train_seconds),
+        device_round=dict(K=DEVICE_ROUND_K, client_rows=sizes, batches=batches,
+                          fold_s=fold_s, merge_ms=merge_ms, gram_rel=gram_rel,
+                          gram_rel_reverse=gram_rel_rev, order_rel=order_rel,
+                          moment_rel=moment_rel, solves=solves),
+        launches=total)}))
+    return total
+
+
 # --- flash attention: kernel phase ----------------------------------------------
 
 # tests/test_kernels_attention.py's tolerances: (rtol, atol)
@@ -2033,7 +2305,8 @@ def main() -> None:
     from repro_torch.core import engine
     from repro_torch.configs.registry import get_config
     from repro_torch.data import synthetic as D
-    from repro_torch.fl import api
+    from repro_torch.core import streaming
+    from repro_torch.fl import afl, api, partition
     from repro_torch.kernels import blocked as B
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
@@ -2066,8 +2339,8 @@ def main() -> None:
     profiles = factor_profiles(S)
     streamed = streamed_phase(S, P)
     small_check(get_config, D, T, train, FLConfig)
-    slice_launches, server, x_te, y_te = slice_phase(K, get_config, D, T, train,
-                                                     FLConfig, api)
+    slice_launches, server, x_te, y_te, sl = slice_phase(K, get_config, D, T, train,
+                                                         FLConfig, api)
     paths = [slice_launches,
              device_solve_phase(K, S, engine, api, server, x_te, y_te),
              sweep_phase(K, ref, S, engine, api, server, x_te, y_te),
@@ -2076,7 +2349,9 @@ def main() -> None:
     f64_launches, f64_times = f64_engine_phase(K, S, engine, api, server, x_te, y_te,
                                                FLConfig(gamma=1.0))
     paths.append(f64_launches)
-    del server
+    paths.append(paper_round_phase(K, sl, train, afl, partition, streaming, ST, api, D,
+                                   FLConfig))
+    del server, sl
     gc.collect()
     torch.cuda.empty_cache()
     serve_launches, served = serve_phase(K, get_config, T, L, serve_mod, ST, ref)

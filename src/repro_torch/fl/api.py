@@ -17,8 +17,10 @@ The port of the synchronous half of ``repro.fl.api``:
 
 All aggregation math routes through
 :class:`repro_torch.core.engine.AnalyticEngine`; failure modes are the typed
-taxonomy of :mod:`repro_torch.fl.errors`. The async, sharded and remote
-coordinators are not ported yet (ROADMAP Queue 1).
+taxonomy of :mod:`repro_torch.fl.errors`. The paper's driver loop
+(:mod:`repro_torch.fl.afl`) runs its rounds through :class:`AFLClient` and
+:class:`AFLServer`. The ``Coordinator`` protocol and the async, sharded and
+remote coordinators are not ported yet (ROADMAP Queue 1, items 5–7).
 """
 
 from __future__ import annotations

@@ -37,6 +37,14 @@ def cuda():
     return torch.device("cuda")
 
 
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
 def _data(seed, n, d, c, dtype, device):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
@@ -975,15 +983,8 @@ def test_reduced_serve_on_card_matches_cpu(cuda):
     from repro_torch.models import transformer as T
 
     cfg = get_config("gemma3_12b").reduced()
-    def to(tree):
-        if isinstance(tree, dict):
-            return {k: to(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v) for v in tree]
-        return tree.to(cuda)
-
     p_cpu = T.init_params(cfg, seed=3, device="cpu")
-    p_gpu = to(p_cpu)
+    p_gpu = _tree_to(p_cpu, cuda)
     runs = {}
     for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
         seen = []
@@ -1094,3 +1095,101 @@ def test_flash_decode_reads_the_kv_cache_in_place(cuda, dtype):
         torch.cuda.synchronize()
         assert torch.equal(out, want)
         _attn_check(q, k, v, **kw)
+
+
+# --- the paper's round: core/streaming, the analytic train step, fl/afl --------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,c", [(37, 2304, 16), (1000, 200, 37), (5, 64, 3)])
+def test_update_state_kernel_on_card_matches_cpu(cuda, n, d, c):
+    """streaming.update_state(use_kernel=True) on a card state: one Gram
+    launch a batch, the state stays on the card, and it agrees with the same
+    folds on the CPU (the kernel's plain version) at the Gram tolerances."""
+    from repro_torch.core import streaming as ST
+
+    batches = [_data(s, m, d, c, torch.float32, "cpu") for s, m in ((0, n), (1, 64))]
+    states = {}
+    for dev in (cuda, torch.device("cpu")):
+        s = ST.init_state(d, c, device=dev)
+        before = G.gram_update.launches
+        for x, y in batches:
+            s = ST.update_state(s, x.to(dev), y.to(dev), use_kernel=True)
+        states[dev.type] = (s, G.gram_update.launches - before)
+    (sg, ng), (sc, nc) = states["cuda"], states["cpu"]
+    assert (ng, nc) == (2, 0)
+    assert all(a.is_cuda and a.dtype == torch.float32 for a in sg)
+    rtol, atol = TOL[torch.float32]
+    for a, b in zip(sg, sc):
+        torch.testing.assert_close(a.cpu(), b, rtol=rtol, atol=atol)
+    w = ST.solve(ST.merge_states(sg, sg), 1.0)
+    assert w.is_cuda and torch.isfinite(w).all()
+
+
+@pytest.mark.cuda
+def test_analytic_train_step_on_card_matches_cpu(cuda):
+    """launch.steps.make_analytic_train_step (reduced minicpm_2b, use_kernel)
+    over three batches, the last ragged: on the card one Gram launch a batch
+    and the flash kernel in every layer; the state agrees with the CPU's at
+    rtol 1e-4 / atol 1e-4 of the largest entry (f32 forwards in another
+    order)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import streaming as ST
+    from repro_torch.data import synthetic as D
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("minicpm_2b").reduced(num_classes=8)
+    ds = D.token_classification(n=180, seq=16, vocab=cfg.vocab_size, num_classes=8,
+                                seed=0)
+    p_cpu = T.init_params(cfg, seed=0, device="cpu")
+    step = STEPS.make_analytic_train_step(cfg, use_kernel=True)
+    runs = {}
+    for dev, params in ((cuda, _tree_to(p_cpu, cuda)), (torch.device("cpu"), p_cpu)):
+        s = ST.init_state(cfg.d_model, 8, device=dev)
+        g0, f0 = G.gram_update.launches, FA.flash_attention.launches
+        for i in range(0, len(ds), 64):
+            s = step(params, s, {"tokens": ds.x[i:i + 64], "labels": ds.y[i:i + 64]})
+        runs[dev.type] = (s, G.gram_update.launches - g0, FA.flash_attention.launches - f0)
+    (sg, gg, fg), (sc, gc, fc) = runs["cuda"], runs["cpu"]
+    assert (gg, fg, gc, fc) == (3, cfg.num_layers * 3, 0, 0)
+    assert float(sg.count) == float(sc.count) == 180.0
+    for a, b in zip(sg, sc):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_run_afl_through_a_backbone_on_card_matches_cpu(cuda):
+    """fl.afl.run_afl(backbone_fn=…) with reduced minicpm_2b on the card:
+    every forward's attention is the flash kernel, the embeddings agree with
+    the CPU's at rtol 1e-4 / atol 1e-4, the accuracy equals the card's own
+    joint_ridge (the paper's invariance) and the CPU run's within one test
+    sample."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic as D
+    from repro_torch.fl import afl
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("minicpm_2b").reduced(num_classes=8)
+    ds = D.token_classification(n=240, seq=16, vocab=cfg.vocab_size, num_classes=8,
+                                skew=4.0, seed=0)
+    train, test = D.train_test_split(ds, 0.25, seed=0)
+    p_cpu = T.init_params(cfg, seed=0, device="cpu")
+    fl = FLConfig(num_clients=12, partition="niid2", shards_per_client=2)
+    runs = {}
+    for dev, params in (("cuda", _tree_to(p_cpu, cuda)), ("cpu", p_cpu)):
+        def backbone(tokens, params=params):
+            return T.pool(T.forward(params, cfg, {"tokens": tokens}))
+        before = FA.flash_attention.launches
+        res = afl.run_afl(train, test, fl, backbone_fn=backbone)
+        launches = FA.flash_attention.launches - before
+        _, acc_joint = afl.joint_ridge(train, test, gamma=0.0, backbone_fn=backbone)
+        runs[dev] = (res, launches, acc_joint, afl.embed_with_backbone(backbone, test.x))
+    (rg, ng, jg, eg), (rc, nc, jc, ec) = runs["cuda"], runs["cpu"]
+    # one forward a batch of 256: the train set's one, the test set's one
+    assert (ng, nc) == (cfg.num_layers * 2, 0)
+    np.testing.assert_allclose(eg, ec, rtol=1e-4, atol=1e-4)
+    assert rg.accuracy == jg and rc.accuracy == jc
+    assert abs(rg.accuracy - rc.accuracy) * len(test) <= 1
