@@ -100,6 +100,25 @@ without the repository around it. Phases, each fatal on failure:
      and ``core.streaming.solve`` at ρ ∈ {1e-2, 1} within 10·κ·u32 of the
      host server's weight with its test accuracy; its own JSON line
      ``{"paper_round": ...}``;
+ 13. federation (after 11, before 12): ``python -m
+     repro_torch.launch.serve --federation --coordinator async`` at d = 2304
+     in a subprocess (no card, a free port, a ledger directory; its
+     ``federation up:`` line awaited within a time limit, stopped at the
+     phase's end whatever the outcome); full-width minicpm_2b's
+     ``launch.train.run_analytic(server_url=…)`` posts its report there
+     (48 Gram and 2560 flash launches counted over exactly that call), and
+     the served head must be, bit for bit, an in-process ``AFLServer``'s
+     solve of the report the ledger recorded and (when the client's report
+     repeats bit for bit, else within rtol 1e-4) the slice's weight, with the
+     slice's accuracy; the served ``state()`` through ``checkpoint.save`` /
+     ``load_server`` and a ``WarmStandby`` replaying the ledger solve to
+     the same bits; then ``fl.afl.run_afl(coordinator=url)`` at K = 100 over
+     HTTP (NIID-1 α = 0.1, a second served federation, sync) and over
+     ``mux://`` (iid, an in-process ``serve_mux``) on phase 11's
+     embeddings, each weight phase 11's in-process weight bit for bit, with
+     the seconds split into local stages, encoding, submits on the wire and
+     the solve, and the bytes and seconds a report; its own JSON line
+     ``{"federation": ...}``;
  12. serve, after the minicpm weights are freed: ``launch.serve.serve`` of
      gemma3_12b at full width (all 48 layers, random f32 weights from a
      seed), a prefill of 4 × 2048 tokens and 15 greedy decode steps
@@ -125,6 +144,7 @@ import gc
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -701,7 +721,8 @@ def slice_phase(K, get_config, D, T, train, FLConfig, api):
         fail(f"accuracy {acc} is not a fraction")
     x_te = slice_checks(cfg, params, tr, te, server, acc, train, fl, api)
     return (launches, server, x_te, te.y[:len(x_te)],
-            SimpleNamespace(cfg=cfg, params=params, tr=tr, te=te))
+            SimpleNamespace(cfg=cfg, params=params, tr=tr, te=te, acc=acc, server=server,
+                            weight=server.solve(target_gamma=0.0)))
 
 
 # γ = ρ·tr(G)/d: the same aggregate solved ridgeless and at three ridges
@@ -1762,7 +1783,7 @@ def paper_round_phase(K, sl, train, afl, partition, streaming, ST, api, D, FLCon
         f"κ={kappa:.4e}; {case}; joint ridge (γ=0) acc={acc_joint:.4f} in {joint_s:.3f} s")
 
     # 2. Table 1's partitions and Figure 2's K = 1000 on those embeddings
-    settings, servers = [], {}
+    settings, servers, weights, accuracies = [], {}, {}, {}
     for k, scheme, kw in PAPER_SETTINGS:
         fl = FLConfig(num_clients=k, gamma=1.0, partition=scheme, **kw)
         coord = _TimedCoordinator(api.AFLServer(d, c, gamma=fl.gamma))
@@ -1781,6 +1802,7 @@ def paper_round_phase(K, sl, train, afl, partition, streaming, ST, api, D, FLCon
                    rows_max=int(sizes.max()), empty_clients=int((sizes == 0).sum()))
         settings.append(row)
         servers[(k, scheme)] = coord.server
+        weights[(k, scheme)], accuracies[(k, scheme)] = res.weight, res.accuracy
         opts = "".join(f" {n}={v}" for n, v in kw.items())
         log(f"paper round: run_afl K={k} {scheme}{opts}: acc={res.accuracy:.4f} "
             f"(joint {acc_joint:.4f}); weight vs joint {rel:.3e} relative"
@@ -1913,6 +1935,294 @@ def paper_round_phase(K, sl, train, afl, partition, streaming, ST, api, D, FLCon
                           gram_rel_reverse=gram_rel_rev, order_rel=order_rel,
                           moment_rel=moment_rel, solves=solves),
         launches=total)}))
+    return total, SimpleNamespace(ds_tr=ds_tr, ds_te=ds_te, weights=weights,
+                                  accuracies=accuracies)
+
+
+# --- federation serving: the paper's upload, over the wire ---------------------
+
+FED_UP_S = 120.0        # the served federation's "federation up:" line, at most
+FED_STOP_S = 30.0       # SIGINT to exit, then killed
+# the report's tolerance when the client's report does not repeat bit for bit
+# (tests/test_torch_slice.py: the client report against the reference's)
+FED_REPORT_RTOL = 1e-4
+FED_WIRE = [(100, "niid1", dict(alpha=0.1), "http"), (100, "iid", {}, "mux")]
+
+
+class _ServedFederation:
+    """``python -m repro_torch.launch.serve --federation …`` in a subprocess:
+    no card (``CUDA_VISIBLE_DEVICES`` empty), a free port, its URL read from
+    the ``federation up:`` line within ``FED_UP_S``; SIGINT on exit, then
+    killed after ``FED_STOP_S``, whatever the outcome."""
+
+    def __init__(self, root: Path, args):
+        import queue
+        import re
+        import threading
+
+        env = dict(os.environ, PYTHONPATH=str(root / "src"), CUDA_VISIBLE_DEVICES="")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--federation",
+             "--port", "0", *args], cwd=root, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        lines: queue.Queue = queue.Queue()
+
+        def pump():
+            for line in self.proc.stdout:
+                lines.put(line)
+            lines.put(None)
+
+        threading.Thread(target=pump, daemon=True).start()
+        self.out, self.url = [], None
+        deadline = time.monotonic() + FED_UP_S
+        try:
+            while self.url is None:
+                try:
+                    line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+                except queue.Empty:
+                    fail(f"served federation not up within {FED_UP_S:g} s: {self.out}")
+                if line is None:
+                    fail(f"served federation exited ({self.proc.wait()}): {self.out}")
+                self.out.append(line.rstrip())
+                m = re.search(r"federation up: (\S+)", line)
+                self.url = m.group(1) if m else None
+        except BaseException:
+            self.close()
+            raise
+        self.up_s = time.perf_counter() - t0
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)          # shut down cleanly
+            try:
+                self.proc.wait(timeout=FED_STOP_S)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=FED_STOP_S)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _timed_remote(service):
+    """A ``RemoteCoordinator`` that times its submits (encoding apart from
+    the wire and the server), its solves and the bytes it sends."""
+
+    class TimedRemote(service.RemoteCoordinator):
+        made = []
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.encode_s = self.submit_s = self.solve_s = 0.0
+            self.sizes = []
+            TimedRemote.made.append(self)
+
+        def submit(self, report):
+            t0 = time.perf_counter()
+            payload = report.to_bytes()
+            t1 = time.perf_counter()
+            out = self.submit_bytes(payload)
+            self.encode_s += t1 - t0
+            self.submit_s += time.perf_counter() - t1
+            self.sizes.append(len(payload))
+            return out
+
+        def solve(self, target_gamma=0.0):
+            t0 = time.perf_counter()
+            out = super().solve(target_gamma)
+            self.solve_s += time.perf_counter() - t0
+            return out
+
+    return TimedRemote
+
+
+def _bits(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def federation_phase(K, sl, pr, train, afl, api, service, mux, replication,
+                     checkpoint, FLConfig):
+    """The paper's single upload over the wire. (a) the serve CLI hosts an
+    async federation at d = 2304 with a ledger; (b) full-width minicpm_2b's
+    ``run_analytic(server_url=…)`` folds on the card and posts its report
+    there, and the head must be the in-process heads' bits; (c) the paper
+    round at K = 100 over HTTP (NIID-1, a second served federation) and over
+    ``mux://`` (iid, an in-process ``serve_mux``), each weight the
+    in-process ``run_afl``'s bits; (d) the served state through a checkpoint
+    and through a warm standby replaying the ledger, the same bits."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    cfg, params, tr, te = sl.cfg, sl.params, sl.tr, sl.te
+    d, c, batch = cfg.d_model, cfg.num_classes, SLICE["batch"]
+    fl = FLConfig(gamma=1.0)
+    total, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="afl-federation-") as tmp:
+        tmp = Path(tmp)
+        ledger = tmp / "ledger"
+        # (a) + (b): the entry point, and a full-width client on the card
+        with _ServedFederation(root, ["--coordinator", "async", "--dim", str(d),
+                                      "--classes", str(c), "--gamma", str(fl.gamma),
+                                      "--ledger-dir", str(ledger)]) as fed:
+            log(f"federation: served async federation up in {fed.up_s:.2f} s at "
+                f"{fed.url} (d={d} C={c}, ledger {ledger})")
+            expected = len(tr) // batch
+            forwards = expected + len(te) // batch
+            _zero(K)
+            t0 = time.perf_counter()
+            acc, train_s = train.run_analytic(cfg, tr, te, fl, batch, use_kernel=True,
+                                              device="cuda", params=params,
+                                              server_url=fed.url)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _read(K)
+            fa_cuda = K.FA.flash_attention.cuda_launches
+            _only(got, {"gram_update": expected,
+                        "flash_attention": cfg.num_layers * forwards},
+                  "run_analytic(server_url=…)")
+            if fa_cuda != cfg.num_layers * forwards:
+                fail(f"run_analytic(server_url=…): {fa_cuda} flash CUDA launches, "
+                     f"expected {cfg.num_layers * forwards}")
+            _add_launches(total, K)
+            rc = service.RemoteCoordinator(fed.url)
+            try:
+                info = rc.describe()
+                w_remote = rc.solve()
+                t0 = time.perf_counter()
+                state = rc.state()
+                state_s = time.perf_counter() - t0
+            finally:
+                rc.close()
+            records = replication.LedgerTailer(ledger).poll()
+            if len(records) != 1 or info["num_clients"] != 1:
+                fail(f"federation: {len(records)} ledger records and "
+                     f"{info['num_clients']} clients after one run_analytic")
+            report = api.ClientReport.from_bytes(records[0][2])
+            oracle = api.AFLServer(d, c, gamma=fl.gamma)
+            oracle.submit(report)
+            w_oracle = oracle.solve()
+            stats, slice_stats = oracle._stats, sl.server._stats
+            report_same = (_bits(stats.gram, slice_stats.gram)
+                           and _bits(stats.moment, slice_stats.moment))
+            report_rel = max(_rel(torch.from_numpy(stats.gram),
+                                  torch.from_numpy(slice_stats.gram)),
+                             _rel(torch.from_numpy(stats.moment),
+                                  torch.from_numpy(slice_stats.moment)))
+            slice_rel = float(np.abs(w_remote - sl.weight).max()
+                              / np.abs(sl.weight).max())
+            log(f"federation: run_analytic(server_url=…) acc={acc:.4f} (slice "
+                f"{sl.acc:.4f}) train_s={train_s:.3f} wall_s={wall:.3f}; launches "
+                f"gram_update {got['gram_update']} (expected {expected}), "
+                f"flash_attention {got['flash_attention']} (expected {cfg.num_layers} "
+                f"x {forwards}), {fa_cuda} CUDA; report on the wire "
+                f"{len(records[0][2])} bytes (root {'none' if report.root is None else report.root.shape}); "
+                f"remote head vs in-process solve of the ledger's report: "
+                f"{'the same bits' if _bits(w_remote, w_oracle) else 'DIFFERENT'}; "
+                f"the report vs the slice's: "
+                + ("the same bits" if report_same else f"differs, {report_rel:.3e} relative")
+                + f"; remote head vs the slice's weight {slice_rel:.3e} relative")
+            if not _bits(w_remote, w_oracle):
+                fail("federation: the served head is not the in-process solve of the "
+                     "report its ledger recorded, bit for bit")
+            if report_same and not _bits(w_remote, sl.weight):
+                fail("federation: the same report, yet the served head is not the "
+                     "slice's weight bit for bit")
+            if not report_same and report_rel > FED_REPORT_RTOL:
+                fail(f"federation: the client's report is {report_rel:.3e} from the "
+                     f"slice's, more than {FED_REPORT_RTOL:g}")
+            if acc != sl.acc:
+                fail(f"federation: accuracy {acc} over the wire, {sl.acc} in the slice")
+            out["client"] = dict(
+                accuracy=acc, slice_accuracy=sl.acc, train_s=train_s, wall_s=wall,
+                server_up_s=fed.up_s, report_bytes=len(records[0][2]),
+                launches=dict(got, flash_attention_cuda=fa_cuda),
+                head_equals_ledger_solve=True, report_equals_slice=report_same,
+                report_rel_to_slice=report_rel, head_rel_to_slice=slice_rel)
+
+            # (d) the state carried across: a checkpoint, and a warm standby
+            t0 = time.perf_counter()
+            checkpoint.save(tmp / "ck", state)
+            restored = checkpoint.load_server(tmp / "ck")
+            w_ck = restored.solve()
+            ck_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            standby = replication.WarmStandby(
+                ledger, ctor_kw=dict(dim=d, num_classes=c, gamma=fl.gamma))
+            w_sb = standby.promote().solve()
+            sb_s = time.perf_counter() - t0
+            log(f"federation: state() over the wire in {state_s:.3f} s, through "
+                f"checkpoint.save / load_server into a fresh AFLServer and solved in "
+                f"{ck_s:.3f} s: {'the same bits' if _bits(w_ck, w_remote) else 'DIFFERENT'}; "
+                f"a WarmStandby replaying the ledger ({standby.applied} records) and "
+                f"promoted in {sb_s:.3f} s: "
+                f"{'the same bits' if _bits(w_sb, w_remote) else 'DIFFERENT'}")
+            if not (_bits(w_ck, w_remote) and _bits(w_sb, w_remote)):
+                fail("federation: a checkpoint or a warm standby of the served state "
+                     "does not solve to the served head's bits")
+            out["state"] = dict(state_s=state_s, checkpoint_s=ck_s, standby_s=sb_s,
+                                standby_records=standby.applied,
+                                checkpoint_bits=True, standby_bits=True)
+
+        # (c) the paper round over the wire, at K = 100
+        rounds = []
+        for k, scheme, kw, wire in FED_WIRE:
+            fl_k = FLConfig(num_clients=k, gamma=fl.gamma, partition=scheme, **kw)
+            timed = _timed_remote(service)
+            real = service.RemoteCoordinator
+            if wire == "http":
+                served = _ServedFederation(root, ["--coordinator", "sync", "--dim", str(d),
+                                                  "--classes", str(c),
+                                                  "--gamma", str(fl.gamma)])
+            else:
+                served = mux.serve_mux(service.FederationService(
+                    api.AFLServer(d, c, gamma=fl.gamma)))
+            try:
+                url = served.url
+                service.RemoteCoordinator = timed       # run_afl's own URL branch
+                t0 = time.perf_counter()
+                res = afl.run_afl(pr.ds_tr, pr.ds_te, fl_k, coordinator=url)
+                wall = time.perf_counter() - t0
+            finally:
+                service.RemoteCoordinator = real
+                for remote in timed.made:
+                    remote.close()
+                served.close()
+            (remote,) = timed.made
+            w_local = pr.weights[(k, scheme)]
+            sizes = np.array(remote.sizes)
+            local_s = res.train_seconds - remote.encode_s - remote.submit_s - remote.solve_s
+            row = dict(K=k, partition=scheme, **kw, transport=url.split(":")[0],
+                       accuracy=res.accuracy, accuracy_in_process=pr.accuracies[(k, scheme)],
+                       weight_bits=_bits(res.weight, w_local),
+                       train_seconds=res.train_seconds, wall_s=wall,
+                       local_stages_s=local_s, encode_s=remote.encode_s,
+                       submits_s=remote.submit_s, solve_s=remote.solve_s,
+                       reports=int(len(sizes)), bytes_total=int(sizes.sum()),
+                       bytes_per_report=float(sizes.mean()),
+                       s_per_report=remote.submit_s / len(sizes),
+                       wire_gb_s=float(sizes.sum()) / remote.submit_s / 1e9)
+            rounds.append(row)
+            opts = "".join(f" {n}={v}" for n, v in kw.items())
+            log(f"federation: run_afl K={k} {scheme}{opts} over {row['transport']}:// "
+                f"acc={res.accuracy:.4f} (in process {row['accuracy_in_process']:.4f}); "
+                f"weight vs the in-process run_afl's: "
+                f"{'the same bits' if row['weight_bits'] else 'DIFFERENT'}; "
+                f"train_seconds={res.train_seconds:.3f} (local stages and partition "
+                f"{local_s:.3f}, encoding {remote.encode_s:.3f}, submits on the wire "
+                f"{remote.submit_s:.3f}, solve {remote.solve_s:.3f}); {len(sizes)} reports, "
+                f"{row['bytes_total'] / 1e9:.3f} GB, {row['bytes_per_report'] / 1e6:.3f} MB "
+                f"and {1e3 * row['s_per_report']:.1f} ms a report on the wire "
+                f"({row['wire_gb_s']:.3f} GB/s)")
+            if not row["weight_bits"] or res.accuracy != row["accuracy_in_process"]:
+                fail(f"federation: run_afl K={k} {scheme} over {row['transport']} is not "
+                     "the in-process run_afl's weight bit for bit, or its accuracy")
+    out["rounds"] = rounds
+    log(json.dumps({"federation": dict(arch=cfg.name, d=d, classes=c, **out,
+                                       launches=total)}))
     return total
 
 
@@ -2306,7 +2616,8 @@ def main() -> None:
     from repro_torch.configs.registry import get_config
     from repro_torch.data import synthetic as D
     from repro_torch.core import streaming
-    from repro_torch.fl import afl, api, partition
+    from repro_torch import checkpoint
+    from repro_torch.fl import afl, api, mux, partition, replication, service
     from repro_torch.kernels import blocked as B
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
@@ -2349,9 +2660,12 @@ def main() -> None:
     f64_launches, f64_times = f64_engine_phase(K, S, engine, api, server, x_te, y_te,
                                                FLConfig(gamma=1.0))
     paths.append(f64_launches)
-    paths.append(paper_round_phase(K, sl, train, afl, partition, streaming, ST, api, D,
-                                   FLConfig))
-    del server, sl
+    paper_launches, pr = paper_round_phase(K, sl, train, afl, partition, streaming, ST,
+                                           api, D, FLConfig)
+    paths.append(paper_launches)
+    paths.append(federation_phase(K, sl, pr, train, afl, api, service, mux, replication,
+                                  checkpoint, FLConfig))
+    del server, sl, pr
     gc.collect()
     torch.cuda.empty_cache()
     serve_launches, served = serve_phase(K, get_config, T, L, serve_mod, ST, ref)

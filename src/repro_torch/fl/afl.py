@@ -8,7 +8,8 @@ The port of ``repro.fl.afl``. Two feature paths:
     then run local_stage.
 
 The round itself is host f64, as in the reference: the clients are
-``AFLClient`` on ``numpy_f64`` and the coordinator is an ``AFLServer``. The
+``AFLClient`` on ``numpy_f64`` and the coordinator an ``AFLServer``, in
+this process or behind a federation service. The
 card enters through ``backbone_fn`` (and ``feature_map``, when it is given a
 tensor); whatever they return is brought to the host with
 :func:`~repro_torch.core.engine.to_numpy`.
@@ -28,8 +29,6 @@ from repro_torch.core.engine import to_numpy
 from repro_torch.data.synthetic import Dataset
 from repro_torch.fl.api import AFLClient, AFLServer, evaluate_weight
 from repro_torch.fl.partition import make_partition
-
-_NOT_PORTED = "{} is not ported to torch yet (see ROADMAP.md, Queue 1)"
 
 
 @dataclasses.dataclass
@@ -76,9 +75,9 @@ def run_afl(
 
     ``coordinator``: where the reports go — any synchronous coordinator
     (an object with ``dim``, ``gamma``, ``submit`` and ``solve``; defaults
-    to a fresh in-process :class:`~repro_torch.fl.api.AFLServer`). The
-    reference also takes an ``http://`` URL here; its remote coordinator is
-    not ported yet, so a string raises ``NotImplementedError``.
+    to a fresh in-process :class:`~repro_torch.fl.api.AFLServer`), or a
+    service URL (``http(s)://``, ``mux(s)://``), which becomes a
+    :class:`~repro_torch.fl.service.RemoteCoordinator`.
 
     The production path (``use_ri=True``, ``pairwise=False``) drives the
     canonical API: one :class:`~repro_torch.fl.api.AFLClient` local stage
@@ -86,9 +85,6 @@ def run_afl(
     paper-literal ``pairwise`` recursion and the no-RI ablation route
     through :mod:`repro_torch.core.analytic` (Table 3 / A.1).
     """
-    if isinstance(coordinator, str):
-        raise NotImplementedError(_NOT_PORTED.format(
-            f"a remote coordinator ({coordinator!r})"))
     t0 = time.perf_counter()
     x_tr, x_te = train.x, test.x
     if backbone_fn is not None:
@@ -103,6 +99,10 @@ def run_afl(
                            alpha=fl.alpha, shards_per_client=fl.shards_per_client,
                            seed=fl.seed)
     if fl.use_ri and not pairwise:
+        if isinstance(coordinator, str):
+            from repro_torch.fl.service import RemoteCoordinator
+
+            coordinator = RemoteCoordinator(coordinator)
         server = coordinator if coordinator is not None else AFLServer(
             x_tr.shape[1], train.num_classes, gamma=fl.gamma)
         if (server.dim, server.gamma) != (x_tr.shape[1], fl.gamma):

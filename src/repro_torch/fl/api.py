@@ -1,6 +1,6 @@
-"""The AFL client/coordinator API: the synchronous half.
+"""The AFL client/coordinator API.
 
-The port of the synchronous half of ``repro.fl.api``:
+The port of ``repro.fl.api``:
 
   * :class:`ClientReport` — the canonical, versioned wire format of a client
     upload: regularized sufficient statistics (C_k^r, Q_k), the sample count,
@@ -11,18 +11,24 @@ The port of the synchronous half of ``repro.fl.api``:
     frozen backbone / feature map, fold batches into engine ``SuffStats``
     (on a torch device, optionally through the CUDA Gram kernel), track a
     low-rank QR root, and emit one :class:`ClientReport`.
+  * :class:`Coordinator` — the protocol every server-side implementation
+    satisfies: ``submit / submit_many / solve / solve_multi_gamma /
+    sweep(gammas, holdout) / weights / state / num_clients / version``.
+    :class:`AFLServer` (synchronous, cached rank-updatable Cholesky) and
+    :class:`~repro_torch.fl.async_server.AsyncAFLServer` (event-loop
+    serving over the same seam) implement it, and so does the wire-true
+    :class:`~repro_torch.fl.service.RemoteCoordinator`.
+  * :class:`Transport` — the bytes-in / bytes-out seam of the service layer
+    (:mod:`repro_torch.fl.service`, :mod:`repro_torch.fl.mux`).
   * :class:`AFLServer` — the synchronous coordinator: host-f64 aggregation
     with a cached, rank-updatable Cholesky, γ sweeps, versioned weights and
     ``state`` / ``from_state`` checkpoints in the reference's schema.
 
 All aggregation math routes through
 :class:`repro_torch.core.engine.AnalyticEngine`; failure modes are the typed
-taxonomy of :mod:`repro_torch.fl.errors`. The paper's driver loop
-(:mod:`repro_torch.fl.afl`) runs its rounds through :class:`AFLClient` and
-:class:`AFLServer`. The ``Coordinator`` protocol and the async, sharded and
-remote coordinators are not ported yet (ROADMAP Queue 1, items 5–7).
+taxonomy of :mod:`repro_torch.fl.errors`. The sharded coordinator, which
+needs ``torch.distributed``, waits (ROADMAP Queue 1, item 6).
 """
-
 from __future__ import annotations
 
 import dataclasses
@@ -31,7 +37,8 @@ import math
 import struct
 import uuid
 import zlib
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, List, Optional, Protocol,
+                    Sequence, Tuple, runtime_checkable)
 
 import numpy as np
 
@@ -50,6 +57,8 @@ __all__ = [
     "evaluate_weight",
     "GammaSweep",
     "VersionedWeights",
+    "Coordinator",
+    "Transport",
     "AFLServer",
 ]
 
@@ -475,6 +484,60 @@ def _validate_state(state: Dict[str, np.ndarray],
             f"shape {tuple(moment.shape)} ({classes} classes)")
     return int(gram.shape[0]), classes
 
+
+@runtime_checkable
+class Coordinator(Protocol):
+    """What every AFL coordinator — sync, async, sharded — satisfies.
+
+    Methods may be coroutines (``AsyncAFLServer``); callers that must not
+    care use ``await``-when-awaitable dispatch (see the conformance suite).
+    ``submit`` returns the fold outcome: True when any cached factorization
+    survived the arrival (rank-updated in place, or nothing was cached),
+    False when the next solve will refactor. ``version`` is the submission
+    epoch — it changes on every successful submit — and ``weights`` returns
+    a :class:`VersionedWeights` snapshot honoring ``if_etag`` as an
+    ETag-style staleness token (opaque; binds epoch + γ + instance).
+    """
+
+    dim: int
+    num_classes: int
+    gamma: float
+
+    @property
+    def num_clients(self) -> int: ...
+
+    @property
+    def version(self) -> int: ...
+
+    def submit(self, report: ClientReport): ...
+
+    def submit_many(self, reports: Iterable[ClientReport]): ...
+
+    def solve(self, target_gamma: float = 0.0): ...
+
+    def solve_multi_gamma(self, gammas: Sequence[float]): ...
+
+    def sweep(self, gammas: Sequence[float], holdout): ...
+
+    def weights(self, target_gamma: float = 0.0, *,
+                if_etag: Optional[str] = None): ...
+
+    def state(self) -> Dict[str, np.ndarray]: ...
+
+
+@runtime_checkable
+class Transport(Protocol):
+    """What every service transport satisfies — opaque byte envelopes in,
+    opaque byte envelopes out, no knowledge of what they carry. Implemented
+    by :class:`~repro_torch.fl.service.InProcTransport`,
+    :class:`~repro_torch.fl.service.HttpTransport`, and
+    :class:`~repro_torch.fl.mux.MuxTransport`; anything satisfying it plugs into
+    :class:`~repro_torch.fl.service.RemoteCoordinator` unchanged."""
+
+    def request(self, route: str, body: bytes = b"",
+                federation: str = "default") -> bytes: ...
+
+    def close(self) -> None: ...
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,15 @@
 The port of ``repro.launch.train``'s analytic mode on one device: frozen
 backbone forward → Gram statistics folded batch by batch (on CUDA through
 the hand-written Gram kernel with ``--kernel``) → one ``ClientReport`` →
-an ``AFLServer`` solves in host f64 → linear head → accuracy.
+an ``AFLServer`` solves in host f64 (in this process, or behind a
+federation service at ``--server-url``) → linear head → accuracy.
 
 Usage (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \\
       --reduced --samples 256 --seq 16 --classes 8 --batch 64 --kernel
+Against a federation (``python -m repro_torch.launch.serve --federation``):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \\
+      --reduced --classes 8 --server-url http://127.0.0.1:8790
 """
 
 from __future__ import annotations
@@ -26,8 +30,6 @@ from repro_torch.data import synthetic as D
 from repro_torch.device import resolve_device
 from repro_torch.fl.api import AFLClient, AFLServer, ClientReport
 from repro_torch.models import transformer as T
-
-_NOT_PORTED = "{} is not ported to torch yet (see ROADMAP.md, Queue 1)"
 
 
 def _batches(ds: D.Dataset, batch: int):
@@ -57,28 +59,44 @@ def local_stage(params, cfg, train_ds, fl: FLConfig, batch: int, *,
 
 def run_analytic(cfg, train_ds, test_ds, fl: FLConfig, batch: int,
                  use_kernel: bool = False, *, device=None, params=None,
-                 coordinator=None):
+                 coordinator=None, server_url: str = ""):
     """AFL on one device: one epoch of forwards, one aggregation.
 
     ``params`` defaults to ``T.init_params(cfg, seed=0)`` on ``device``; a
     caller may pass its own (e.g. the reference's, carried over by
-    ``models.convert.params_from_jax``). ``coordinator`` defaults to a
-    fresh ``AFLServer``; a caller that passes its own can solve the same
+    ``models.convert.params_from_jax``). The report goes to a
+    :class:`~repro_torch.fl.service.RemoteCoordinator` when ``server_url``
+    points at a live federation service (``launch/serve.py
+    --federation``), else to ``coordinator``, which defaults to a fresh
+    ``AFLServer``; a caller that passes its own can solve the same
     aggregate again afterwards (e.g. at other γ). Returns (test accuracy,
     seconds from the first forward to the solved head).
     """
     dev = resolve_device(device)
     if params is None:
         params = T.init_params(cfg, seed=0, device=dev)
-    t0 = time.perf_counter()
-    report = local_stage(params, cfg, train_ds, fl, batch, device=dev,
-                         use_kernel=use_kernel)
-    coord = coordinator
-    if coord is None:
-        coord = AFLServer(cfg.d_model, cfg.num_classes, gamma=fl.gamma)
-    coord.submit(report)
-    w = coord.solve(target_gamma=0.0)
-    train_s = time.perf_counter() - t0
+    remote = None
+    if server_url:
+        from repro_torch.fl.service import RemoteCoordinator
+
+        remote = RemoteCoordinator(server_url)
+        if remote.dim != cfg.d_model:
+            remote.close()
+            raise ValueError(f"remote federation dim={remote.dim} != model "
+                             f"d_model={cfg.d_model}")
+    try:
+        t0 = time.perf_counter()
+        report = local_stage(params, cfg, train_ds, fl, batch, device=dev,
+                             use_kernel=use_kernel)
+        coord = remote if remote is not None else coordinator
+        if coord is None:
+            coord = AFLServer(cfg.d_model, cfg.num_classes, gamma=fl.gamma)
+        coord.submit(report)
+        w = coord.solve(target_gamma=0.0)
+        train_s = time.perf_counter() - t0
+    finally:
+        if remote is not None:
+            remote.close()
     correct = total = 0
     for toks, labels in _batches(test_ds, batch):
         pred = np.argmax(to_numpy(embed(params, cfg, toks), None) @ w, -1)
@@ -103,15 +121,16 @@ def main() -> None:
     ap.add_argument("--kernel", action="store_true",
                     help="fold Gram batches with the CUDA kernel")
     ap.add_argument("--server-url", default="",
-                    help="submit to a remote federation (not ported yet)")
+                    help="submit to a FederationService at this URL instead "
+                         "of aggregating in-process (see launch/serve.py "
+                         "--federation)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions on the CPU)")
     args = ap.parse_args()
     if args.mode != "analytic":
-        raise SystemExit(_NOT_PORTED.format(f"--mode {args.mode}"))
-    if args.server_url:
-        raise SystemExit(_NOT_PORTED.format("--server-url"))
+        raise SystemExit(f"--mode {args.mode} is not ported to torch yet "
+                         "(ROADMAP Queue 1 item 8)")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -125,9 +144,11 @@ def main() -> None:
     train_ds, test_ds = D.train_test_split(ds, 0.25, seed=0)
     fl = FLConfig(gamma=args.gamma)
     acc, dt = run_analytic(cfg, train_ds, test_ds, fl, args.batch,
-                           use_kernel=args.kernel, device=dev)
+                           use_kernel=args.kernel, device=dev,
+                           server_url=args.server_url)
+    where = f" via {args.server_url}" if args.server_url else ""
     print(f"AFL analytic: acc={acc:.4f} train_time={dt:.2f}s (one epoch, "
-          "single aggregation)")
+          f"single aggregation{where})")
 
 
 if __name__ == "__main__":

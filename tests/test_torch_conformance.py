@@ -1,0 +1,428 @@
+"""The ``Coordinator`` conformance suite on the port's coordinators.
+
+The cases of tests/test_coordinator_conformance.py (its
+``TestCoordinatorConformance``) run over the port's kinds: the synchronous
+``AFLServer``, the event-loop ``AsyncAFLServer``, and a
+``RemoteCoordinator`` over real loopback HTTP and over the mux transport
+(TLS and a bearer token) in front of a port ``AFLServer``, at the
+reference's ``TOL``. Where the reference's own cases fail in this
+environment (its sharded kind, the state round trips), nothing here is
+pinned to them: every weight is held to ``core.analytic.ridge_solve`` (the
+``numpy_f64`` oracle) or to an in-process port ``AFLServer``. Then
+``state()`` written by each port kind restores into the reference's
+``AFLServer`` and ``AsyncAFLServer`` and back, to the same bits, and the
+remote kinds solve bit for bit what the in-process server solves.
+"""
+
+import asyncio
+import contextlib
+import functools
+import inspect
+import tempfile
+
+import numpy as np
+import pytest
+
+from repro.fl import AFLServer as RefServer
+from repro.fl import AsyncAFLServer as RefAsync
+from repro.fl import ClientReport as RefReport
+from repro_torch.core import analytic as al
+from repro_torch.fl import (AFLServer, AsyncAFLServer, Coordinator,
+                            FederationService, GammaSweep, RemoteCoordinator,
+                            Transport, VersionedWeights,
+                            generate_self_signed_cert, make_report,
+                            masked_reports, serve_http, serve_mux,
+                            server_ssl_context)
+
+DIM, C, GAMMA = 24, 5, 1.0
+KINDS = ["sync", "async", "remote", "mux"]
+# tests/test_coordinator_conformance.py's TOL for these kinds
+TOL = {"sync": dict(rtol=1e-8, atol=1e-10),
+       "async": dict(rtol=1e-8, atol=1e-10),
+       "remote": dict(rtol=1e-8, atol=1e-10),
+       "mux": dict(rtol=1e-8, atol=1e-10)}
+
+_MUX_TOKEN = "conformance-suite-token"
+
+
+@functools.lru_cache(maxsize=1)
+def _tls_files():
+    directory = tempfile.mkdtemp(prefix="afl-torch-mux-tls-")
+    cert, key = generate_self_signed_cert(directory)
+    return str(cert), str(key)
+
+
+def _reports(n_clients=10, rows_each=8, seed=0):
+    rng = np.random.default_rng(seed)
+    n = n_clients * rows_each
+    x = rng.standard_normal((n, DIM))
+    y = np.eye(C)[rng.integers(0, C, n)]
+    reps = [make_report(k, x[k * rows_each:(k + 1) * rows_each],
+                        y[k * rows_each:(k + 1) * rows_each], GAMMA)
+            for k in range(n_clients)]
+    return x, y, reps
+
+
+async def _call(result):
+    return await result if inspect.isawaitable(result) else result
+
+
+@contextlib.asynccontextmanager
+async def _serve_remote(server):
+    with serve_http(FederationService(server)) as http:
+        coord = RemoteCoordinator(http.url)
+        try:
+            yield coord
+        finally:
+            coord.close()
+
+
+@contextlib.asynccontextmanager
+async def _serve_mux(server):
+    cert, key = _tls_files()
+    service = FederationService(server, auth_token=_MUX_TOKEN)
+    with serve_mux(service, ssl_context=server_ssl_context(cert, key)) as srv:
+        coord = RemoteCoordinator(srv.url, auth_token=_MUX_TOKEN, cafile=cert)
+        try:
+            yield coord
+        finally:
+            coord.close()
+
+
+@contextlib.asynccontextmanager
+async def _make(kind, **kw):
+    if kind == "sync":
+        yield AFLServer(DIM, C, gamma=GAMMA, **kw)
+    elif kind == "remote":
+        async with _serve_remote(AFLServer(DIM, C, gamma=GAMMA, **kw)) as rc:
+            yield rc
+    elif kind == "mux":
+        async with _serve_mux(AFLServer(DIM, C, gamma=GAMMA, **kw)) as rc:
+            yield rc
+    else:
+        async with AsyncAFLServer(DIM, C, gamma=GAMMA, **kw) as srv:
+            yield srv
+
+
+@contextlib.asynccontextmanager
+async def _restore(kind, state):
+    if kind == "sync":
+        yield AFLServer.from_state(state)
+    elif kind == "remote":
+        async with _serve_remote(AFLServer.from_state(state)) as rc:
+            yield rc
+    elif kind == "mux":
+        async with _serve_mux(AFLServer.from_state(state)) as rc:
+            yield rc
+    else:
+        async with AsyncAFLServer.from_state(state) as srv:
+            yield srv
+
+
+@pytest.fixture(params=KINDS)
+def kind(request):
+    return request.param
+
+
+class TestCoordinatorConformance:
+    def test_satisfies_protocol(self, kind):
+        async def body():
+            async with _make(kind) as coord:
+                assert isinstance(coord, Coordinator)
+                assert (coord.dim, coord.num_classes, coord.gamma) == (DIM, C, GAMMA)
+                assert coord.num_clients == 0
+
+        asyncio.run(body())
+
+    def test_submit_outcome_and_solve_matches_joint(self, kind):
+        x, y, reps = _reports()
+
+        async def body():
+            async with _make(kind) as coord:
+                outcomes = [await _call(coord.submit(r)) for r in reps]
+                assert all(isinstance(o, bool) for o in outcomes)
+                assert coord.num_clients == len(reps)
+                return await _call(coord.solve())
+
+        w = asyncio.run(body())
+        np.testing.assert_allclose(w, al.ridge_solve(x, y, 0.0), **TOL[kind])
+
+    def test_submit_many_and_partial_subsets(self, kind):
+        x, y, reps = _reports()
+
+        async def body():
+            async with _make(kind) as coord:
+                await _call(coord.submit_many(reps[:6]))
+                w_sub = await _call(coord.solve())
+                await _call(coord.submit_many(reps[6:]))
+                return w_sub, await _call(coord.solve())
+
+        w_sub, w_all = asyncio.run(body())
+        n6 = 6 * 8
+        np.testing.assert_allclose(w_sub, al.ridge_solve(x[:n6], y[:n6], 0.0),
+                                   **TOL[kind])
+        np.testing.assert_allclose(w_all, al.ridge_solve(x, y, 0.0), **TOL[kind])
+
+    def test_batched_ingest_is_bit_for_bit_with_sequential(self, kind):
+        _, _, reps = _reports(n_clients=12, rows_each=6, seed=11)
+        oracle = AFLServer(DIM, C, gamma=GAMMA)
+        for r in reps:
+            oracle.submit(r)
+        w_ref = np.asarray(oracle.solve())
+        sweep_ref = [np.asarray(w) for w in oracle.solve_multi_gamma([0.0, 0.5, GAMMA])]
+
+        async def body():
+            async with _make(kind) as coord:
+                if kind == "sync":
+                    flags = coord.submit_batch(reps)
+                    assert all(f is True for f in flags)
+                else:
+                    await _call(coord.submit_many(reps))
+                w = await _call(coord.solve())
+                ws = await _call(coord.solve_multi_gamma([0.0, 0.5, GAMMA]))
+                assert coord.num_clients == len(reps)
+                return np.asarray(w), [np.asarray(v) for v in ws]
+
+        w, ws = asyncio.run(body())
+        np.testing.assert_array_equal(w, w_ref)
+        for got, ref in zip(ws, sweep_ref):
+            np.testing.assert_array_equal(got, ref)
+
+    def test_duplicate_and_gamma_mismatch_raise(self, kind):
+        _, _, reps = _reports(n_clients=3)
+        conflict = make_report(reps[0].client_id, np.ones((4, DIM)),
+                               np.eye(C)[np.zeros(4, int)], GAMMA)
+
+        async def body():
+            async with _make(kind) as coord:
+                await _call(coord.submit(reps[0]))
+                with pytest.raises(ValueError):
+                    await _call(coord.submit(conflict))
+                bad = make_report(99, np.zeros((4, DIM)), np.zeros((4, C)), gamma=2.0)
+                with pytest.raises(ValueError):
+                    await _call(coord.submit(bad))
+                assert coord.num_clients == 1
+
+        asyncio.run(body())
+
+    def test_submit_many_stops_at_first_rejection(self, kind):
+        _, _, reps = _reports(n_clients=4)
+        conflict = make_report(reps[0].client_id, np.ones((4, DIM)),
+                               np.eye(C)[np.zeros(4, int)], GAMMA)
+
+        async def body():
+            async with _make(kind) as coord:
+                await _call(coord.submit(reps[0]))
+                with pytest.raises(ValueError):
+                    await _call(coord.submit_many([reps[1], conflict, reps[2], reps[3]]))
+                assert coord.num_clients == 2
+                await _call(coord.submit_many(reps[2:]))
+                assert coord.num_clients == 4
+
+        asyncio.run(body())
+
+    def test_empty_client_upload_is_exact_noop(self, kind):
+        _, _, reps = _reports()
+        empty = make_report(999, np.zeros((0, DIM)), np.zeros((0, C)), GAMMA)
+        assert empty.root is not None and empty.root.shape == (0, DIM)
+
+        async def body():
+            async with _make(kind) as coord:
+                await _call(coord.submit_many(reps))
+                w0 = await _call(coord.solve())
+                assert await _call(coord.submit(empty)) is True
+                return w0, await _call(coord.solve())
+
+        w0, w1 = asyncio.run(body())
+        np.testing.assert_allclose(w1, w0, rtol=1e-9, atol=1e-12)
+
+    def test_solve_before_any_arrival_raises(self, kind):
+        async def body():
+            async with _make(kind) as coord:
+                with pytest.raises(ValueError):
+                    await _call(coord.solve())
+                with pytest.raises(ValueError):
+                    await _call(coord.solve_multi_gamma([0.0, 1.0]))
+
+        asyncio.run(body())
+
+    def test_multi_gamma_consistent_with_single_solves(self, kind):
+        _, _, reps = _reports()
+        gammas = [0.0, 0.1, 1.0]
+
+        async def body():
+            async with _make(kind) as coord:
+                await _call(coord.submit_many(reps))
+                sweep = await _call(coord.solve_multi_gamma(gammas))
+                return sweep, [await _call(coord.solve(g)) for g in gammas]
+
+        sweep, singles = asyncio.run(body())
+        assert len(sweep) == len(gammas)
+        for w_sweep, w_single in zip(sweep, singles):
+            np.testing.assert_allclose(w_sweep, w_single, rtol=1e-6, atol=1e-8)
+
+    def test_sweep_scores_holdout_and_picks_best(self, kind):
+        x, y, reps = _reports()
+        labels = np.argmax(y, -1)
+        gammas = [0.0, 1.0, 10.0]
+
+        async def body():
+            async with _make(kind) as coord:
+                await _call(coord.submit_many(reps))
+                return await _call(coord.sweep(gammas, (x, labels)))
+
+        sweep = asyncio.run(body())
+        assert isinstance(sweep, GammaSweep)
+        assert sweep.gammas == tuple(gammas)
+        assert len(sweep.accuracies) == len(gammas) == len(sweep.weights)
+        assert sweep.best_gamma in gammas
+        assert sweep.best_accuracy == max(sweep.accuracies)
+        i = sweep.gammas.index(sweep.best_gamma)
+        np.testing.assert_array_equal(sweep.best_weight, sweep.weights[i])
+
+    def test_state_roundtrip_same_kind(self, kind):
+        x, y, reps = _reports()
+
+        async def body():
+            async with _make(kind) as coord:
+                await _call(coord.submit_many(reps[:7]))
+                state = await _call(coord.state())
+                w0 = await _call(coord.solve())
+                async with _restore(kind, state) as back:
+                    assert back.num_clients == 7
+                    w1 = await _call(back.solve())
+                    with pytest.raises(ValueError):
+                        await _call(back.submit(reps[0]))
+                    await _call(back.submit_many(reps[7:]))
+                    w_all = await _call(back.solve())
+                return w0, w1, w_all
+
+        w0, w1, w_all = asyncio.run(body())
+        np.testing.assert_allclose(w1, w0, rtol=1e-6, atol=1e-10)
+        np.testing.assert_allclose(w_all, al.ridge_solve(x, y, 0.0), **TOL[kind])
+
+    def test_state_interchangeable_across_kinds(self, kind):
+        _, _, reps = _reports()
+
+        async def body():
+            async with _make(kind) as coord:
+                await _call(coord.submit_many(reps))
+                return await _call(coord.state()), await _call(coord.solve())
+
+        state, w = asyncio.run(body())
+        srv = AFLServer.from_state(state)
+        assert srv.num_clients == len(reps)
+        np.testing.assert_allclose(srv.solve(), w, rtol=1e-5, atol=1e-10)
+
+    def test_masked_cohort_aggregates_exactly(self, kind):
+        x, y, reps = _reports(seed=3)
+        masked = masked_reports(reps, seed=7)
+
+        async def body():
+            async with _make(kind) as coord:
+                await _call(coord.submit_many(masked))
+                return await _call(coord.solve())
+
+        w = asyncio.run(body())
+        np.testing.assert_allclose(w, al.ridge_solve(x, y, 0.0), rtol=1e-6, atol=1e-7)
+
+    def test_weights_are_versioned_with_staleness_token(self, kind):
+        _, _, reps = _reports()
+
+        async def body():
+            async with _make(kind) as coord:
+                await _call(coord.submit_many(reps[:5]))
+                vw = await _call(coord.weights())
+                cached = await _call(coord.weights(if_etag=vw.etag))
+                other_gamma = await _call(coord.weights(1.0, if_etag=vw.etag))
+                await _call(coord.submit(reps[5]))
+                fresh = await _call(coord.weights(if_etag=vw.etag))
+                return vw, cached, other_gamma, fresh, await _call(coord.solve())
+
+        vw, cached, other_gamma, fresh, w_now = asyncio.run(body())
+        assert isinstance(vw, VersionedWeights)
+        assert vw.weight is not None and not vw.not_modified and vw.etag
+        assert cached.not_modified and cached.etag == vw.etag
+        assert not other_gamma.not_modified and other_gamma.etag != vw.etag
+        assert fresh.etag != vw.etag and not fresh.not_modified
+        assert fresh.version != vw.version
+        np.testing.assert_allclose(fresh.weight, w_now, rtol=1e-9, atol=1e-12)
+
+
+# --- across the two packages ---------------------------------------------------------
+
+def test_afl_server_and_transports_satisfy_the_protocols():
+    from repro_torch.fl.service import HttpTransport, InProcTransport
+
+    assert isinstance(AFLServer(DIM, C), Coordinator)
+    assert isinstance(AsyncAFLServer(DIM, C), Coordinator)
+    service = FederationService(AFLServer(DIM, C))
+    assert isinstance(InProcTransport(service), Transport)
+    with serve_http(service) as srv:
+        tr = HttpTransport(srv.url)
+        try:
+            assert isinstance(tr, Transport)
+        finally:
+            tr.close()
+
+
+@pytest.mark.parametrize("kind", ["sync", "async"])
+@pytest.mark.parametrize("ref_kind", ["sync", "async"])
+def test_state_interchangeable_across_packages(kind, ref_kind):
+    """A port kind's ``state()`` restores into a reference kind (and the
+    reference's back into the port's) with the same bits: the raw
+    statistics, the seen ids and the solved head."""
+    _, _, reps = _reports(seed=5)
+    ref_reps = [RefReport.from_bytes(r.to_bytes()) for r in reps]
+    ref_cls = RefServer if ref_kind == "sync" else RefAsync
+
+    async def body():
+        async with _make(kind) as coord:
+            await _call(coord.submit_many(reps[:6]))
+            state = await _call(coord.state())
+            w_port = await _call(coord.solve())
+        ref = ref_cls.from_state(state)
+        if ref_kind == "async":
+            await ref.start()
+        assert ref.num_clients == 6
+        w_ref = await _call(ref.solve())
+        with pytest.raises(ValueError):
+            await _call(ref.submit(ref_reps[0]))
+        await _call(ref.submit_many(ref_reps[6:]))
+        back_state = await _call(ref.state())
+        w_ref_all = await _call(ref.solve())
+        if ref_kind == "async":
+            await ref.close()
+        return state, w_port, w_ref, back_state, w_ref_all
+
+    state, w_port, w_ref, back_state, w_ref_all = asyncio.run(body())
+    np.testing.assert_array_equal(w_ref, w_port)
+    assert sorted(back_state) == sorted(state)
+    back = AFLServer.from_state(back_state)
+    assert back.num_clients == len(reps)
+    np.testing.assert_array_equal(back.solve(), w_ref_all)
+    oracle = AFLServer(DIM, C, gamma=GAMMA)
+    oracle.submit_many(reps)
+    np.testing.assert_array_equal(w_ref_all, oracle.solve())
+
+
+@pytest.mark.parametrize("kind", ["remote", "mux"])
+def test_remote_solved_head_bit_for_bit_at_f64(kind):
+    """The acceptance bar of the serving layer: a federation driven over the
+    wire gives the SAME f64 bits as the in-process coordinator."""
+    _, _, reps = _reports()
+    inproc = AFLServer(DIM, C, gamma=GAMMA)
+    inproc.submit_many(reps)
+
+    async def body():
+        async with _make(kind) as coord:
+            for r in reps:
+                await _call(coord.submit(r))
+            return (await _call(coord.solve()), await _call(coord.solve(0.5)),
+                    await _call(coord.solve_multi_gamma([0.0, 0.1, 1.0])))
+
+    w0, w_half, multi = asyncio.run(body())
+    np.testing.assert_array_equal(w0, inproc.solve())
+    np.testing.assert_array_equal(w_half, inproc.solve(0.5))
+    for w_remote, w_local in zip(multi, inproc.solve_multi_gamma([0.0, 0.1, 1.0])):
+        np.testing.assert_array_equal(w_remote, w_local)

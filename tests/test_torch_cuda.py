@@ -1193,3 +1193,59 @@ def test_run_afl_through_a_backbone_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(eg, ec, rtol=1e-4, atol=1e-4)
     assert rg.accuracy == jg and rc.accuracy == jc
     assert abs(rg.accuracy - rc.accuracy) * len(test) <= 1
+
+
+# --- federation serving: the client on the card, the server on the host --------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coordinator", ["sync", "async"])
+def test_run_analytic_posts_to_a_federation_service(cuda, tmp_path, coordinator):
+    """launch.train.run_analytic(server_url=…) with reduced minicpm_2b and
+    use_kernel=True: the client folds on the card (one Gram launch a batch,
+    the flash kernel in every layer) and posts one report to a port
+    FederationService over HTTP; the service's head is bit for bit what an
+    in-process AFLServer solves from the report its ledger recorded, and the
+    accuracy is that of the same run against an in-process server."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic as D
+    from repro_torch.fl import (AFLServer, AsyncAFLServer, ClientReport,
+                                FederationService, RemoteCoordinator, serve_http)
+    from repro_torch.fl.replication import LedgerTailer
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("minicpm_2b").reduced(num_classes=8)
+    ds = D.token_classification(n=320, seq=16, vocab=cfg.vocab_size, num_classes=8,
+                                seed=0)
+    tr, te = D.train_test_split(ds, 0.25, seed=0)
+    params = T.init_params(cfg, seed=0, device=cuda)
+    fl = FLConfig(gamma=1.0)
+    local = AFLServer(cfg.d_model, 8, gamma=1.0)
+    acc_local, _ = train.run_analytic(cfg, tr, te, fl, 64, use_kernel=True,
+                                      device=cuda, params=params, coordinator=local)
+    coord = (AFLServer if coordinator == "sync" else AsyncAFLServer)(cfg.d_model, 8,
+                                                                      gamma=1.0)
+    svc = FederationService(coord, ledger_dir=tmp_path)
+    try:
+        with serve_http(svc) as srv:
+            g0, f0 = G.gram_update.launches, FA.flash_attention.launches
+            acc, _ = train.run_analytic(cfg, tr, te, fl, 64, use_kernel=True,
+                                        device=cuda, params=params, server_url=srv.url)
+            launches = (G.gram_update.launches - g0, FA.flash_attention.launches - f0)
+            rc = RemoteCoordinator(srv.url)
+            try:
+                w_remote = rc.solve()
+            finally:
+                rc.close()
+    finally:
+        svc.close()
+    forwards = len(tr) // 64 + len(te) // 64
+    assert launches == (len(tr) // 64, cfg.num_layers * forwards)
+    (record,) = LedgerTailer(tmp_path).poll()
+    oracle = AFLServer(cfg.d_model, 8, gamma=1.0)
+    oracle.submit(ClientReport.from_bytes(record[2]))
+    np.testing.assert_array_equal(w_remote, oracle.solve())
+    np.testing.assert_allclose(w_remote, local.solve(), rtol=1e-4,
+                               atol=1e-4 * float(np.abs(local.solve()).max()))
+    assert acc == acc_local

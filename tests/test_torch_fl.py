@@ -159,10 +159,23 @@ def test_run_afl_submits_to_a_given_coordinator(data):
 
 
 def test_run_afl_refuses_a_remote_coordinator(data):
+    """A URL coordinator is a live port federation service over HTTP: the
+    round through it gives the in-process round's weight bit for bit (f64
+    reports are lossless on the wire), and a service of another width is
+    refused before any client uploads."""
+    from repro_torch.fl.service import FederationService, serve_http
+
     (train, test), _ = data
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-        PAfl.run_afl(train, test, FLConfig(num_clients=2),
-                     coordinator="http://127.0.0.1:1")
+    fl = FLConfig(num_clients=8, partition="niid1", alpha=0.1)
+    local = PAfl.run_afl(train, test, fl)
+    hosted = PApi.AFLServer(64, 10, gamma=1.0)
+    with serve_http(FederationService(hosted)) as srv:
+        res = PAfl.run_afl(train, test, fl, coordinator=srv.url)
+    assert hosted.num_clients == 8 and res.accuracy == local.accuracy
+    np.testing.assert_array_equal(res.weight, local.weight)
+    with serve_http(FederationService(PApi.AFLServer(32, 10))) as srv:
+        with pytest.raises(ValueError, match="does not match the run"):
+            PAfl.run_afl(train, test, fl, coordinator=srv.url)
 
 
 def test_embed_with_backbone_batches_and_copies_to_host():
