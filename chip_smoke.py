@@ -37,7 +37,10 @@ without the repository around it. Phases, each fatal on failure:
      (1, 1536, 16), ``multi_gamma_solve`` (2304, 16, 16 γs) and the rank
      update profiled by kernel; then the f64 instance of each solve-side kernel
      at its f64 path's shape against its f64 plain version (relative
-     1e-10); each timed beside the plain version, one library call that
+     1e-10); then the panel kernels at every shape phase 14's tile plans
+     give them (``SHARD_PLANS``: the widths 144, 192, 220, f64 96, and
+     slabs of a shard's (r, d_p) work copy, the updates in place); each
+     timed beside the plain version, one library call that
      computes the same function, and the card's bound; the times of the earlier
      designs of the redesigned kernels and paths (PERF.md) are logged beside
      this run's; the two products summed over one streamed factor at
@@ -119,6 +122,33 @@ without the repository around it. Phases, each fatal on failure:
      the seconds split into local stages, encoding, submits on the wire and
      the solve, and the bytes and seconds a report; its own JSON line
      ``{"federation": ...}``;
+ 14. sharded (after 13, before 12): the sharded coordinator
+     (``fl.api.ShardedCoordinator`` over ``core.distributed``'s thread mesh,
+     eight shards on cuda:0): (a) phase 11's K = 100 NIID-1 round through
+     ``run_afl`` into four coordinators at once (d = 2304, tiles of 288
+     rows): the tiled distributed factor in f32 (``run_afl``'s own solve,
+     panels of 144: 128 / 128 / 120 / 0 panel launches a solve) and f64
+     (panels of 96: 192 / 192 / 184 / 0), the whole-leaf psum over eight
+     participants and the tiled gather branch (no panel kernel), each
+     within 10·κ·u of its type of phase 11's host f64 weight, at its
+     accuracy, a second solve the same bits, none answered by the host
+     engine (``host_fallbacks`` 0); (b) phase 3's d = 6144 system
+     through ``make_tiled_federated_solve`` over 8 shards (f32 192 / 192 /
+     184, f64 384 / 384 / 376) and 7 padded ones (f32 196 / 196 / 189),
+     each within 10·κ·u of numpy f64, its peak device bytes above its
+     uploaded tiles (host f64 arrays, as the coordinator passes them)
+     below one (d, d) system (the gather branch's at or above one), timed
+     beside the one-shard streamed solve and torch.linalg, and one 8-shard
+     f32 factor profiled and its host time split into the collectives and
+     the rest; (c) ``python -m repro_torch.launch.serve
+     --federation --coordinator sharded --shards 8 --tiled`` on the card
+     in a subprocess (handled as phase 13's), ``run_afl(coordinator=url)``
+     at K = 100 whose head is the in-process coordinator's bits, ``grow(4)``
+     and ``shrink(8)`` over the wire (``mesh_epoch`` advancing, the head
+     within the f32 bar and the bits of the in-process coordinator after
+     the same resize), and the served ``state()`` restored in an
+     ``AFLServer`` to the host weight's bits; its own JSON line
+     ``{"sharded": ...}``;
  12. serve, after the minicpm weights are freed: ``launch.serve.serve`` of
      gemma3_12b at full width (all 48 layers, random f32 weights from a
      seed), a prefill of 4 × 2048 tokens and 15 greedy decode steps
@@ -577,12 +607,7 @@ def streamed_phase(S, P):
     """One SPD system at d = 6144 factored and solved by the kernel route
     and by the plain route on the card."""
     d = STREAM_D
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(6144)
-    x = torch.randn((4 * d, d), generator=gen, device="cuda")
-    a = x.T @ x / (4 * d)                 # condition number ≈ 9
-    del x
-    rhs = torch.randn((d, STREAM_C), generator=gen, device="cuda")
+    a, rhs = _stream_system(d)
     counts = [f.launches for f in (P.panel_factor, P.panel_trsm, P.panel_update,
                                    P.panel_tri_inv)]
     l_k = S.streamed_cholesky(a)
@@ -1936,7 +1961,7 @@ def paper_round_phase(K, sl, train, afl, partition, streaming, ST, api, D, FLCon
                           moment_rel=moment_rel, solves=solves),
         launches=total)}))
     return total, SimpleNamespace(ds_tr=ds_tr, ds_te=ds_te, weights=weights,
-                                  accuracies=accuracies)
+                                  accuracies=accuracies, kappa=kappa)
 
 
 # --- federation serving: the paper's upload, over the wire ---------------------
@@ -1951,16 +1976,18 @@ FED_WIRE = [(100, "niid1", dict(alpha=0.1), "http"), (100, "iid", {}, "mux")]
 
 class _ServedFederation:
     """``python -m repro_torch.launch.serve --federation …`` in a subprocess:
-    no card (``CUDA_VISIBLE_DEVICES`` empty), a free port, its URL read from
+    no card (``CUDA_VISIBLE_DEVICES`` empty) unless ``card``, a free port, its URL read from
     the ``federation up:`` line within ``FED_UP_S``; SIGINT on exit, then
     killed after ``FED_STOP_S``, whatever the outcome."""
 
-    def __init__(self, root: Path, args):
+    def __init__(self, root: Path, args, card: bool = False):
         import queue
         import re
         import threading
 
-        env = dict(os.environ, PYTHONPATH=str(root / "src"), CUDA_VISIBLE_DEVICES="")
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        if not card:
+            env["CUDA_VISIBLE_DEVICES"] = ""
         t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.serve", "--federation",
@@ -2223,6 +2250,509 @@ def federation_phase(K, sl, pr, train, afl, api, service, mux, replication,
     out["rounds"] = rounds
     log(json.dumps({"federation": dict(arch=cfg.name, d=d, classes=c, **out,
                                        launches=total)}))
+    return total
+
+
+# --- the sharded coordinator: the tile-parallel Cholesky over a shard mesh -----
+
+SHARDS = 8
+SHARD_ROUND = (100, "niid1", dict(alpha=0.1))    # phase 11's K = 100 NIID-1 round
+# panel launches (factor, trsm, update, tri_inv) of one tiled distributed solve:
+# n·P / n·P / n·(P − 1) / 0, P = d_p / panel_width(rows, stream_block(dtype))
+SHARD_STREAM = [(8, torch.float32), (8, torch.float64), (7, torch.float32)]
+SHARD_GROW, SHARD_SHRINK = 4, 8                  # 8 → 12 → 4 shards over the wire
+
+
+def _expected_panels(S, d_p, rows, n, dtype) -> list:
+    panels = d_p // S.panel_width(rows, S.stream_block(dtype))
+    return [n * panels, n * panels, n * (panels - 1), 0]
+
+
+# the tile plans of phase 14 (d, shards, dtype), the served grow (12) and
+# shrink (4) included: the panel kernels get each plan's panel width b, and
+# slabs of a shard's (r, d_p) work copy with r the tile rows, not d
+SHARD_PLANS = [(2304, 8, torch.float32), (2304, 8, torch.float64),
+               (6144, 8, torch.float32), (6144, 8, torch.float64),
+               (6144, 7, torch.float32), (2304, 12, torch.float32),
+               (2304, 4, torch.float32)]
+
+
+def sharded_kernel_phase(P, ref, S, api):
+    """Each panel kernel against its plain version at the shapes phase 14's
+    tile plans give it: ``panel_factor`` at each panel width,
+    ``panel_trsm`` on an (r, b) column slab of a shard's (r, d_p) work copy,
+    and ``panel_update`` in place on that copy's widest and narrowest
+    trailing slab, as the schedule calls it, with the columns left of the
+    slab checked untouched. Timed beside the plain version and the library
+    call; the rows join each kernel's table."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    rows, seen = {}, set()
+
+    def work(r, d_p, dtype):
+        return torch.randn((r, d_p), generator=gen, device="cuda", dtype=dtype)
+
+    def check(name, shape, dtype, got, want):
+        dt = str(dtype).removeprefix("torch.")
+        rel = _rel(got, want)
+        if dtype == torch.float64 or name == "panel_factor":
+            bar = F64_REL if dtype == torch.float64 else PANEL_REL
+            if not (rel <= bar and torch.isfinite(got).all()):
+                fail(f"{name} {shape} {dt} (sharded plan): relative error {rel:.2e} "
+                     f"against the plain version, above {bar}")
+        else:
+            torch.testing.assert_close(got, want, rtol=GRAM_TOL[dtype][0],
+                                       atol=GRAM_TOL[dtype][1])
+        return rel
+
+    def add(name, shape, dtype, got, want, kernel, plain, library, flops, nbytes, note):
+        rel = check(name, shape, dtype, got, want)
+        rows.setdefault(name, []).append(_kernel_row(
+            name, shape, _abs(got, want), rel, time_auto(kernel), time_auto(plain),
+            None if library is None else time_auto(library), flops, nbytes, note, dtype))
+
+    for d, n, dtype in SHARD_PLANS:
+        r = api.ShardedCoordinator._plan_tile_rows(d, n)
+        d_p, b = n * r, S.panel_width(r, S.stream_block(dtype))
+        size = torch.tensor([], dtype=dtype).element_size()
+        note = f"; sharded plan d={d} over {n} shards (tiles of {r} rows, d_p={d_p})"
+        if ("factor", b, dtype) not in seen:
+            seen.add(("factor", b, dtype))
+            a = _spd_block(gen, b).to(dtype)
+            l, z = P.panel_factor(a)
+            l_twin, z_twin = ref.panel_factor_blocked_ref(a)
+            torch.cuda.synchronize()
+            check("panel_factor", (b,), dtype, l, l_twin)
+            check("panel_factor's inverse", (b,), dtype, z, z_twin)
+            if torch.triu(l, 1).any() or torch.triu(z, 1).any():
+                fail(f"panel_factor at b={b} (sharded plan): upper triangle not exactly zero")
+            l_ref, z_ref = ref.panel_factor_ref(a)
+            check("panel_factor's inverse", (b,), dtype, z, z_ref)
+            add("panel_factor", (b,), dtype, l, l_ref, lambda: P.panel_factor(a),
+                lambda: ref.panel_factor_ref(a), None, 2 * b ** 3 / 3,
+                size * (_tri(b) + 2 * b * b), note + f"; {_factor_design(b, dtype)}")
+        if ("trsm", r, b, dtype) not in seen:
+            seen.add(("trsm", r, b, dtype))
+            raw = work(r, d_p, dtype)[:, d_p - b:]
+            zinv = torch.tril(torch.randn((b, b), generator=gen, device="cuda", dtype=dtype))
+            add("panel_trsm", (r, b), dtype, P.panel_trsm(raw, zinv),
+                ref.panel_trsm_ref(raw, zinv), lambda: P.panel_trsm(raw, zinv),
+                lambda: ref.panel_trsm_ref(raw, zinv), lambda: torch.mm(raw, zinv.T),
+                r * b * (b + 1), size * (2 * r * b + _tri(b)), note + f", row stride {d_p}")
+        for w in (d_p - b, b):                  # the first panel's update and the last's
+            if ("update", r, w, b, dtype) in seen:
+                continue
+            seen.add(("update", r, w, b, dtype))
+            full = work(r, d_p, dtype)
+            left = full[:, :d_p - w].clone()
+            trail = full[:, d_p - w:]
+            lp = torch.randn((r, b), generator=gen, device="cuda", dtype=dtype)
+            pt = torch.randn((w, b), generator=gen, device="cuda", dtype=dtype)
+            want = ref.panel_update_ref(trail, lp, pt)
+            got = P.panel_update(trail, lp, pt, out=trail)     # in place, as the path does
+            torch.cuda.synchronize()
+            if not torch.equal(full[:, :d_p - w], left):
+                fail(f"panel_update ({r}, {w}, {b}) in place at row stride {d_p}: it wrote "
+                     "outside its slab")
+            add("panel_update", (r, w, b), dtype, got, want,
+                lambda: P.panel_update(trail, lp, pt, out=trail),
+                lambda: ref.panel_update_ref(trail, lp, pt, out=trail),
+                lambda: torch.addmm(trail, lp, pt.T, alpha=-1), 2 * r * w * b,
+                size * (2 * r * w + r * b + w * b), note + f", in place at row stride {d_p}")
+    return rows
+
+
+class _Tee:
+    """One ``run_afl`` round into several coordinators at once: every report
+    goes to each (host seconds per coordinator kept); ``solve`` answers the
+    first's. ``run_afl`` takes any object with ``dim``, ``gamma``,
+    ``submit`` and ``solve``."""
+
+    def __init__(self, coords: dict):
+        self.coords = coords
+        first = next(iter(coords.values()))
+        self.dim, self.gamma = first.dim, first.gamma
+        self.submit_s = dict.fromkeys(coords, 0.0)
+
+    def submit(self, report):
+        for name, coord in self.coords.items():
+            t0 = time.perf_counter()
+            coord.submit(report)
+            self.submit_s[name] += time.perf_counter() - t0
+        return True
+
+    def solve(self, target_gamma=0.0):
+        return next(iter(self.coords.values())).solve(target_gamma)
+
+
+def _stream_system(d=None):
+    """Phase 3's seeded SPD system: (a, rhs) in f32 on the card."""
+    d = d or STREAM_D
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6144)
+    x = torch.randn((4 * d, d), generator=gen, device="cuda")
+    a = x.T @ x / (4 * d)                 # condition number ≈ 9
+    del x
+    return a, torch.randn((d, STREAM_C), generator=gen, device="cuda")
+
+
+def _tiled(a, rhs, n, rows, dtype):
+    """(n, rows, d_p) and (n, rows, C) zero-padded row tiles of (a, rhs)."""
+    d, d_p = a.shape[0], n * rows
+    g = torch.zeros((d_p, d_p), dtype=dtype, device="cuda")
+    g[:d, :d] = a
+    m = torch.zeros((d_p, rhs.shape[1]), dtype=dtype, device="cuda")
+    m[:d] = rhs
+    return g.reshape(n, rows, d_p), m.reshape(n, rows, rhs.shape[1])
+
+
+PANEL_NAMES = ("panel_factor", "panel_trsm", "panel_update", "panel_tri_inv")
+
+
+def _host(tiles) -> list:
+    """Row tiles as the coordinator keeps them: host f64 arrays."""
+    return [t.double().cpu().numpy() for t in tiles]
+
+
+def _peak_above(fn, uploaded: int) -> int:
+    """Peak device bytes of ``fn()`` above what was allocated before it and
+    above the ``uploaded`` bytes of its tiles."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base - uploaded, out
+
+
+def host_split(S, DD, mesh, gt, mt, b) -> dict:
+    """Host milliseconds of one tiled distributed factor + solve, split on
+    each shard's thread into the collectives (the barrier's waits and its
+    combine) and the rest (the schedule's Python and its launches), beside
+    the wall of the whole run and of an empty run of the same threads."""
+    group, n = DD.ShardGroup(mesh), len(mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    group.run(lambda s: None)
+    empty = time.perf_counter() - t0
+
+    def fn(s):
+        spent = [0.0, 0]
+
+        def timed(collective):
+            def call(x):
+                t = time.perf_counter()
+                out = collective(x)
+                spent[0] += time.perf_counter() - t
+                spent[1] += 1
+                return out
+            return call
+
+        t = time.perf_counter()
+        gather, psum = timed(s.gather), timed(s.psum)
+        tile_l, zs = S.tile_cholesky_factor(gt[s.index], shard=s.index, n_shards=n,
+                                            gather=gather, block=b)
+        S.tile_cholesky_solve(tile_l, mt[s.index], zs, shard=s.index, n_shards=n,
+                              gather=gather, psum=psum, block=b)
+        return time.perf_counter() - t, spent[0], spent[1]
+
+    t0 = time.perf_counter()
+    per = group.run(fn)
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    own = statistics.mean(p[0] for p in per)
+    coll = statistics.mean(p[1] for p in per)
+    return dict(wall_ms=1e3 * wall, issued_ms=1e3 * issued, empty_run_ms=1e3 * empty,
+                shard_ms=1e3 * own, collective_ms=1e3 * coll, schedule_ms=1e3 * (own - coll),
+                collectives=per[0][2])
+
+
+def sharded_stream(K, S, DD, api, total):
+    """Phase 3's d = 6144 system (nemotron4_15b's and grok1's head width)
+    as row tiles on cuda:0 through ``make_tiled_federated_solve``: 8 shards
+    in f32 and f64 and 7 (padded) in f32, each held to numpy f64, its panel
+    launches counted, its peak device bytes above the uploaded tiles read
+    on host f64 tiles as ``ShardedCoordinator`` passes them, and timed
+    beside the one-shard streamed solve and torch.linalg; the gather branch
+    beside the 8-shard f32 one, and one profiled 8-shard f32 factor with
+    the host split of one solve."""
+    names, cuda = PANEL_NAMES, ["cuda:0"]
+    a, rhs = _stream_system()
+    ds = a.shape[0]
+    a64 = a.double()
+    ev = torch.linalg.eigvalsh(a64)
+    kappa_s = float(ev[-1] / ev[0])
+    x_np = np.linalg.solve(a64.cpu().numpy(), rhs.double().cpu().numpy())
+    systems = []
+    for n, dtype in SHARD_STREAM:
+        dt = str(dtype).removeprefix("torch.")
+        rows_s = api.ShardedCoordinator._plan_tile_rows(ds, n)
+        d_p = n * rows_s
+        mesh = DD.federation_mesh(n, cuda)
+        dist = DD.make_tiled_federated_solve(mesh, distributed_factor=True, dim=ds,
+                                             dtype=dtype)
+        expect = _expected_panels(S, d_p, rows_s, n, dtype)
+        gt, mt = _tiled(a, rhs, n, rows_s, dtype)
+        hg, hm = _host(gt), _host(mt)
+        size = gt.element_size()
+        uploaded = size * (gt.numel() + mt.numel())
+        # a first call: what it leaves allocated (each shard thread's cuBLAS
+        # handle and workspace) is the library's, not the schedule's, so the
+        # peak below is read after it
+        before = torch.cuda.memory_allocated()
+        dist(hg, hm)
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - before
+        _zero(K)
+        peak, w = _peak_above(lambda: dist(hg, hm), uploaded)
+        got = _read(K)
+        _only(got, dict(zip(names, expect)), f"tiled solve d={ds} over {n} shards {dt}")
+        _add_launches(total, K)
+        u = F64_U if dtype == torch.float64 else F32_U
+        rel = _rel(w.cpu(), torch.from_numpy(x_np))
+        system_bytes = d_p * d_p * size
+        row = dict(shards=n, dtype=dt, rows=rows_s, d_p=d_p,
+                   panel=S.panel_width(rows_s, S.stream_block(dtype)),
+                   launches=dict(zip(names, expect)), rel_numpy=rel,
+                   rel_numpy_ku=rel / (kappa_s * u), kappa=kappa_s,
+                   peak_above_tiles_bytes=peak, uploaded_tiles_bytes=uploaded,
+                   system_bytes=system_bytes, first_call_kept_bytes=kept)
+        if not rel <= PAPER_KU * kappa_s * u:
+            fail(f"tiled solve d={ds} over {n} shards {dt}: {rel:.3e} from numpy f64, more "
+                 f"than {PAPER_KU:g}·κ·u")
+        if not peak < system_bytes:
+            fail(f"tiled solve d={ds} over {n} shards {dt}: {peak} bytes above the uploaded "
+                 f"tiles, not below one ({d_p}, {d_p}) system ({system_bytes})")
+        row["ms"] = time_wall(lambda: dist(gt, mt), reps=3)
+        row["host_tiles_ms"] = time_wall(lambda: dist(hg, hm), reps=3)
+        ad = a.to(dtype)
+        rd = rhs.to(dtype)
+        row["streamed_ms"] = time_wall(
+            lambda: S.streamed_cholesky_solve(S.streamed_cholesky(ad), rd), reps=3)
+        row["library_ms"] = time_wall(
+            lambda: torch.cholesky_solve(rd, torch.linalg.cholesky(ad)), reps=3)
+        if (n, dtype) == (SHARDS, torch.float32):
+            gather = DD.make_tiled_federated_solve(mesh, dim=ds, dtype=dtype)
+            g_peak, w_g = _peak_above(lambda: gather(hg, hm), uploaded)
+            row["gather_peak_above_tiles_bytes"] = g_peak
+            row["gather_rel_numpy"] = _rel(w_g.cpu(), torch.from_numpy(x_np))
+            row["gather_ms"] = time_wall(lambda: gather(gt, mt), reps=3)
+            if not g_peak >= system_bytes:
+                fail(f"the gather branch at d={ds} peaked {g_peak} bytes above the uploaded "
+                     f"tiles, less than one system ({system_bytes}): the measure is broken")
+            b = row["panel"]
+            prof = kernel_breakdown(lambda: DD.ShardGroup(mesh).run(
+                lambda s: S.tile_cholesky_factor(gt[s.index], shard=s.index, n_shards=n,
+                                                 gather=s.gather, block=b)),
+                FACTOR_PARTS)
+            _log_breakdown(f"sharded factor d={ds} over {n} shards f32 (panels of {b}), one "
+                           "call profiled", prof,
+                           dict(zip(FACTOR_PARTS, ("panel_factor", "panel_trsm",
+                                                   "panel_update"))))
+            row["factor_profile"] = prof
+            row["host_split"] = split = host_split(S, DD, mesh, gt, mt, b)
+            log(f"sharded: one factor + solve d={ds} over {n} shards f32, host split: wall "
+                f"{split['wall_ms']:.2f} ms ({split['issued_ms']:.2f} ms until every thread "
+                f"returned); an empty run of the {n} threads {split['empty_run_ms']:.3f} ms; "
+                f"a shard's thread {split['shard_ms']:.2f} ms, of it "
+                f"{split['collective_ms']:.2f} ms in {split['collectives']} collectives "
+                f"(barrier waits and combines) and {split['schedule_ms']:.2f} ms in the "
+                f"schedule's Python and launches (means over the shards)")
+        del gt, mt, hg, hm, ad, rd
+        systems.append(row)
+        log(f"sharded: d={ds} over {n} shards {dt} (tiles of {rows_s} rows, d_p={d_p}, "
+            f"panels of {row['panel']}): launches {row['launches']}; vs numpy f64 "
+            f"{rel:.3e} = {row['rel_numpy_ku']:.3f}·κ·u (κ={kappa_s:.3f}, limit "
+            f"{PAPER_KU:g}·κ·u); peak {peak / 1e6:.1f} MB above the {uploaded / 1e6:.1f} MB "
+            f"of uploaded host tiles (one system {system_bytes / 1e6:.1f} MB; the first "
+            f"call left {kept / 1e6:.1f} MB allocated: the shard threads' library "
+            f"workspaces); solve {row['ms']:.2f} ms on device tiles, "
+            f"{row['host_tiles_ms']:.2f} ms on host f64 tiles, one-shard streamed "
+            f"factor + solve {row['streamed_ms']:.2f} ms, torch.linalg.cholesky + "
+            f"cholesky_solve {row['library_ms']:.2f} ms"
+            + (f"; gather branch {row['gather_ms']:.2f} ms, peak "
+               f"{row['gather_peak_above_tiles_bytes'] / 1e6:.1f} MB above the uploaded "
+               f"tiles, vs numpy {row['gather_rel_numpy']:.3e}" if "gather_ms" in row else ""))
+    del a, rhs, a64
+    return systems
+
+
+def sharded_phase(K, S, DD, sl, pr, afl, api, service, FLConfig):
+    """The sharded coordinator (``fl.api.ShardedCoordinator``,
+    ``core.distributed``) on the card: (a) phase 11's K = 100 NIID-1 round
+    at minicpm_2b's head width through eight row tiles on cuda:0, the
+    distributed factor in f32 and f64, the whole-leaf psum and the gather
+    branch; (b) phase 3's d = 6144 system over 8 and 7 shards through
+    ``make_tiled_federated_solve``, timed beside the one-shard streamed
+    solve and torch.linalg, its peak device bytes, and one profiled factor;
+    (c) the served sharded federation, grown and shrunk over the wire."""
+    root = Path(__file__).resolve().parent
+    d, c = sl.cfg.d_model, sl.cfg.num_classes
+    k, scheme, kw = SHARD_ROUND
+    fl = FLConfig(num_clients=k, gamma=1.0, partition=scheme, **kw)
+    w_host = pr.weights[(k, scheme)]              # phase 11's AFLServer (host f64)
+    acc_host = pr.accuracies[(k, scheme)]
+    kappa = pr.kappa
+    cuda = ["cuda:0"]
+    total, out = {}, {}
+
+    def held(what, w, u):
+        """``w`` against the host f64 weight: within 10·κ·u of its type (phase
+        6's bar in f32, phase 10's in f64), where the host Gram is definite."""
+        rel = float(np.abs(w - w_host).max() / np.abs(w_host).max())
+        if math.isfinite(kappa):
+            bar = DEVICE_HOST_KU * kappa * u
+            if not rel <= bar:
+                fail(f"sharded: {what} is {rel:.3e} from the host f64 weight, more than "
+                     f"{bar:.3e}")
+            return rel, rel / (kappa * u)
+        return rel, None
+
+    # (a) one round into four coordinators: the tiled distributed factor in
+    # f32 (run_afl's own solve) and f64, the whole-leaf psum over eight
+    # participants on the card, and the tiled gather branch
+    coords = {
+        "tiled_f32": api.ShardedCoordinator(d, c, gamma=fl.gamma, tiled_gram=True,
+                                            num_shards=SHARDS, devices=cuda),
+        "tiled_f64": api.ShardedCoordinator(d, c, gamma=fl.gamma, tiled_gram=True,
+                                            num_shards=SHARDS, devices=cuda,
+                                            dtype=torch.float64),
+        "whole_leaf_f32": api.ShardedCoordinator(d, c, gamma=fl.gamma, num_shards=SHARDS,
+                                                 devices=cuda * SHARDS),
+        "gather_f32": api.ShardedCoordinator(d, c, gamma=fl.gamma, tiled_gram=True,
+                                             num_shards=SHARDS, devices=cuda,
+                                             distributed_factor=False),
+    }
+    rows = coords["tiled_f32"]._tile_rows
+    tee = _Tee(coords)
+    _zero(K)
+    t0 = time.perf_counter()
+    res = afl.run_afl(pr.ds_tr, pr.ds_te, fl, coordinator=tee)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read(K)
+    want = _expected_panels(S, SHARDS * rows, rows, SHARDS, torch.float32)
+    names = PANEL_NAMES
+    _only(got, dict(zip(names, want)), "run_afl through the tiled f32 coordinator")
+    _add_launches(total, K)
+    rel, ku = held("run_afl's tiled f32 weight", res.weight, F32_U)
+    log(f"sharded: run_afl K={k} {scheme} α={kw['alpha']} into 4 ShardedCoordinators "
+        f"(d={d}, {SHARDS} shards on cuda:0, tiles of {rows} rows, panels of "
+        f"{S.panel_width(rows, S.stream_block(torch.float32))}) in {wall:.3f} s "
+        f"(train_seconds {res.train_seconds:.3f}; host submits "
+        + ", ".join(f"{n} {s:.3f} s" for n, s in tee.submit_s.items())
+        + f"); acc={res.accuracy:.4f} (phase 11 {acc_host:.4f}); weight vs host f64 "
+        f"{rel:.3e}" + (f" = {ku:.3f}·κ·u32" if ku is not None else "")
+        + f"; panel launches of its solve {dict(zip(names, want))}")
+    if res.accuracy != acc_host:
+        fail(f"sharded: run_afl accuracy {res.accuracy} != phase 11's {acc_host}")
+    solves, first = {}, {}
+    for name, coord in coords.items():
+        dtype = coord.dtype
+        tiled_dist = coord.tiled_gram and coord.distributed_factor
+        expect = (_expected_panels(S, SHARDS * rows, rows, SHARDS, dtype) if tiled_dist
+                  else [0, 0, 0, 0])
+        counts = []
+        weights = []
+        for _ in range(2):                    # the second: the same bits
+            _zero(K)
+            t0 = time.perf_counter()
+            weights.append(coord.solve())
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts.append(_read(K))
+            _add_launches(total, K)
+        for c_ in counts:
+            _only(c_, dict(zip(names, expect)), f"sharded solve {name}")
+        same = _bits(weights[0], weights[1])
+        first[name] = weights[0]
+        u = F64_U if dtype == torch.float64 else F32_U
+        rel, ku = held(f"the {name} solve", weights[0], u)
+        acc = api.evaluate_weight(weights[0], pr.ds_te.x, pr.ds_te.y)
+        solves[name] = dict(dtype=str(dtype).removeprefix("torch."), ms=ms,
+                            participants=len(coord.mesh), launches=dict(zip(names, expect)),
+                            rel_host=rel, rel_host_ku=ku, repeat_bits=same, accuracy=acc)
+        log(f"sharded: {name} solve ({len(coord.mesh)} participants, "
+            f"{solves[name]['dtype']}) {ms:.1f} ms (second call, host wall); panel "
+            f"launches {dict(zip(names, expect))} each solve; vs host f64 {rel:.3e}"
+            + (f" = {ku:.3f}·κ·u{'64' if u == F64_U else '32'}" if ku is not None else "")
+            + f"; acc={acc:.4f}; repeat solve "
+            + ("the same bits" if same else "DIFFERENT"))
+        if not same:
+            fail(f"sharded: a second {name} solve gave other bits")
+        if coord.host_fallbacks:
+            fail(f"sharded: {coord.host_fallbacks} {name} solves were non-finite on the "
+                 "card and answered by the host engine")
+        if name != "tiled_f32" and acc != acc_host:
+            fail(f"sharded: {name} accuracy {acc} != phase 11's {acc_host}")
+    if not _bits(first["tiled_f32"], res.weight):
+        fail("sharded: the tiled f32 coordinator's solve is not run_afl's weight")
+    mirror = coords["tiled_f32"]          # the served federation's twin, resized alike
+    out["round"] = dict(K=k, partition=scheme, **kw, d=d, shards=SHARDS, rows=rows,
+                        accuracy=res.accuracy, accuracy_host=acc_host, kappa=kappa,
+                        train_seconds=res.train_seconds, wall_s=wall,
+                        submit_s=tee.submit_s, solves=solves)
+
+    # (b) phase 3's d = 6144 system over 8 and 7 shards
+    out["stream"] = sharded_stream(K, S, DD, api, total)
+
+    # (c) the served sharded federation, grown and shrunk over the wire
+    with _ServedFederation(root, ["--coordinator", "sharded", "--shards", str(SHARDS),
+                                  "--tiled", "--dim", str(d), "--classes", str(c),
+                                  "--gamma", str(fl.gamma)], card=True) as fed:
+        log(f"sharded: served sharded federation up in {fed.up_s:.2f} s at {fed.url} "
+            f"({fed.out[-1].strip()})")
+        t0 = time.perf_counter()
+        res_w = afl.run_afl(pr.ds_tr, pr.ds_te, fl, coordinator=fed.url)
+        wire_s = time.perf_counter() - t0
+        if not _bits(res_w.weight, first["tiled_f32"]):
+            fail("sharded: the served head is not the in-process ShardedCoordinator's "
+                 "solve of the same reports, bit for bit")
+        steps = []
+        rc = service.RemoteCoordinator(fed.url)
+        try:
+            for verb, n in (("grow", SHARD_GROW), ("shrink", SHARD_SHRINK)):
+                before = rc.describe()
+                t0 = time.perf_counter()
+                epoch = getattr(rc, verb)(n)
+                resize_s = time.perf_counter() - t0
+                info = rc.describe()
+                t0 = time.perf_counter()
+                w = rc.solve()
+                solve_s = time.perf_counter() - t0
+                rel, ku = held(f"the served head after {verb}({n})", w, F32_U)
+                # the in-process twin takes the same resize: its solve, on the
+                # card and not the host's (host_fallbacks 0), is the served one
+                getattr(mirror, verb)(n)
+                if not _bits(w, mirror.solve()) or mirror.host_fallbacks:
+                    fail(f"sharded: the served head after {verb}({n}) is not the in-process "
+                         "coordinator's card solve after the same resize, bit for bit")
+                steps.append(dict(verb=verb, n=n, shards=info["num_shards"],
+                                  mesh_epoch=info["mesh_epoch"], resize_s=resize_s,
+                                  solve_s=solve_s, rel_host=rel, rel_host_ku=ku,
+                                  twin_bits=True))
+                log(f"sharded: {verb}({n}) over the wire in {resize_s:.3f} s: "
+                    f"{before['num_shards']} → {info['num_shards']} shards, mesh_epoch "
+                    f"{before['mesh_epoch']} → {info['mesh_epoch']}; solve {solve_s:.3f} s, "
+                    f"vs host f64 {rel:.3e}" + (f" = {ku:.3f}·κ·u32" if ku is not None else "")
+                    + "; the in-process twin's bits after the same resize")
+                if not (epoch == info["mesh_epoch"] > before["mesh_epoch"]):
+                    fail(f"sharded: {verb} did not advance mesh_epoch ({before} → {info})")
+            state = rc.state()
+        finally:
+            rc.close()
+    w_state = api.AFLServer.from_state(state).solve()
+    if not _bits(w_state, w_host):
+        fail("sharded: the served state does not restore in an AFLServer to the host "
+             "weight's bits")
+    log(f"sharded: run_afl K={k} {scheme} over HTTP to the served 8-shard tiled "
+        f"federation in {wire_s:.3f} s (train_seconds {res_w.train_seconds:.3f}), "
+        f"acc={res_w.accuracy:.4f}; the served head the in-process coordinator's bits; "
+        f"its state() restored in an AFLServer solves to the host weight's bits")
+    out["served"] = dict(up_s=fed.up_s, wire_s=wire_s, train_seconds=res_w.train_seconds,
+                         accuracy=res_w.accuracy, head_bits=True, state_bits=True,
+                         steps=steps)
+    log(json.dumps({"sharded": dict(arch=sl.cfg.name, **out, launches=total)}))
     return total
 
 
@@ -2615,7 +3145,7 @@ def main() -> None:
     from repro_torch.core import engine
     from repro_torch.configs.registry import get_config
     from repro_torch.data import synthetic as D
-    from repro_torch.core import streaming
+    from repro_torch.core import distributed, streaming
     from repro_torch import checkpoint
     from repro_torch.fl import afl, api, mux, partition, replication, service
     from repro_torch.kernels import blocked as B
@@ -2645,6 +3175,8 @@ def main() -> None:
     rows.update(blocked_phase(K, ref))
     for name, more in f64_kernel_phase(K, ref).items():
         rows[name].extend(more)
+    for name, more in sharded_kernel_phase(P, ref, S, api).items():
+        rows[name].extend(more)
     rows["flash_attention"] = attention_phase(FA, ref)
     products = [streamed_products(S, P, dt) for dt in (torch.float32, torch.float64)]
     profiles = factor_profiles(S)
@@ -2665,6 +3197,7 @@ def main() -> None:
     paths.append(paper_launches)
     paths.append(federation_phase(K, sl, pr, train, afl, api, service, mux, replication,
                                   checkpoint, FLConfig))
+    paths.append(sharded_phase(K, S, distributed, sl, pr, afl, api, service, FLConfig))
     del server, sl, pr
     gc.collect()
     torch.cuda.empty_cache()

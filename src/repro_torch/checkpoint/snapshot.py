@@ -14,8 +14,9 @@ versioned checkpoint directory, prune old ones, repeat — and *survive*
 outages (a dead service is the exact moment the existing snapshots matter,
 so a failed pull is recorded and retried, never fatal). The port of
 ``repro.checkpoint.snapshot``; ``launch/serve.py --snapshot-dir`` runs one
-in-process beside a hosted federation (the reference's ``tools/snapshotd.py``
-CLI wrapper is not ported yet, ROADMAP Queue 1).
+in-process beside a hosted federation, and ``tools/torch_snapshotd.py`` is
+its out-of-process CLI. ``restore(ShardedCoordinator, num_shards=8)``
+reshards on the way back.
 
 Snapshot naming: ``snap-{version:012d}-{epoch:06d}`` where version is the
 federation's submission version (client count) at pull time and epoch is the

@@ -4,6 +4,7 @@ Engine (ONE implementation of the math): :mod:`repro_torch.core.engine`
 Host path (float64, paper-literal API):  :mod:`repro_torch.core.analytic`
 Device path (f32 tensors on the card):   :mod:`repro_torch.core.streaming`
 Non-linear feature maps (paper §5):      :mod:`repro_torch.core.features`
+Sharded aggregation (a shard mesh):      :mod:`repro_torch.core.distributed`
 """
 
 from repro_torch.core.engine import (  # noqa: F401
@@ -26,4 +27,13 @@ from repro_torch.core.streaming import (  # noqa: F401
     merge_states,
     solve,
     update_state,
+)
+from repro_torch.core.distributed import (  # noqa: F401
+    ShardGroup,
+    federated_solve,
+    federation_mesh,
+    make_federated_solve,
+    make_tiled_federated_solve,
+    psum_state,
+    psum_stats,
 )

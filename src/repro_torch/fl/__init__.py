@@ -9,12 +9,11 @@ failure taxonomy in :mod:`repro_torch.fl.errors`. All are re-exported here.
 The driver loop (:mod:`repro_torch.fl.afl`), the gradient baselines
 (:mod:`repro_torch.fl.baselines`) and the partitioners
 (:mod:`repro_torch.fl.partition`) stay submodules, as in the reference.
-The reference's ``ShardedCoordinator`` waits for ``torch.distributed``
-(ROADMAP Queue 1, item 6).
 """
 
 from repro_torch.fl.api import (AFLClient, AFLServer, ClientReport, Coordinator,
-                                GammaSweep, SCHEMA_VERSION, Transport,
+                                GammaSweep, SCHEMA_VERSION,
+                                ShardedCoordinator, Transport,
                                 VersionedWeights, evaluate_weight, make_report,
                                 masked_reports)
 from repro_torch.fl.async_server import AsyncAFLServer, SubmitAborted
@@ -47,6 +46,7 @@ __all__ = [
     "ReportLedger",
     "SCHEMA_VERSION",
     "ServiceError",
+    "ShardedCoordinator",
     "SubmitAborted",
     "Transport",
     "VersionedWeights",

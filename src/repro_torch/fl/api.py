@@ -23,11 +23,15 @@ The port of ``repro.fl.api``:
   * :class:`AFLServer` — the synchronous coordinator: host-f64 aggregation
     with a cached, rank-updatable Cholesky, γ sweeps, versioned weights and
     ``state`` / ``from_state`` checkpoints in the reference's schema.
+  * :class:`ShardedCoordinator` — the 1000-client backend: per-shard
+    host-f64 accumulators (or row tiles of one global Gram) solved as one
+    collective over an in-process shard mesh
+    (:mod:`repro_torch.core.distributed`), elastic (``grow`` / ``shrink`` /
+    exact resharding ``from_state``), with the same checkpoint schema.
 
 All aggregation math routes through
 :class:`repro_torch.core.engine.AnalyticEngine`; failure modes are the typed
-taxonomy of :mod:`repro_torch.fl.errors`. The sharded coordinator, which
-needs ``torch.distributed``, waits (ROADMAP Queue 1, item 6).
+taxonomy of :mod:`repro_torch.fl.errors`.
 """
 from __future__ import annotations
 
@@ -41,11 +45,15 @@ from typing import (Callable, Dict, Iterable, List, Optional, Protocol,
                     Sequence, Tuple, runtime_checkable)
 
 import numpy as np
+import torch
 
+from repro_torch.core.distributed import (federation_mesh, make_federated_solve,
+                                          make_tiled_federated_solve, mesh_devices)
 from repro_torch.core.engine import (AnalyticEngine, Factorization, SuffStats,
                                      SweepFactorization, SweepRefreshNeeded,
                                      to_numpy)
-from repro_torch.fl.errors import (BadRequest, DuplicateClient,
+from repro_torch.core.streaming import AnalyticState
+from repro_torch.fl.errors import (BadRequest, Backpressure, DuplicateClient,
                                    EmptyFederation, GammaMismatch)
 
 __all__ = [
@@ -60,6 +68,7 @@ __all__ = [
     "Coordinator",
     "Transport",
     "AFLServer",
+    "ShardedCoordinator",
 ]
 
 # ---------------------------------------------------------------------------
@@ -875,3 +884,549 @@ class AFLServer:
         srv._stats, srv._seen = _restore_stats(state, srv.gamma, dim)
         srv._version = len(srv._seen)
         return srv
+
+
+# ---------------------------------------------------------------------------
+# Sharded coordinator (the 1000-client backend)
+# ---------------------------------------------------------------------------
+
+
+class ShardedCoordinator:
+    """AFL coordination with the statistics sharded over a shard mesh.
+
+    The statistics of a K-client federation are a 4-leaf additive tuple, so
+    at K≥1000 the coordinator does not need one global host aggregate:
+    arrivals land in per-shard accumulators (host f64, so ingest stays exact
+    and lock-free), and ``solve()`` runs the whole aggregation stage —
+    per-shard partial sums → one psum → RI restore → Cholesky — as one
+    collective via :func:`repro_torch.core.distributed.make_federated_solve`,
+    each shard's (d, d) statistics uploaded to its own device.
+
+    The mesh is :func:`~repro_torch.core.distributed.federation_mesh`'s: one
+    thread a shard, shard ``i`` on ``devices[i % len(devices)]``
+    (``devices`` as given, else ``device`` alone, else every visible CUDA
+    device; ``device="cpu"`` runs on the CPU). Shards may share a card, so
+    eight shards run on one. Device arithmetic is ``dtype`` (f32 by
+    default, as jax's default precision; ``torch.float64`` is the
+    1e-6-vs-sync conformance path), with no global switch.
+
+    Placement is **load-aware** by default: ``submit`` routes each arrival
+    to the emptiest shard (ties broken cyclically, so uniform traffic
+    degenerates to exact round-robin), which keeps occupancy flat under
+    skewed arrival patterns and makes :meth:`rebalance` a recovery tool
+    rather than routine maintenance. ``placement="round_robin"`` keeps the
+    plain cursor (placement never changes the aggregate — the AA law makes
+    shard contents additive — only the occupancy profile). In this mode the
+    shards are logical: they group onto ``min(num_shards, len(devices))``
+    participants of the collective.
+
+    ``tiled_gram=True`` changes what a shard *holds*: instead of a whole
+    (d, d) partial aggregate per shard (psum of whole leaves), each shard
+    keeps only its (d/shards, d) **row tile of the one global Gram** — every
+    arrival's statistics are scattered across all tiles, so placement is the
+    aggregation and per-shard resident memory scales as d²/shards. There is
+    one participant a tile. ``solve()`` then runs
+    :func:`~repro_torch.core.distributed.make_tiled_federated_solve` with
+    ``distributed_factor=True`` (the default here): the factorization runs
+    tile-parallel on the shards where the Gram lives — panel owners
+    broadcast one (d, b) L-column per panel and every shard applies
+    trsm and the trailing update to its own rows through the panel kernels
+    — so no shard ever holds the full (d, d) system.
+    ``distributed_factor=False`` is the gather-then-factor collective (one
+    psum'd (d, d) system a shard). Dims that don't divide the shard count
+    are padded up to the next tile multiple (zero pad rows, unit diagonal
+    inside the solve, sliced away from the result — d=6144 on 7 shards
+    just works); the explicit error remains only when padding would exceed
+    one extra tile (e.g. dim=10 on 8 shards). A solve that comes back
+    non-finite (rank-deficient γ=0 ablations) falls back to the host
+    engine's pinv path on the merged statistics, and counts itself in
+    :attr:`host_fallbacks`: a caller that needs the device's answer reads
+    that count, since the host's answer is otherwise indistinguishable.
+
+    ``solve_multi_gamma`` / ``sweep`` run on the merged statistics through
+    the host engine — one eigendecomposition, every γ — matching
+    :class:`AFLServer` exactly, and ``state()`` speaks the reference's
+    checkpoint schema, so the coordinator kinds (of either package) are
+    interchangeable behind :class:`Coordinator`.
+    """
+
+    def __init__(self, dim: int, num_classes: int, gamma: float = 1.0,
+                 *, devices=None, device=None, dtype=None,
+                 placement: str = "load_aware", tiled_gram: bool = False,
+                 distributed_factor: bool = True,
+                 num_shards: Optional[int] = None):
+        self.dim = dim
+        self.num_classes = num_classes
+        self.gamma = gamma
+        self.engine = AnalyticEngine("numpy_f64", gamma=gamma)
+        self.tiled_gram = bool(tiled_gram)
+        self.dtype = dtype or torch.float32
+        self.devices = tuple(mesh_devices(devices, device))
+        if num_shards is not None and int(num_shards) < 1:
+            raise BadRequest(f"num_shards must be ≥1, got {num_shards}")
+        n_shards = len(self.devices) if num_shards is None else int(num_shards)
+        if placement not in ("load_aware", "round_robin"):
+            raise ValueError(f"unknown placement policy {placement!r} "
+                             "(load_aware | round_robin)")
+        self.placement = placement
+        self.distributed_factor = bool(distributed_factor)
+        if self.tiled_gram:
+            self._init_tiles(n_shards)
+            self._shards: List[SuffStats] = []
+        else:
+            self._shards = [
+                self.engine.init(dim, num_classes) for _ in range(n_shards)]
+        self.mesh = self._make_mesh(n_shards)
+        self._seen: set[int] = set()
+        self._order = 0
+        self._solve_fns: Dict[float, Callable] = {}
+        self._version = 0
+        self._mesh_epoch = 0
+        self._resizing = False
+        self._etag_salt = uuid.uuid4().hex[:8]
+        self._last_rebalance: Optional[Tuple[int, int]] = None
+        # solves whose device answer was non-finite and was replaced by the
+        # host engine's (the γ = 0 pinv fallback)
+        self.host_fallbacks = 0
+
+    # -- elastic-mesh plumbing ----------------------------------------------
+
+    def _make_mesh(self, n_shards: int) -> tuple:
+        """The participants backing ``n_shards``: one a tile in tiled mode,
+        else as many as there are devices (logical shards group onto
+        them)."""
+        n_dev = (n_shards if self.tiled_gram
+                 else min(n_shards, len(self.devices)))
+        try:
+            return federation_mesh(n_dev, self.devices)
+        except ValueError as exc:
+            raise BadRequest(str(exc)) from None
+
+    @staticmethod
+    def _plan_tile_rows(dim: int, n_shards: int) -> int:
+        """Rows per tile for ``dim`` over ``n_shards`` — indivisible dims
+        pad up to the next tile multiple; prefer 8-row-aligned tiles
+        (panel widths divide the tile) when alignment keeps the pad under
+        one tile."""
+        rows = -(-dim // n_shards)
+        if rows >= 16:
+            r8 = ((rows + 7) // 8) * 8
+            if n_shards * r8 - dim < r8:
+                rows = r8
+        if n_shards * rows - dim >= rows:
+            raise BadRequest(
+                f"tiled_gram would pad dim={dim} by a full tile on "
+                f"{n_shards} shards (tile_rows={rows}) — use fewer "
+                f"shards or a wider head")
+        return rows
+
+    def _init_tiles(self, n_shards: int) -> None:
+        rows = self._plan_tile_rows(self.dim, n_shards)
+        self._tile_rows = rows
+        self._dim_padded = n_shards * rows
+        self._gram_tiles: List[np.ndarray] = [
+            np.zeros((rows, self._dim_padded)) for _ in range(n_shards)]
+        self._moment_tiles: List[np.ndarray] = [
+            np.zeros((rows, self.num_classes)) for _ in range(n_shards)]
+        self._count = 0.0
+
+    def _scatter_tiles(self, gram: np.ndarray, moment: np.ndarray) -> None:
+        """Place true-dim aggregate rows into the per-shard row tiles
+        (pad rows stay zero) — the tiled restore/retile primitive."""
+        r = self._tile_rows
+        for i in range(self.num_shards):
+            lo, hi = i * r, min(i * r + r, self.dim)
+            if hi > lo:
+                self._gram_tiles[i][:hi - lo, :self.dim] = gram[lo:hi]
+                self._moment_tiles[i][:hi - lo] = moment[lo:hi]
+
+    def _check_resizing(self) -> None:
+        if self._resizing:
+            raise Backpressure(
+                f"mesh resize in flight (epoch {self._mesh_epoch} → "
+                f"{self._mesh_epoch + 1}) — back off and retry")
+
+    @property
+    def mesh_epoch(self) -> int:
+        """Bumps on every completed :meth:`grow`/:meth:`shrink`. In-flight
+        requests that race a resize get a retryable backpressure error, so
+        an epoch observed around a call brackets which mesh answered it."""
+        return self._mesh_epoch
+
+    @property
+    def num_shards(self) -> int:
+        return (len(self._gram_tiles) if self.tiled_gram
+                else len(self._shards))
+
+    @property
+    def num_clients(self) -> int:
+        return len(self._seen)
+
+    @property
+    def version(self) -> int:
+        """Submission epoch (see :meth:`AFLServer.version`)."""
+        return self._version
+
+    def _place(self) -> int:
+        """Pick the shard for the next arrival: emptiest under the default
+        load-aware policy (cyclic tie-break from the round-robin cursor, so
+        equal occupancy IS round-robin), or the plain cursor."""
+        n = self.num_shards
+        if self.placement == "round_robin":
+            i = self._order % n
+            self._order += 1
+            return i
+        occ = self.occupancy()
+        low = min(occ)
+        for off in range(n):
+            j = (self._order + off) % n
+            if occ[j] == low:
+                self._order = j + 1
+                return j
+        raise AssertionError("unreachable: some shard holds the minimum")
+
+    def submit(self, report: ClientReport) -> bool:
+        """Merge one upload — into the emptiest shard (load-aware default),
+        or scattered as row tiles across every shard in tiled-Gram mode.
+        Returns True — the sharded backend keeps no host factor cache to
+        invalidate (the device program refactors per solve), so every
+        arrival 'survives'."""
+        self._check_resizing()
+        upload = _ingest_upload(report, dim=self.dim, gamma=self.gamma,
+                                seen=self._seen)
+        if self.tiled_gram:
+            gram = np.asarray(upload.gram, np.float64)
+            moment = np.asarray(upload.moment, np.float64)
+            r = self._tile_rows
+            for i in range(self.num_shards):
+                lo, hi = i * r, min(i * r + r, self.dim)
+                if hi > lo:
+                    self._gram_tiles[i][:hi - lo, :self.dim] += gram[lo:hi]
+                    self._moment_tiles[i][:hi - lo] += moment[lo:hi]
+            self._count += float(upload.count)
+        else:
+            i = self._place()
+            self._shards[i] = self.engine.merge(self._shards[i], upload)
+        self._seen.add(report.client_id)
+        self._version += 1
+        return True
+
+    def submit_many(self, reports: Iterable[ClientReport]) -> None:
+        for r in reports:
+            self.submit(r)
+
+    def occupancy(self) -> List[int]:
+        """Per-shard residency: clients per shard (the signal load-aware
+        placement and :meth:`rebalance` act on), or — in tiled-Gram mode,
+        where every client's statistics span all shards — the per-shard
+        resident Gram rows (always balanced by construction)."""
+        if self.tiled_gram:
+            return [self._tile_rows] * self.num_shards
+        return [int(s.clients) for s in self._shards]
+
+    def rebalance(self) -> Optional[Tuple[int, int]]:
+        """Migrate the fullest shard's statistics into the emptiest.
+
+        The AA law makes shard contents additive, so migration is a merge:
+        the aggregate — and therefore every solve — is invariant under it.
+        This is the primitive mid-federation mesh growth / load-aware
+        placement builds on: a new empty shard can absorb the hottest
+        shard's load in O(d²) host work, no device traffic. The freed shard
+        becomes the next round-robin target, so future arrivals fill the
+        vacated slot first.
+
+        Returns ``(src, dst)`` shard indices, or ``None`` when there is
+        nothing to move: fewer than 2 shards, the fullest holds at most one
+        more client than the emptiest, tiled-Gram mode (tiles are balanced
+        by construction), or the candidate move would just undo this
+        epoch's previous migration (without this guard,
+        ``while coord.rebalance(): ...`` would ping-pong the same blob
+        between two shards forever — at most one migration is performed per
+        submission epoch).
+        """
+        self._check_resizing()
+        if self.tiled_gram:
+            return None
+        occ = self.occupancy()
+        if len(occ) < 2:
+            return None
+        src = int(np.argmax(occ))
+        dst = int(np.argmin(occ))
+        if occ[src] - occ[dst] <= 1:
+            return None
+        if self._last_rebalance == (self._version, src):
+            return None                    # would re-move this epoch's blob
+        self._shards[dst] = self.engine.merge(self._shards[dst],
+                                              self._shards[src])
+        self._shards[src] = self.engine.init(self.dim, self.num_classes)
+        self._order = src                  # fill the vacated shard next
+        self._last_rebalance = (self._version, dst)
+        return src, dst
+
+    def grow(self, n: int = 1) -> int:
+        """Admit ``n`` fresh empty shards mid-federation.
+
+        Exact by the AA law: the aggregate is a sum over shards and the new
+        shards join empty, so every solve is invariant. Load-aware placement
+        then fills the admitted shards first. In tiled-Gram mode the global
+        Gram is re-tiled to the new row plan. Returns the new
+        :attr:`mesh_epoch`.
+        """
+        if int(n) < 1:
+            raise BadRequest(f"grow() admits ≥1 shard, got {n}")
+        return self._resize(self.num_shards + int(n))
+
+    def shrink(self, n: int = 1) -> int:
+        """Retire the ``n`` highest-numbered shards, folding their
+        statistics into the survivors (shard ``i`` → ``i % remaining`` —
+        merge = migration, so solves are invariant). At least one shard must
+        survive. Returns the new :attr:`mesh_epoch`."""
+        if int(n) < 1:
+            raise BadRequest(f"shrink() retires ≥1 shard, got {n}")
+        if int(n) >= self.num_shards:
+            raise BadRequest(
+                f"cannot retire {n} of {self.num_shards} shards — at least "
+                "one must survive")
+        return self._resize(self.num_shards - int(n))
+
+    def _resize(self, new_count: int) -> int:
+        """Re-shard to ``new_count`` under the epoch guard: validate the new
+        mesh and tile plan FIRST (a rejected resize must leave the
+        coordinator untouched), then migrate, then bump the epoch. Requests
+        racing the migration window get retryable :class:`Backpressure`."""
+        new_count = int(new_count)
+        if new_count == self.num_shards:
+            return self._mesh_epoch
+        if self.tiled_gram:
+            rows = self._plan_tile_rows(self.dim, new_count)
+        new_mesh = self._make_mesh(new_count)
+        self._resizing = True
+        try:
+            if self.tiled_gram:
+                agg = self._merged()       # true-dim rows, old tile plan
+                self._tile_rows = rows
+                self._dim_padded = new_count * rows
+                self._gram_tiles = [
+                    np.zeros((rows, self._dim_padded))
+                    for _ in range(new_count)]
+                self._moment_tiles = [
+                    np.zeros((rows, self.num_classes))
+                    for _ in range(new_count)]
+                self._scatter_tiles(np.asarray(agg.gram, np.float64),
+                                    np.asarray(agg.moment, np.float64))
+            elif new_count > self.num_shards:
+                self._shards = self._shards + [
+                    self.engine.init(self.dim, self.num_classes)
+                    for _ in range(new_count - self.num_shards)]
+            else:
+                kept = list(self._shards[:new_count])
+                for i in range(new_count, self.num_shards):
+                    j = i % new_count
+                    kept[j] = self.engine.merge(kept[j], self._shards[i])
+                self._shards = kept
+            self.mesh = new_mesh
+            self._solve_fns.clear()        # built for the old mesh
+            self._last_rebalance = None
+            self.new_etag_salt()           # old-epoch tokens must die here
+            self._mesh_epoch += 1
+        finally:
+            self._resizing = False
+        return self._mesh_epoch
+
+    def _merged(self) -> SuffStats:
+        if self.tiled_gram:
+            # the tiles ARE the aggregate, partitioned by (padded) rows
+            d = self.dim
+            return SuffStats(
+                gram=np.concatenate(self._gram_tiles, 0)[:d, :d],
+                moment=np.concatenate(self._moment_tiles, 0)[:d],
+                count=float(self._count),
+                clients=float(len(self._seen)),
+            )
+        agg = self._shards[0]
+        for s in self._shards[1:]:
+            agg = self.engine.merge(agg, s)
+        return agg
+
+    def _stacked(self):
+        """Per-shard statistics stacked on a leading federation dim, as the
+        3-leaf :class:`~repro_torch.core.streaming.AnalyticState` the
+        collective consumes (host f64 tensors; clients bookkeeping is
+        irrelevant under RI).
+
+        Logical shards may outnumber the mesh's participants (non-tiled
+        shards are host accumulators); participant ``g`` then carries the
+        host-f64 merge of logical shards ``g, g+m, g+2m, …`` — additive, so
+        the psummed aggregate is unchanged."""
+        m = len(self.mesh)
+        if m == self.num_shards:
+            groups: List[SuffStats] = self._shards
+        else:
+            groups = []
+            for g in range(m):
+                agg = self._shards[g]
+                for s in self._shards[g + m::m]:
+                    agg = self.engine.merge(agg, s)
+                groups.append(agg)
+        return AnalyticState(
+            gram=torch.from_numpy(np.stack([s.gram for s in groups])),
+            moment=torch.from_numpy(np.stack([s.moment for s in groups])),
+            count=torch.from_numpy(np.stack(
+                [np.float64(s.count) for s in groups])),
+        )
+
+    def solve(self, target_gamma: float = 0.0) -> np.ndarray:
+        """One collective: psum the sharded statistics (whole leaves, or
+        row tiles placed into the global system in tiled-Gram mode),
+        RI-restore, solve."""
+        self._check_resizing()
+        if not self._seen:
+            raise EmptyFederation("no clients aggregated")
+        key = float(target_gamma)
+        fn = self._solve_fns.get(key)
+        if fn is None:
+            if self.tiled_gram:
+                fn = make_tiled_federated_solve(
+                    self.mesh, target_gamma=key,
+                    distributed_factor=self.distributed_factor,
+                    dim=self.dim, dtype=self.dtype)
+            else:
+                fn = make_federated_solve(
+                    self.mesh, gamma=self.gamma, target_gamma=key,
+                    dtype=self.dtype)
+            self._solve_fns[key] = fn
+        if self.tiled_gram:
+            w = to_numpy(fn(self._gram_tiles, self._moment_tiles))
+        else:
+            w = to_numpy(fn(self._stacked()))
+        if not np.isfinite(w).all():
+            # singular system (rank-deficient γ=0 ablation): the device
+            # Cholesky surfaces NaNs by design — reroute to the host
+            # engine's pinv fallback on the merged statistics
+            self.host_fallbacks += 1
+            return np.asarray(
+                self.engine.solve(self._merged(), use_ri=True,
+                                  target_gamma=key), np.float64)
+        return w
+
+    def solve_multi_gamma(self, gammas: Sequence[float]) -> list[np.ndarray]:
+        """γ model sweep on the merged statistics (host engine, one eigh) —
+        identical math to :meth:`AFLServer.solve_multi_gamma`."""
+        self._check_resizing()
+        if not self._seen:
+            raise EmptyFederation("no clients aggregated")
+        return self.engine.solve_multi_gamma(self._merged(), gammas)
+
+    def sweep(self, gammas: Sequence[float], holdout) -> GammaSweep:
+        return _sweep_from_weights(
+            self.solve_multi_gamma(gammas), gammas, holdout)
+
+    def _etag(self, target_gamma: float) -> str:
+        return f"{self._etag_salt}-{self._version}-{float(target_gamma)!r}"
+
+    def new_etag_salt(self) -> str:
+        """Refresh the instance ETag salt (see
+        :meth:`AFLServer.new_etag_salt`) — called by :meth:`_resize`, so a
+        token minted against one mesh epoch can never revalidate against
+        another."""
+        self._etag_salt = uuid.uuid4().hex[:8]
+        return self._etag_salt
+
+    def weights(self, target_gamma: float = 0.0, *,
+                if_etag: Optional[str] = None) -> VersionedWeights:
+        """Versioned solved-head download (see :meth:`AFLServer.weights`)."""
+        tag = self._etag(target_gamma)
+        if if_etag is not None and str(if_etag) == tag:
+            return VersionedWeights(self._version, float(target_gamma),
+                                    None, tag)
+        return VersionedWeights(self._version, float(target_gamma),
+                                self.solve(target_gamma), tag)
+
+    def state(self) -> Dict[str, np.ndarray]:
+        """Same checkpoint schema as :meth:`AFLServer.state` — coordinator
+        kinds are interchangeable across a save/restore boundary — plus
+        ``shard_clients``, the per-shard occupancy (extra keys are ignored
+        by every ``from_state``, so interchange still holds)."""
+        self._check_resizing()
+        agg = self._merged()
+        return {
+            "gram": self.engine.regularized_gram(agg).copy(),
+            "moment": agg.moment.copy(),
+            "gram_diag_raw": np.array(np.diag(agg.gram), np.float64),
+            "seen": np.array(sorted(self._seen), np.int64),
+            "gamma": np.float64(self.gamma),
+            "count": np.float64(agg.count),
+            "shard_clients": np.array(self.occupancy(), np.int64),
+        }
+
+    def _restore_split(self, stats: SuffStats,
+                       shard_clients=None) -> None:
+        """Split a restored aggregate across the shards as disjoint row
+        blocks: shard ``i`` holds rows ``[i·r, (i+1)·r)`` of the aggregate
+        Gram/moment and zeros elsewhere, so the shard sum reproduces the
+        aggregate *bitwise* (0 + x = x) on any shard count. The sample
+        count rides whole on shard 0 for the same reason.
+
+        Occupancy is reconstructed from the checkpointed ``shard_clients``
+        folded onto this shard count (old shard ``i`` → ``i % n``). Tiled
+        checkpoints record resident rows there, not clients — when the
+        folded counts don't account for every seen client, fall back to an
+        even client split."""
+        n = self.num_shards
+        dim = self.dim
+        gram = np.asarray(stats.gram, np.float64)
+        moment = np.asarray(stats.moment, np.float64)
+        clients = None
+        if shard_clients is not None:
+            folded = [0] * n
+            for i, c in enumerate(np.asarray(shard_clients, np.int64)):
+                folded[i % n] += int(c)
+            if sum(folded) == int(stats.clients):
+                clients = folded
+        if clients is None:
+            k, rem = divmod(int(stats.clients), n)
+            clients = [k + (1 if i < rem else 0) for i in range(n)]
+        r = -(-dim // n)
+        shards = []
+        for i in range(n):
+            g = np.zeros((dim, dim))
+            m = np.zeros((dim, moment.shape[1]))
+            lo, hi = i * r, min(i * r + r, dim)
+            if hi > lo:
+                g[lo:hi] = gram[lo:hi]
+                m[lo:hi] = moment[lo:hi]
+            shards.append(SuffStats(
+                gram=g, moment=m,
+                count=float(stats.count) if i == 0 else 0.0,
+                clients=float(clients[i])))
+        self._shards = shards
+
+    @classmethod
+    def from_state(cls, state: Dict[str, np.ndarray],
+                   num_classes: Optional[int] = None, *,
+                   devices=None, device=None, dtype=None,
+                   placement: str = "load_aware", tiled_gram: bool = False,
+                   distributed_factor: bool = True,
+                   num_shards: Optional[int] = None,
+                   ) -> "ShardedCoordinator":
+        """Cold-start from any coordinator kind's checkpoint (of either
+        package), on ANY shard count — resharding is exact because the
+        statistics are additive (merge = migration). ``num_shards``
+        defaults to one per device."""
+        dim, classes = _validate_state(state, num_classes)
+        coord = cls(dim, classes, float(state["gamma"]), devices=devices,
+                    device=device, dtype=dtype, placement=placement,
+                    tiled_gram=tiled_gram,
+                    distributed_factor=distributed_factor,
+                    num_shards=num_shards)
+        stats, seen = _restore_stats(state, coord.gamma, dim)
+        coord._seen = seen
+        if tiled_gram:
+            coord._scatter_tiles(np.asarray(stats.gram, np.float64),
+                                 np.asarray(stats.moment, np.float64))
+            coord._count = float(stats.count)
+        else:
+            coord._restore_split(stats, state.get("shard_clients"))
+        coord._order = len(coord._seen)
+        coord._version = len(coord._seen)
+        return coord

@@ -8,8 +8,8 @@ layers that compose but never leak into each other:
   * :class:`FederationService` — wraps ANY
     :class:`~repro_torch.fl.api.Coordinator` (sync
     :class:`~repro_torch.fl.api.AFLServer`, event-loop
-    :class:`~repro_torch.fl.async_server.AsyncAFLServer`; the reference's
-    mesh-sharded coordinator waits, ROADMAP Queue 1 item 6) behind a routed
+    :class:`~repro_torch.fl.async_server.AsyncAFLServer`, mesh-sharded
+    :class:`~repro_torch.fl.api.ShardedCoordinator`) behind a routed
     bytes-in / bytes-out API: ``describe``, ``submit``, ``submit_stream`` (framed
     multi-report uploads with backpressure derived from the async queue's
     ``pending``), ``solve`` / ``solve_multi_gamma`` / ``sweep`` (the γ

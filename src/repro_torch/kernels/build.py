@@ -16,6 +16,7 @@ import dataclasses
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -39,6 +40,9 @@ class Build:
 
 
 _LOADED: dict[Path, Build] = {}
+# one load at a time: the shards of a mesh reach a kernel's first build
+# from threads of their own
+_LOADING = threading.Lock()
 
 
 def _target(source: Path) -> Path:
@@ -51,6 +55,11 @@ def _target(source: Path) -> Path:
 
 def load(*sources: Path) -> list[Build]:
     """Build (where needed, in parallel) and load each source, in order."""
+    with _LOADING:
+        return _load(sources)
+
+
+def _load(sources) -> list[Build]:
     todo = [Path(s) for s in sources if Path(s) not in _LOADED]
     started = []
     for source in todo:

@@ -91,6 +91,7 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 
 #include "gemm_nt.cuh"
@@ -201,19 +202,23 @@ using F32Narrow = afl_gemm::FfmaTile<24, 16, 4, 4, 16>;
 using F64Mid = afl_gemm::DmmaTile<2, 2, 16, 3>;
 using F64Narrow = afl_gemm::DmmaTile<2, 2, 64, 2, 4>;
 
+// The shards of a mesh launch from threads of their own, so the flags
+// are atomic: two threads may both set the (idempotent) attribute, and
+// neither reads a flag another is writing. This is the only static state
+// of the file.
 template <class Kernel>
-int prepare_once(Kernel kernel, int bytes, bool (&done)[64]) {
+int prepare_once(Kernel kernel, int bytes, std::atomic<bool> (&done)[64]) {
   int dev = 0;
   if (int err = static_cast<int>(cudaGetDevice(&dev))) return err;
-  if (dev >= 0 && dev < 64 && done[dev]) return 0;
+  if (dev >= 0 && dev < 64 && done[dev].load(std::memory_order_acquire)) return 0;
   if (int err = prepare(kernel, bytes)) return err;
-  if (dev >= 0 && dev < 64) done[dev] = true;
+  if (dev >= 0 && dev < 64) done[dev].store(true, std::memory_order_release);
   return 0;
 }
 
 template <class Tile, class Epi, class T>
 int launch_tile(const afl_gemm::Problem<T>& p, Epi epi, cudaStream_t stream) {
-  static bool prepared[64] = {};
+  static std::atomic<bool> prepared[64];   // static storage: all false
   const dim3 grid((p.n + Tile::kCols - 1) / Tile::kCols, (p.m + Tile::kRows - 1) / Tile::kRows);
   auto kernel = gemm_nt_kernel<Tile, Epi, T>;
   constexpr int kBytes = Tile::template smem_bytes<Epi>();

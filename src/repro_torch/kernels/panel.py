@@ -15,13 +15,14 @@ row stride larger than the width is passed to the kernel, so a column slab
 of a larger matrix is read or written where it lies. ``kernels.ops``
 dispatches between these wrappers (CUDA tensors) and the plain versions in
 ``kernels.ref`` (CPU tensors). Each wrapper counts its launches in
-``.launches``.
+``.launches`` (under a lock: the shards of a mesh launch from threads).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -55,6 +56,16 @@ def build() -> _build.Build:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return built
+
+
+_LAUNCHES = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    """One more launch of ``wrapper``, under a lock: the shards of a
+    ``core.distributed.ShardGroup`` launch from threads of their own."""
+    with _LAUNCHES:
+        wrapper.launches += 1
 
 
 def _entry(name: str, dtype: torch.dtype):
@@ -118,7 +129,7 @@ def panel_factor(diag: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(diag.data_ptr(), ld, b, l.data_ptr(), z.data_ptr(), stream)
     _check(err, "panel_factor")
-    panel_factor.launches += 1
+    _count(panel_factor)
     return l, z
 
 
@@ -133,7 +144,7 @@ def panel_tri_inv(l: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(l.data_ptr(), ld, b, z.data_ptr(), stream)
     _check(err, "panel_tri_inv")
-    panel_tri_inv.launches += 1
+    _count(panel_tri_inv)
     return z
 
 
@@ -152,7 +163,7 @@ def panel_trsm(raw: torch.Tensor, zinv: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(raw.data_ptr(), ldr, zinv.data_ptr(), ldz, out.data_ptr(), b, r, b, stream)
     _check(err, "panel_trsm")
-    panel_trsm.launches += 1
+    _count(panel_trsm)
     return out
 
 
@@ -182,7 +193,7 @@ def panel_update(trail: torch.Tensor, lp: torch.Tensor, pt: torch.Tensor, *,
         err = fn(trail.data_ptr(), ldt, lp.data_ptr(), ldl, pt.data_ptr(), ldp,
                  out.data_ptr(), ldo, r, w, b, stream)
     _check(err, "panel_update")
-    panel_update.launches += 1
+    _count(panel_update)
     return out
 
 

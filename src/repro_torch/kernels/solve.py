@@ -23,9 +23,10 @@ backward substitution as products with those inverses.
 
 The schedules :func:`tile_cholesky_factor` and :func:`tile_cholesky_solve`
 keep the reference's signatures: each takes one shard's (r, d) row tile of
-the system and the collectives ``gather`` and ``psum`` as callables, so a
-``torch.distributed`` caller plugs in later. :func:`streamed_cholesky` and
-:func:`streamed_cholesky_solve` are their one-shard instances. The
+the system and the collectives ``gather`` and ``psum`` as callables: ``core.distributed`` runs them on
+every shard of a mesh at once, with its collectives.
+:func:`streamed_cholesky` and :func:`streamed_cholesky_solve` are their
+one-shard instances. The
 schedule is the reference's to the letter, full-height column slabs masked
 afterwards, so that one shard stays bit-for-bit the distributed path. It
 does about d³ flops where a factor needs d³/3: the masked rows above each
@@ -118,7 +119,7 @@ def _pad_spd(a: torch.Tensor, d_p: int) -> torch.Tensor:
 
 
 def tile_cholesky_factor(tile: torch.Tensor, *, shard, n_shards: int, gather,
-                         block: int, use_kernel: bool = True):
+                         block: int, use_kernel: bool = True, in_place: bool = False):
     """Blocked right-looking Cholesky of a row-tiled global system.
 
     ``tile`` is this shard's ``(r, d)`` row slab of the global SPD system
@@ -127,15 +128,15 @@ def tile_cholesky_factor(tile: torch.Tensor, *, shard, n_shards: int, gather,
     (``x[None]`` locally). ``block`` must divide ``r`` (see
     :func:`panel_width`) so each panel has one owner shard. Returns this
     shard's rows of the clean lower factor, and the per-panel inverse
-    diagonal blocks. ``tile`` is not modified: the factor is built in place
-    in one copy of it.
+    diagonal blocks. The factor is built in one copy of ``tile``, or, with
+    ``in_place``, in ``tile`` itself (which is then returned).
     """
     r, d_p = tile.shape
     b = block
     k = panels(tile.device, use_kernel)
     rows_g = shard * r + torch.arange(r, device=tile.device)
     zero = torch.zeros((), dtype=tile.dtype, device=tile.device)
-    work = tile.clone()
+    work = tile if in_place else tile.clone()
     zs = []
     for p in range(d_p // b):
         o = p * b

@@ -9,9 +9,12 @@ families' caches wait (ROADMAP Queue 1, item 8).
 
 ``--federation`` serves an AFL federation instead: a ``FederationService``
 over HTTP or the mux protocol (optionally TLS and a bearer token) hosting a
-host-f64 coordinator (``--coordinator sync|async``), with the durable
+coordinator (``--coordinator sync|async|sharded``), with the durable
 submit ledger, snapshots, and the warm-standby and read-only replica roles.
-It needs no card. The sharded coordinator waits (ROADMAP Queue 1, item 6).
+The sync and async kinds are host f64 and need no card; the sharded kind
+(``--shards N``, ``--tiled`` for the row-tiled Gram) accumulates in host
+f64 and solves over a shard mesh on ``--device`` (every visible card by
+default; ``--device cpu`` for the CPU).
 
 Usage (the card; ``--device cpu`` runs the plain versions on the CPU, and
 ``--reduced`` the smoke-test variant of the config; unlike the reference's
@@ -23,6 +26,8 @@ launcher, the default is the full config):
   PYTHONPATH=src python -m repro_torch.launch.serve --federation \\
       --coordinator async --dim 2304 --classes 16 --port 8790 \\
       --ledger-dir /path/to/ledger
+  PYTHONPATH=src python -m repro_torch.launch.serve --federation \\
+      --coordinator sharded --shards 8 --tiled --dim 2304 --classes 16
 """
 
 from __future__ import annotations
@@ -111,23 +116,24 @@ def _make_endpoint(service, args):
 
 def serve_federation(args) -> None:
     """Host a FederationService over HTTP or mux until interrupted."""
-    from repro_torch.fl import AFLServer, AsyncAFLServer
+    from repro_torch.fl import AFLServer, AsyncAFLServer, ShardedCoordinator
     from repro_torch.fl.service import FederationService
 
-    if args.coordinator == "sharded" or args.shards is not None or args.tiled:
-        raise SystemExit(
-            "the sharded coordinator (--coordinator sharded, --shards, "
-            "--tiled) is not ported to torch yet: it needs torch.distributed "
-            "(ROADMAP Queue 1 item 6)")
+    # the shard mesh's devices come from --device (default: every card)
+    shard_kw = dict(num_shards=args.shards, tiled_gram=args.tiled,
+                    device=args.device)
     cls_kw = {
         "sync": (AFLServer, {}),
         "async": (AsyncAFLServer, {"max_pending": args.max_pending}),
+        "sharded": (ShardedCoordinator, shard_kw),
     }[args.coordinator]
     kinds = {
         "sync": lambda: AFLServer(args.dim, args.classes, gamma=args.gamma),
         "async": lambda: AsyncAFLServer(args.dim, args.classes,
                                         gamma=args.gamma,
                                         max_pending=args.max_pending),
+        "sharded": lambda: ShardedCoordinator(args.dim, args.classes,
+                                              gamma=args.gamma, **shard_kw),
     }
 
     if args.standby_of or args.replica:
@@ -147,9 +153,12 @@ def serve_federation(args) -> None:
                                 ledger_dir=args.ledger_dir,
                                 auth_token=args.auth_token)
     with service, _make_endpoint(service, args) as srv:
+        shards = getattr(coordinator, "num_shards", None)
         print(f"federation up: {srv.url}  "
               f"(coordinator={args.coordinator} d={args.dim} "
-              f"C={args.classes} γ={args.gamma:g})")
+              f"C={args.classes} γ={args.gamma:g}"
+              + (f" shards={shards} tiled={args.tiled}" if shards else "")
+              + ")")
         if args.tls_cert:
             print(f"  TLS: {args.tls_cert}"
                   + (f" (client certs required: {args.tls_client_ca})"
@@ -270,18 +279,20 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
-                         "versions on the CPU)")
+                         "versions on the CPU); with --federation, where the "
+                         "sharded coordinator's shards solve")
     fed = ap.add_argument_group("federation serving")
     fed.add_argument("--federation", action="store_true",
                      help="serve an AFL FederationService over HTTP (or "
-                          "--mux) instead of LLM decode; needs no card")
+                          "--mux) instead of LLM decode (no card, but for "
+                          "the sharded coordinator's solves)")
     fed.add_argument("--dim", type=int, default=256)
     fed.add_argument("--classes", type=int, default=50)
     fed.add_argument("--gamma", type=float, default=1.0)
     fed.add_argument("--coordinator", default="sync",
                      choices=["sync", "async", "sharded"],
-                     help="sync: AFLServer; async: AsyncAFLServer; sharded "
-                          "is not ported yet (ROADMAP Queue 1 item 6)")
+                     help="sync: AFLServer; async: AsyncAFLServer; sharded: "
+                          "ShardedCoordinator over a shard mesh on --device")
     fed.add_argument("--host", default="127.0.0.1")
     fed.add_argument("--port", type=int, default=8790)
     fed.add_argument("--mux", action="store_true",
@@ -301,11 +312,11 @@ def main(argv=None) -> None:
     fed.add_argument("--max-pending", type=int, default=None,
                      help="ingest high-watermark (HTTP 429 past it)")
     fed.add_argument("--shards", type=int, default=None,
-                     help="sharded coordinator: shard count (not ported "
-                          "yet, ROADMAP Queue 1 item 6)")
+                     help="sharded coordinator: shard count (default: one "
+                          "a device)")
     fed.add_argument("--tiled", action="store_true",
-                     help="sharded coordinator: row-tiled global Gram "
-                          "(not ported yet, ROADMAP Queue 1 item 6)")
+                     help="sharded coordinator: row-tiled global Gram, "
+                          "factored tile-parallel on the shards")
     fed.add_argument("--restore-from", default=None,
                      help="cold-start the coordinator from this checkpoint "
                           "directory (e.g. a snapshotd snap-*)")

@@ -4,7 +4,12 @@ The port of ``repro.launch.train``'s analytic mode on one device: frozen
 backbone forward → Gram statistics folded batch by batch (on CUDA through
 the hand-written Gram kernel with ``--kernel``) → one ``ClientReport`` →
 an ``AFLServer`` solves in host f64 (in this process, or behind a
-federation service at ``--server-url``) → linear head → accuracy.
+federation service at ``--server-url``) → linear head → accuracy. With
+``--shards N`` (and ``--tiled``) a ``ShardedCoordinator`` aggregates
+instead and solves over a mesh of N shards on the device, as the
+reference's does over a multi-device jax mesh; the reference takes the
+shard count from its mesh, the port from the flag (N shards share one
+card).
 
 Usage (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \\
@@ -12,6 +17,9 @@ Usage (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
 Against a federation (``python -m repro_torch.launch.serve --federation``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \\
       --reduced --classes 8 --server-url http://127.0.0.1:8790
+Through the sharded coordinator (8 shards, row-tiled Gram):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \\
+      --reduced --classes 8 --shards 8 --tiled
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.engine import to_numpy
 from repro_torch.data import synthetic as D
 from repro_torch.device import resolve_device
-from repro_torch.fl.api import AFLClient, AFLServer, ClientReport
+from repro_torch.fl.api import (AFLClient, AFLServer, ClientReport,
+                                ShardedCoordinator)
 from repro_torch.models import transformer as T
 
 
@@ -67,8 +76,9 @@ def run_analytic(cfg, train_ds, test_ds, fl: FLConfig, batch: int,
     ``models.convert.params_from_jax``). The report goes to a
     :class:`~repro_torch.fl.service.RemoteCoordinator` when ``server_url``
     points at a live federation service (``launch/serve.py
-    --federation``), else to ``coordinator``, which defaults to a fresh
-    ``AFLServer``; a caller that passes its own can solve the same
+    --federation``), else to ``coordinator`` (e.g. a
+    :class:`~repro_torch.fl.api.ShardedCoordinator`), which defaults to a
+    fresh ``AFLServer``; a caller that passes its own can solve the same
     aggregate again afterwards (e.g. at other γ). Returns (test accuracy,
     seconds from the first forward to the solved head).
     """
@@ -105,7 +115,7 @@ def run_analytic(cfg, train_ds, test_ds, fl: FLConfig, batch: int,
     return float(correct / max(total, 1)), train_s
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", required=True)
@@ -124,10 +134,16 @@ def main() -> None:
                     help="submit to a FederationService at this URL instead "
                          "of aggregating in-process (see launch/serve.py "
                          "--federation)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="aggregate in a ShardedCoordinator of this many "
+                         "shards on --device (one thread a shard)")
+    ap.add_argument("--tiled", action="store_true",
+                    help="with --shards: row-tiled global Gram, factored "
+                         "tile-parallel on the shards")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions on the CPU)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if args.mode != "analytic":
         raise SystemExit(f"--mode {args.mode} is not ported to torch yet "
                          "(ROADMAP Queue 1 item 8)")
@@ -143,10 +159,19 @@ def main() -> None:
         num_classes=args.classes, seed=0)
     train_ds, test_ds = D.train_test_split(ds, 0.25, seed=0)
     fl = FLConfig(gamma=args.gamma)
+    coordinator = None
+    if args.shards is not None:
+        coordinator = ShardedCoordinator(cfg.d_model, cfg.num_classes,
+                                         gamma=fl.gamma, num_shards=args.shards,
+                                         tiled_gram=args.tiled, device=dev)
+    elif args.tiled:
+        ap.error("--tiled needs --shards")
     acc, dt = run_analytic(cfg, train_ds, test_ds, fl, args.batch,
                            use_kernel=args.kernel, device=dev,
-                           server_url=args.server_url)
-    where = f" via {args.server_url}" if args.server_url else ""
+                           coordinator=coordinator, server_url=args.server_url)
+    where = (f" via {args.server_url}" if args.server_url else
+             f" over {args.shards} shards" + (" (tiled)" if args.tiled else "")
+             if args.shards is not None else "")
     print(f"AFL analytic: acc={acc:.4f} train_time={dt:.2f}s (one epoch, "
           f"single aggregation{where})")
 

@@ -2,10 +2,15 @@
 
 The cases of tests/test_coordinator_conformance.py (its
 ``TestCoordinatorConformance``) run over the port's kinds: the synchronous
-``AFLServer``, the event-loop ``AsyncAFLServer``, and a
+``AFLServer``, the event-loop ``AsyncAFLServer``, the ``ShardedCoordinator``
+(four shards of f32 device arithmetic on the CPU), and a
 ``RemoteCoordinator`` over real loopback HTTP and over the mux transport
 (TLS and a bearer token) in front of a port ``AFLServer``, at the
-reference's ``TOL``. Where the reference's own cases fail in this
+reference's ``TOL`` (loose for the sharded kind's f32 solve, as there).
+The reference's x64 subprocess checks run in process: the sharded kind in
+f64 (``dtype=torch.float64``) within 1e-6 of the sync server, and the
+K = 1000 round of ``benchmarks/fig2_clients.py`` through the sharded
+backend. Where the reference's own cases fail in this
 environment (its sharded kind, the state round trips), nothing here is
 pinned to them: every weight is held to ``core.analytic.ridge_solve`` (the
 ``numpy_f64`` oracle) or to an in-process port ``AFLServer``. Then
@@ -29,20 +34,24 @@ from repro.fl import ClientReport as RefReport
 from repro_torch.core import analytic as al
 from repro_torch.fl import (AFLServer, AsyncAFLServer, Coordinator,
                             FederationService, GammaSweep, RemoteCoordinator,
-                            Transport, VersionedWeights,
+                            ShardedCoordinator, Transport, VersionedWeights,
                             generate_self_signed_cert, make_report,
                             masked_reports, serve_http, serve_mux,
                             server_ssl_context)
 
 DIM, C, GAMMA = 24, 5, 1.0
-KINDS = ["sync", "async", "remote", "mux"]
-# tests/test_coordinator_conformance.py's TOL for these kinds
+KINDS = ["sync", "async", "sharded", "remote", "mux"]
+# tests/test_coordinator_conformance.py's TOL for these kinds: the sharded
+# kind solves in f32 device arithmetic
 TOL = {"sync": dict(rtol=1e-8, atol=1e-10),
        "async": dict(rtol=1e-8, atol=1e-10),
+       "sharded": dict(rtol=1e-3, atol=2e-3),
        "remote": dict(rtol=1e-8, atol=1e-10),
        "mux": dict(rtol=1e-8, atol=1e-10)}
 
 _MUX_TOKEN = "conformance-suite-token"
+# four shards, four participants of the collective, on the CPU
+_SHARDS = dict(devices=["cpu"] * 4)
 
 
 @functools.lru_cache(maxsize=1)
@@ -93,6 +102,8 @@ async def _serve_mux(server):
 async def _make(kind, **kw):
     if kind == "sync":
         yield AFLServer(DIM, C, gamma=GAMMA, **kw)
+    elif kind == "sharded":
+        yield ShardedCoordinator(DIM, C, gamma=GAMMA, **_SHARDS)
     elif kind == "remote":
         async with _serve_remote(AFLServer(DIM, C, gamma=GAMMA, **kw)) as rc:
             yield rc
@@ -108,6 +119,8 @@ async def _make(kind, **kw):
 async def _restore(kind, state):
     if kind == "sync":
         yield AFLServer.from_state(state)
+    elif kind == "sharded":
+        yield ShardedCoordinator.from_state(state, **_SHARDS)
     elif kind == "remote":
         async with _serve_remote(AFLServer.from_state(state)) as rc:
             yield rc
@@ -184,6 +197,9 @@ class TestCoordinatorConformance:
                 return np.asarray(w), [np.asarray(v) for v in ws]
 
         w, ws = asyncio.run(body())
+        if kind == "sharded":
+            np.testing.assert_allclose(w, w_ref, **TOL[kind])
+            return
         np.testing.assert_array_equal(w, w_ref)
         for got, ref in zip(ws, sweep_ref):
             np.testing.assert_array_equal(got, ref)
@@ -234,7 +250,8 @@ class TestCoordinatorConformance:
                 return w0, await _call(coord.solve())
 
         w0, w1 = asyncio.run(body())
-        np.testing.assert_allclose(w1, w0, rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(w1, w0, rtol=1e-9,
+                                   atol=1e-6 if kind == "sharded" else 1e-12)
 
     def test_solve_before_any_arrival_raises(self, kind):
         async def body():
@@ -259,7 +276,8 @@ class TestCoordinatorConformance:
         sweep, singles = asyncio.run(body())
         assert len(sweep) == len(gammas)
         for w_sweep, w_single in zip(sweep, singles):
-            np.testing.assert_allclose(w_sweep, w_single, rtol=1e-6, atol=1e-8)
+            np.testing.assert_allclose(w_sweep, w_single, rtol=1e-6,
+                                       atol=2e-3 if kind == "sharded" else 1e-8)
 
     def test_sweep_scores_holdout_and_picks_best(self, kind):
         x, y, reps = _reports()
@@ -298,7 +316,8 @@ class TestCoordinatorConformance:
                 return w0, w1, w_all
 
         w0, w1, w_all = asyncio.run(body())
-        np.testing.assert_allclose(w1, w0, rtol=1e-6, atol=1e-10)
+        np.testing.assert_allclose(w1, w0, rtol=1e-6,
+                                   atol=1e-4 if kind == "sharded" else 1e-10)
         np.testing.assert_allclose(w_all, al.ridge_solve(x, y, 0.0), **TOL[kind])
 
     def test_state_interchangeable_across_kinds(self, kind):
@@ -312,7 +331,8 @@ class TestCoordinatorConformance:
         state, w = asyncio.run(body())
         srv = AFLServer.from_state(state)
         assert srv.num_clients == len(reps)
-        np.testing.assert_allclose(srv.solve(), w, rtol=1e-5, atol=1e-10)
+        np.testing.assert_allclose(srv.solve(), w, rtol=1e-5,
+                                   atol=2e-3 if kind == "sharded" else 1e-10)
 
     def test_masked_cohort_aggregates_exactly(self, kind):
         x, y, reps = _reports(seed=3)
@@ -324,7 +344,9 @@ class TestCoordinatorConformance:
                 return await _call(coord.solve())
 
         w = asyncio.run(body())
-        np.testing.assert_allclose(w, al.ridge_solve(x, y, 0.0), rtol=1e-6, atol=1e-7)
+        loose = dict(rtol=1e-3, atol=2e-3) if kind == "sharded" \
+            else dict(rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(w, al.ridge_solve(x, y, 0.0), **loose)
 
     def test_weights_are_versioned_with_staleness_token(self, kind):
         _, _, reps = _reports()
@@ -346,7 +368,8 @@ class TestCoordinatorConformance:
         assert not other_gamma.not_modified and other_gamma.etag != vw.etag
         assert fresh.etag != vw.etag and not fresh.not_modified
         assert fresh.version != vw.version
-        np.testing.assert_allclose(fresh.weight, w_now, rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(fresh.weight, w_now, rtol=1e-9,
+                                   atol=1e-6 if kind == "sharded" else 1e-12)
 
 
 # --- across the two packages ---------------------------------------------------------
@@ -426,3 +449,61 @@ def test_remote_solved_head_bit_for_bit_at_f64(kind):
     np.testing.assert_array_equal(w_half, inproc.solve(0.5))
     for w_remote, w_local in zip(multi, inproc.solve_multi_gamma([0.0, 0.1, 1.0])):
         np.testing.assert_array_equal(w_remote, w_local)
+
+
+# --- the sharded kind in f64, and at K = 1000 -------------------------------------
+
+def test_f64_sharded_matches_sync_1e6():
+    """The reference's x64 check (tests/test_coordinator_conformance.py:
+    579-626) in process: eight f64 shards (``dtype=torch.float64``, no
+    global switch) against the sync server within 1e-6 at two target γs,
+    within 1e-9 of the joint f64 ridge solve, and the same sweep."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    d, c, k, per = 32, 5, 64, 8
+    x = rng.standard_normal((k, per, d))
+    y = np.eye(c)[rng.integers(0, c, (k, per))]
+    sync = AFLServer(d, c, gamma=1.0)
+    shard = ShardedCoordinator(d, c, gamma=1.0, devices=["cpu"] * 8, dtype=torch.float64)
+    tiled = ShardedCoordinator(d, c, gamma=1.0, devices=["cpu"] * 8, dtype=torch.float64,
+                               tiled_gram=True)
+    assert shard.num_shards == tiled.num_shards == 8
+    for i in range(k):
+        r = make_report(i, x[i], y[i], 1.0)
+        sync.submit(r)
+        shard.submit(r)
+        tiled.submit(r)
+    for coord in (shard, tiled):
+        for tg in (0.0, 0.5):
+            assert np.abs(coord.solve(tg) - sync.solve(tg)).max() < 1e-6
+        w_ref = al.ridge_solve(x.reshape(-1, d), y.reshape(-1, c), 0.0)
+        assert np.abs(sync.solve() - w_ref).max() < 1e-12
+        assert np.abs(coord.solve() - w_ref).max() < 1e-9
+        for w_a, w_b in zip(sync.solve_multi_gamma([0.0, 0.1, 1.0]),
+                            coord.solve_multi_gamma([0.0, 0.1, 1.0])):
+            assert np.abs(w_a - w_b).max() < 1e-9
+
+
+def test_fig2_k1000_goes_through_sharded_coordinator():
+    """Figure 2's K = 1000 (NIID-1 α = 0.1) on benchmarks/common.py's
+    feature data, through the sharded backend (eight f32 shards): every
+    client lands, and the accuracy is the in-process round's within 0.02,
+    as the reference's test holds its own
+    (tests/test_coordinator_conformance.py:648-662)."""
+    from repro_torch.config import FLConfig
+    from repro_torch.data import synthetic as D
+    from repro_torch.fl import afl
+
+    from benchmarks.common import FEATURES
+
+    train, test = D.train_test_split(D.gaussian_mixture(**FEATURES), 0.25, seed=0)
+    fl = FLConfig(num_clients=1000, partition="niid1", alpha=0.1)
+    coord = ShardedCoordinator(train.x.shape[1], train.num_classes, gamma=fl.gamma,
+                               devices=["cpu"] * 8)
+    res = afl.run_afl(train, test, fl, coordinator=coord)
+    assert coord.num_clients == 1000 and coord.num_shards == 8
+    assert sum(coord.occupancy()) == 1000
+    assert max(coord.occupancy()) - min(coord.occupancy()) <= 1
+    ref = afl.run_afl(train, test, fl)
+    assert abs(res.accuracy - ref.accuracy) < 0.02

@@ -1249,3 +1249,96 @@ def test_run_analytic_posts_to_a_federation_service(cuda, tmp_path, coordinator)
     np.testing.assert_allclose(w_remote, local.solve(), rtol=1e-4,
                                atol=1e-4 * float(np.abs(local.solve()).max()))
     assert acc == acc_local
+
+
+# --- the sharded coordinator's tile-parallel solve -------------------------------
+#
+# core.distributed runs one thread a shard; here eight shards share one card,
+# so the panel kernels run from eight threads at once on its stream.
+
+SHARDED_COUNTS = {torch.float32: [128, 128, 120, 0], torch.float64: [192, 192, 184, 0]}
+
+
+def _panel_counts():
+    return [f.launches for f in (P.panel_factor, P.panel_trsm, P.panel_update,
+                                 P.panel_tri_inv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tiled_solve_8_shards_on_one_card(cuda, dtype):
+    """d = 2304 as 8 row tiles of 288 on cuda:0 through the distributed
+    factor: panels of 144 in f32 (16) and 96 in f64 (24), so the kernels
+    launch n·P / n·P / n·(P−1) times and panel_tri_inv never; the weight
+    matches the plain route on the card (f32: relative 1e-4) and numpy
+    (f64: 1e-10), and a second solve gives the same bits."""
+    from repro_torch.core import distributed as DD
+
+    d, c, n = 2304, 16, 8
+    x, y = _data(11, 4 * d, d, c, torch.float64, cuda)
+    g, q = (x.T @ x).to(dtype), (x.T @ y).to(dtype)
+    fn = DD.make_tiled_federated_solve(DD.federation_mesh(n, [cuda]), target_gamma=0.5,
+                                       distributed_factor=True, dtype=dtype)
+    tiles, moments = g.reshape(n, d // n, d), q.reshape(n, d // n, c)
+    before = _panel_counts()
+    w = fn(tiles, moments)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_panel_counts(), before)] == SHARDED_COUNTS[dtype]
+    assert w.dtype == dtype and w.device.type == "cuda" and w.shape == (d, c)
+    assert torch.equal(fn(tiles, moments), w)
+    assert torch.equal(tiles.reshape(d, d), g)     # each shard factors its own upload
+    a = g + 0.5 * torch.eye(d, dtype=dtype, device=cuda)
+    if dtype == torch.float32:
+        w_plain = S.streamed_cholesky_solve(S.streamed_cholesky(a, use_kernel=False), q,
+                                            use_kernel=False)
+        assert _rel(w, w_plain) < 1e-4
+    else:
+        w_np = np.linalg.solve(a.cpu().numpy(), q.cpu().numpy())
+        assert _rel(w.cpu(), torch.from_numpy(w_np)) < 1e-10
+
+
+@pytest.mark.cuda
+def test_sharded_coordinator_on_one_card(cuda):
+    """ShardedCoordinator(tiled_gram=True, num_shards=8) on cuda:0, padded
+    (d = 300 over 8 shards of 40 rows), against the host f64 oracle."""
+    from repro_torch.fl import AFLServer, ShardedCoordinator, make_report
+
+    d, c = 300, 6
+    rng = np.random.default_rng(3)
+    reps = [make_report(k, rng.standard_normal((200, d)),
+                        np.eye(c)[rng.integers(0, c, 200)], 1.0) for k in range(4)]
+    oracle = AFLServer(d, c, gamma=1.0)
+    oracle.submit_many(reps)
+    for dtype, bar in ((torch.float32, 1e-3), (torch.float64, 1e-10)):
+        coord = ShardedCoordinator(d, c, tiled_gram=True, num_shards=8, devices=[cuda],
+                                   dtype=dtype)
+        assert coord.mesh == (torch.device("cuda", 0),) * 8
+        coord.submit_many(reps)
+        w = coord.solve(0.5)
+        np.testing.assert_array_equal(coord.solve(0.5), w)
+        assert coord.host_fallbacks == 0           # the card's answer, not the host's
+        assert np.abs(w - oracle.solve(0.5)).max() < bar * np.abs(oracle.solve(0.5)).max()
+
+
+@pytest.mark.cuda
+def test_failing_shard_on_the_card_raises_without_hanging(cuda):
+    """Shard 3 launches panel_factor on a block wider than the kernel
+    takes while the others wait in a collective on the card: the caller
+    gets that ValueError at once, and the card still works."""
+    import time
+
+    from repro_torch.core import distributed as DD
+
+    def body(s):
+        col = s.gather(torch.full((4, 4), float(s.index), device=s.device))
+        if s.index == 3:
+            P.panel_factor(torch.eye(300, device=s.device))
+        return s.psum(col.sum())
+
+    t0 = time.perf_counter()
+    with pytest.raises(ValueError, match="panel width 300"):
+        DD.ShardGroup(DD.federation_mesh(8, [cuda])).run(body)
+    assert time.perf_counter() - t0 < 10.0
+    totals = DD.ShardGroup(DD.federation_mesh(8, [cuda])).run(
+        lambda s: s.psum(torch.ones((), device=s.device)))
+    assert [float(t) for t in totals] == [8.0] * 8

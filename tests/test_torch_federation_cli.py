@@ -249,3 +249,99 @@ def test_serve_federation_over_mux_with_tls_and_a_token(tmp_path):
             np.testing.assert_array_equal(rc.solve(), _oracle(reps).solve())
         finally:
             rc.close()
+
+
+# --- the sharded coordinator ------------------------------------------------------
+
+
+def test_serve_sharded_tiled_federation_grows_and_shrinks_over_the_wire(tmp_path):
+    """``--coordinator sharded --shards 4 --tiled --device cpu``: the served
+    head is, bit for bit, an in-process ``ShardedCoordinator`` of the same
+    configuration fed the same reports, within the f32 tolerance of the
+    host f64 oracle; ``grow`` / ``shrink`` over the wire re-tile it and
+    bump ``describe``'s ``mesh_epoch``; its state restores in an
+    ``AFLServer`` to the oracle's bits; ``tools/torch_snapshotd.py`` pulls
+    it, and ``tools/torch_standbyd.py --once`` and the daemon's
+    ``restore`` bring it back on other shard counts."""
+    from repro_torch.checkpoint import SnapshotDaemon
+    from repro_torch.fl import ShardedCoordinator
+
+    reps = _reports(6, seed=11)
+    oracle = _oracle(reps)
+    inproc = ShardedCoordinator(DIM, C, gamma=GAMMA, num_shards=4, tiled_gram=True,
+                                device="cpu")
+    inproc.submit_many(reps)
+    ledger, snaps = tmp_path / "ledger", tmp_path / "snaps"
+    with _Served("--coordinator", "sharded", "--shards", "4", "--tiled", "--device", "cpu",
+                 "--dim", str(DIM), "--classes", str(C), "--ledger-dir", str(ledger)) as srv:
+        assert any("shards=4 tiled=True" in line for line in srv.out)
+        rc = RemoteCoordinator(srv.url)
+        try:
+            rc.submit_many(reps)
+            info = rc.describe()
+            assert (info["num_shards"], info["mesh_epoch"]) == (4, 0)
+            assert rc.kind == "ShardedCoordinator"
+            w = rc.solve()
+            np.testing.assert_array_equal(w, inproc.solve())
+            np.testing.assert_allclose(w, oracle.solve(), rtol=1e-3, atol=2e-3)
+            for verb, n, shards, epoch in (("grow", 2, 6, 1), ("shrink", 3, 3, 2)):
+                assert getattr(rc, verb)(n) == epoch
+                info = rc.describe()
+                assert (info["num_shards"], info["mesh_epoch"]) == (shards, epoch)
+                np.testing.assert_allclose(rc.solve(), oracle.solve(), rtol=1e-3, atol=2e-3)
+            np.testing.assert_array_equal(AFLServer.from_state(rc.state()).solve(),
+                                          oracle.solve())
+        finally:
+            rc.close()
+        res = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_snapshotd.py"),
+                              "--url", srv.url, "--dir", str(snaps), "--once"],
+                             cwd=ROOT, env=_env(), capture_output=True, text=True,
+                             timeout=120)
+        assert res.returncode == 0, res.stderr[-3000:]
+        assert "snap-000000000006-000002" in res.stdout
+    res = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_standbyd.py"),
+                          "--ledger-dir", str(ledger), "--snapshot-dir", str(snaps),
+                          "--coordinator", "sharded", "--shards", "5", "--device", "cpu",
+                          "--once"], cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ShardedCoordinator with 6 clients" in res.stdout and "on 5 shards" in res.stdout
+    restored = SnapshotDaemon(srv.url, directory=snaps).restore(
+        ShardedCoordinator, num_shards=2, tiled_gram=True, device="cpu")
+    assert restored.num_shards == 2 and restored.num_clients == 6
+    np.testing.assert_array_equal(restored.solve_multi_gamma([0.3])[0],
+                                  oracle.solve_multi_gamma([0.3])[0])
+
+
+def test_serve_sharded_restores_from_a_checkpoint(tmp_path):
+    """``--coordinator sharded --restore-from``: a sync server's checkpoint
+    cold-starts the served coordinator through
+    ``ShardedCoordinator.from_state`` on the flag's shard count."""
+    from repro_torch import checkpoint as ckpt
+
+    reps = _reports(5, seed=12)
+    src = AFLServer(DIM, C, gamma=GAMMA)
+    src.submit_many(reps[:4])
+    ckpt.save_server(tmp_path / "ck", src)
+    with _Served("--coordinator", "sharded", "--shards", "3", "--device", "cpu",
+                 "--dim", str(DIM), "--classes", str(C),
+                 "--restore-from", str(tmp_path / "ck")) as srv:
+        assert any("restored sharded coordinator" in line for line in srv.out)
+        rc = RemoteCoordinator(srv.url)
+        try:
+            info = rc.describe()
+            assert (info["num_shards"], info["num_clients"]) == (3, 4)
+            rc.submit(reps[4])
+            sweep = rc.solve_multi_gamma([0.2])
+        finally:
+            rc.close()
+    np.testing.assert_array_equal(sweep[0], _oracle(reps).solve_multi_gamma([0.2])[0])
+
+
+def test_train_cli_through_the_sharded_coordinator():
+    """``launch/train.py --shards 4 --tiled``: the reduced trainer's head
+    solved over four f32 shards gets the one-shard run's accuracy."""
+    acc_local, _ = _train()
+    acc_sharded, out = _train("--shards", "4", "--tiled")
+    assert "over 4 shards (tiled)" in out
+    assert acc_sharded == acc_local

@@ -267,6 +267,3 @@ def test_serve_cli(capsys):
             "--prompt-len", "12", "--gen", "3"])
     out = capsys.readouterr().out
     assert "prefill:" in out and "tok/s" in out and "reduced=True" in out
-    for extra in (["--coordinator", "sharded"], ["--shards", "2"], ["--tiled"]):
-        with pytest.raises(SystemExit, match="Queue 1 item 6"):
-            S.main(["--federation", *extra])
