@@ -41,8 +41,6 @@ class ModelConfig:
               ``shared_attn_every`` layers (zamba2)
     xlstm   — mLSTM stack with an sLSTM block every ``slstm_every`` (xLSTM)
     encdec  — bidirectional encoder + causal decoder w/ cross-attn (seamless)
-
-    Only ``dense`` has a forward pass in this package so far.
     """
 
     name: str

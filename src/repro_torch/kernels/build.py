@@ -2,8 +2,8 @@
 
 Each source under ``csrc/`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/`` at the root of the checkout, once
-per content (the file name carries a hash of the source and of the
-``*.cuh`` headers beside it, which sources include), and loaded with
+per content (the file name carries a hash of the source, of the ``*.cuh``
+headers beside it, which sources include, and of the flags), and loaded with
 ``ctypes``. :func:`load` starts one ``nvcc`` for each source
 not built yet, all at once, and waits for them together. A failed build
 raises; nothing falls back to another route.
@@ -23,8 +23,11 @@ from pathlib import Path
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+# -split-compile=0: each source's kernels are optimised on every core (the
+# flash kernel's template instances build in 52 s, not 159, on the H100
+# machine's 8 cores; the same times and results)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-split-compile=0", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # a solve-side kernel's entry point for each scalar type: afl_<kernel>_<suffix>
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -46,7 +49,7 @@ _LOADING = threading.Lock()
 
 
 def _target(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     tag = digest.hexdigest()[:12]

@@ -7,7 +7,9 @@
 //
 // with group = Hq / Hkv. Query row s sits at absolute position
 // t = q_offset + s; key k is visible when k < Skv, k <= t (causal) and
-// k > t − window (with a window). Masked logits are −1e30 and their
+// k > t − window (with a window). With a logit softcap c > 0 each scaled
+// logit x becomes tanh(x / c) · c before the mask, as the reference's sdpa
+// caps them (grok1: c = 30). Masked logits are −1e30 and their
 // probabilities exactly 0; a row that sees no key comes out as zeros.
 // Inputs are f32 or bf16, each with its own strides (the head dim
 // contiguous); bf16 stays bf16 in shared memory and is widened to f32 when
@@ -60,7 +62,8 @@
 //     rows × D/16 columns of acc. At D = 256 the block holds Q, two slots
 //     and P, 214 KB. Bound: the f32 FMAs.
 //
-// In every regime q is staged as it is and the scale multiplies the logits;
+// In every regime q is staged as it is and the scale multiplies the logits
+// (then the softcap caps them, where there is one);
 // the block computes the key band its rows can see and
 // loops over it only; keys outside a row's band are masked by position,
 // and the ragged ends of Sq, Skv and D are bounds checks, not padding
@@ -111,6 +114,7 @@ struct Problem {
   int hkv, group, skv, d;
   int rows;              // group · sq packed rows per (batch, kv head)
   float scale;
+  float softcap;         // > 0: logits x -> tanh(x / softcap) · softcap
   int causal, has_window, window, q_offset;
   int vec;               // rows and strides of q, k, v allow 4-element loads
   int vec_o;             // o allows 4-element stores
@@ -125,6 +129,14 @@ __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
 __device__ __forceinline__ void narrow(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// a raw dot product as a logit: scaled, then capped (CAP: the problem's softcap
+// > 0). CAP is a template parameter, so the uncapped kernels carry no tanhf.
+template <bool CAP>
+__device__ __forceinline__ float logit(float a, const Problem& pb) {
+  const float x = a * pb.scale;
+  return CAP ? tanhf(x / pb.softcap) * pb.softcap : x;
+}
 
 // four consecutive values (16 bytes of f32, 8 of bf16, aligned) as f32
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -240,7 +252,7 @@ struct TileShape {
   static_assert(kTM * kRL == BQ && kTN * kCL == BK && kTC >= 1 && NT % 64 == 0, "tile");
 };
 
-template <typename T, int D, int BQ, int BK, int NT>
+template <typename T, int D, int BQ, int BK, int NT, bool CAP>
 __global__ void __launch_bounds__(NT)
 flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   T* __restrict__ o, Strides st, Problem pb, int tiles) {
@@ -348,7 +360,7 @@ flash_tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
         bool ok = !edge || kp < pb.skv;
         if (edge && pb.causal) ok = ok && kp <= pos[i];
         if (edge && pb.has_window) ok = ok && kp > pos[i] - pb.window;
-        s[i][j] = ok ? s[i][j] * pb.scale : kMasked;
+        s[i][j] = ok ? logit<CAP>(s[i][j], pb) : kMasked;
       }
 
     // online softmax: the row max over the warp's 8 key lanes, then the pair's
@@ -491,7 +503,7 @@ struct DecodeSmem {
 };
 
 // grid (chunks, B · Hkv); rows <= RB
-template <typename T, int D, int RB>
+template <typename T, int D, int RB, bool CAP>
 __global__ void __launch_bounds__(32 * kDecodeWarps)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     T* __restrict__ o, Strides st, Problem pb, Split sp, float* __restrict__ ws) {
@@ -561,7 +573,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         bool ok = kp < k_end;
         if (pb.causal) ok = ok && kp <= pos[r];
         if (pb.has_window) ok = ok && kp > pos[r] - pb.window;
-        s[r][u] = ok ? a * pb.scale : kMasked;
+        s[r][u] = ok ? logit<CAP>(a, pb) : kMasked;
       }
     }
 #pragma unroll
@@ -666,48 +678,58 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D, int BQ, int BK, int NT>
+template <typename T, int D, int BQ, int BK, int NT, bool CAP>
 int run_tile(const T* q, const T* k, const T* v, T* o, const Strides& st, const Problem& pb,
              int b, cudaStream_t stream) {
   using S = TileShape<T, D, BQ, BK, NT>;
   const int tiles = (pb.rows + BQ - 1) / BQ;
   const long long blocks = static_cast<long long>(tiles) * b * pb.hkv;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem(flash_tile_kernel<T, D, BQ, BK, NT>, S::kBytes);
+  const cudaError_t err = allow_smem(flash_tile_kernel<T, D, BQ, BK, NT, CAP>, S::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_tile_kernel<T, D, BQ, BK, NT><<<static_cast<unsigned>(blocks), NT, S::kBytes, stream>>>(
-      q, k, v, o, st, pb, tiles);
+  flash_tile_kernel<T, D, BQ, BK, NT, CAP>
+      <<<static_cast<unsigned>(blocks), NT, S::kBytes, stream>>>(q, k, v, o, st, pb, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, int RB>
+template <typename T, int D, int RB, bool CAP>
 int run_decode(const T* q, const T* k, const T* v, T* o, const Strides& st, const Problem& pb,
                const Split& sp, int splits, float* ws, int b, cudaStream_t stream) {
   const long long bhs = static_cast<long long>(b) * pb.hkv;
   if (bhs > 65535 || splits < 1 || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = DecodeSmem<T, D, RB>::bytes(pb.rows);
-  cudaError_t err = allow_smem(flash_decode_kernel<T, D, RB>, bytes);
+  cudaError_t err = allow_smem(flash_decode_kernel<T, D, RB, CAP>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_kernel<T, D, RB><<<dim3(splits, static_cast<unsigned>(bhs)), 32 * kDecodeWarps,
-                                  bytes, stream>>>(q, k, v, o, st, pb, sp, ws);
+  flash_decode_kernel<T, D, RB, CAP><<<dim3(splits, static_cast<unsigned>(bhs)),
+                                       32 * kDecodeWarps, bytes, stream>>>(q, k, v, o, st, pb,
+                                                                           sp, ws);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   flash_merge_kernel<T><<<static_cast<unsigned>(bhs), 256, 0, stream>>>(ws, o, st, pb, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 int run(const T* q, const T* k, const T* v, T* o, const Strides& st, const Problem& pb,
         const Split& sp, int splits, float* ws, int b, cudaStream_t stream) {
   if (pb.rows <= 2)
-    return run_decode<T, D, 2>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
+    return run_decode<T, D, 2, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
   if (pb.rows <= 8)
-    return run_decode<T, D, 8>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
+    return run_decode<T, D, 8, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
   if (pb.rows <= kDecodeMaxRows)
-    return run_decode<T, D, kDecodeMaxRows>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
-  if (pb.rows <= kShortMaxRows) return run_tile<T, D, 32, 32, 128>(q, k, v, o, st, pb, b, stream);
-  return run_tile<T, D, 64, 64, 256>(q, k, v, o, st, pb, b, stream);
+    return run_decode<T, D, kDecodeMaxRows, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
+  if (pb.rows <= kShortMaxRows)
+    return run_tile<T, D, 32, 32, 128, CAP>(q, k, v, o, st, pb, b, stream);
+  return run_tile<T, D, 64, 64, 256, CAP>(q, k, v, o, st, pb, b, stream);
+}
+
+template <typename T, bool CAP>
+int run_width(const T* q, const T* k, const T* v, T* o, const Strides& st, const Problem& pb,
+              const Split& sp, int splits, float* ws, int b, cudaStream_t stream) {
+  if (pb.d <= 64) return run<T, 64, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
+  if (pb.d <= 128) return run<T, 128, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
+  return run<T, 256, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
 }
 
 bool aligned(const void* p, size_t bytes) {
@@ -716,8 +738,9 @@ bool aligned(const void* p, size_t bytes) {
 
 template <typename T>
 int launch(const void* qv, const void* kv, const void* vv, void* ov, const long long* strides,
-           int b, int hq, int hkv, int sq, int skv, int d, float scale, int causal,
-           int has_window, int window, int q_offset, int vec, int split_lo, int split_hi,
+           int b, int hq, int hkv, int sq, int skv, int d, float scale, float softcap,
+           int causal, int has_window, int window, int q_offset, int vec, int split_lo,
+           int split_hi,
            int split_chunk, int splits, void* ws, void* stream_v) {
   if (b < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 || d < 1 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -735,6 +758,7 @@ int launch(const void* qv, const void* kv, const void* vv, void* ov, const long 
   pb.d = d;
   pb.rows = pb.group * sq;
   pb.scale = scale;
+  pb.softcap = softcap;
   pb.causal = causal;
   pb.has_window = has_window;
   pb.window = window;
@@ -751,15 +775,15 @@ int launch(const void* qv, const void* kv, const void* vv, void* ov, const long 
   T* o = static_cast<T*>(ov);
   float* w = static_cast<float*>(ws);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
-  if (d <= 64) return run<T, 64>(q, k, v, o, st, pb, sp, splits, w, b, stream);
-  if (d <= 128) return run<T, 128>(q, k, v, o, st, pb, sp, splits, w, b, stream);
-  return run<T, 256>(q, k, v, o, st, pb, sp, splits, w, b, stream);
+  if (softcap > 0.f) return run_width<T, true>(q, k, v, o, st, pb, sp, splits, w, b, stream);
+  return run_width<T, false>(q, k, v, o, st, pb, sp, splits, w, b, stream);
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, position) of q, k, v and o.
-// has_window = 0: no window; q_offset: absolute position of query row 0;
+// softcap <= 0: no logit cap; has_window = 0: no window; q_offset: absolute
+// position of query row 0;
 // vec = 1 only if d % 4 == 0, every pointer of q, k and v is 16-byte (f32) /
 // 8-byte (bf16) aligned and every stride is a multiple of 4. For
 // group · sq <= 16 (decode), keys [split_lo, split_hi) in `splits` chunks of
@@ -767,22 +791,22 @@ int launch(const void* qv, const void* kv, const void* vv, void* ov, const long 
 // group · sq · (d + 2) floats.
 extern "C" int afl_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                                        const long long* strides, int b, int hq, int hkv,
-                                       int sq, int skv, int d, float scale, int causal,
-                                       int has_window, int window, int q_offset, int vec,
-                                       int split_lo, int split_hi, int split_chunk, int splits,
-                                       void* ws, void* stream) {
-  return launch<float>(q, k, v, o, strides, b, hq, hkv, sq, skv, d, scale, causal, has_window,
-                       window, q_offset, vec, split_lo, split_hi, split_chunk, splits, ws,
-                       stream);
+                                       int sq, int skv, int d, float scale, float softcap,
+                                       int causal, int has_window, int window, int q_offset,
+                                       int vec, int split_lo, int split_hi, int split_chunk,
+                                       int splits, void* ws, void* stream) {
+  return launch<float>(q, k, v, o, strides, b, hq, hkv, sq, skv, d, scale, softcap, causal,
+                       has_window, window, q_offset, vec, split_lo, split_hi, split_chunk,
+                       splits, ws, stream);
 }
 
 extern "C" int afl_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                         const long long* strides, int b, int hq, int hkv,
-                                        int sq, int skv, int d, float scale, int causal,
-                                        int has_window, int window, int q_offset, int vec,
-                                        int split_lo, int split_hi, int split_chunk,
+                                        int sq, int skv, int d, float scale, float softcap,
+                                        int causal, int has_window, int window, int q_offset,
+                                        int vec, int split_lo, int split_hi, int split_chunk,
                                         int splits, void* ws, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, strides, b, hq, hkv, sq, skv, d, scale, causal,
-                               has_window, window, q_offset, vec, split_lo, split_hi,
+  return launch<__nv_bfloat16>(q, k, v, o, strides, b, hq, hkv, sq, skv, d, scale, softcap,
+                               causal, has_window, window, q_offset, vec, split_lo, split_hi,
                                split_chunk, splits, ws, stream);
 }

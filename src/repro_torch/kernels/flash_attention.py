@@ -1,4 +1,5 @@
-"""CUDA kernel: flash attention (causal / GQA / sliding window / q_offset).
+"""CUDA kernel: flash attention (causal / GQA / sliding window / q_offset /
+logit softcap).
 
 The port of the Pallas TPU kernel ``repro.kernels.flash_attention.
 flash_attention``. It carries the backbone's attention on the card: the
@@ -50,7 +51,7 @@ SPLIT_STEP = 4           # keys a decode warp takes at a time: chunks are multip
 SPLIT_MIN_CHUNK = 16     # the 4 warps' first step: no chunk is shorter
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] * 6 + [ctypes.c_float] + [_I] * 9 + [_P, _P]
+_ARGTYPES = [_P] * 5 + [_I] * 6 + [ctypes.c_float] * 2 + [_I] * 9 + [_P, _P]
 _INT_MAX = 2**31 - 1
 
 
@@ -94,16 +95,18 @@ def decode_plan(b: int, hkv: int, sq: int, skv: int, *, causal: bool, window: Op
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None, q_offset: int = 0) -> torch.Tensor:
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
     """Attention of ``q (B, Hq, Sq, D)`` over ``k, v (B, Hkv, Skv, D)`` through
     the CUDA kernel, with the semantics of ``kernels.ref.mha_ref``.
 
     Query head ``h`` reads kv head ``h // (Hq // Hkv)``; query row ``s``
     sits at position ``q_offset + s`` and sees key ``j`` when ``j <= q_offset
     + s`` (``causal``) and ``j > q_offset + s - window`` (``window`` not
-    None); a row that sees no key is zeros. f32 or bf16 CUDA tensors of one
-    type on one device, ``D <= 256`` with the last dim contiguous; the
-    result has the inputs' type. Launches on the current stream;
+    None); a row that sees no key is zeros. ``softcap > 0`` caps each
+    scaled logit ``x`` to ``tanh(x / softcap) · softcap`` before the mask.
+    f32 or bf16 CUDA tensors of one type on one device, ``D <= 256`` with
+    the last dim contiguous; the result has the inputs' type. Launches on the current stream;
     ``flash_attention.launches`` counts the calls that launched,
     ``flash_attention.cuda_launches`` their kernels (two for a decode split
     over several chunks, else one).
@@ -129,6 +132,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention kernel takes head dims 1..{MAX_HEAD_DIM}, got {d}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel needs the head dim contiguous (stride 1)")
+    if not softcap >= 0:
+        raise ValueError(f"flash_attention kernel: softcap must be >= 0 (0: none), got {softcap}")
     scale = d ** -0.5 if scale is None else float(scale)
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     if o.numel() == 0:
@@ -156,8 +161,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
-                 b, hq, hkv, sq, skv, d, scale, int(bool(causal)), int(has_window),
-                 window or 0, int(q_offset), int(_vector_loads((q, k, v), d)),
+                 b, hq, hkv, sq, skv, d, scale, float(softcap), int(bool(causal)),
+                 int(has_window), window or 0, int(q_offset), int(_vector_loads((q, k, v), d)),
                  *split, None if ws is None else ws.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")

@@ -50,10 +50,11 @@ def panel_update(trail: torch.Tensor, lp: torch.Tensor, pt: torch.Tensor, *,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None, q_offset: int = 0) -> torch.Tensor:
-    """Causal / GQA / sliding-window attention: the CUDA kernel on the card,
-    else the plain ``ref.mha_ref``."""
-    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Causal / GQA / sliding-window attention, its logits optionally
+    softcapped: the CUDA kernel on the card, else the plain ``ref.mha_ref``."""
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset, softcap=softcap)
     if q.is_cuda:
         return _fa.flash_attention(q, k, v, **kw)
     return ref.mha_ref(q, k, v, **kw)

@@ -62,23 +62,29 @@ def attention_mask(sq: int, skv: int, *, causal: bool = True, window: Optional[i
     return mask
 
 
+def _cap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
+    return torch.tanh(logits / softcap) * softcap if softcap else logits
+
+
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
             window: Optional[int] = None, scale: Optional[float] = None,
-            q_offset: int = 0) -> torch.Tensor:
+            q_offset: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """Plain version of ``kernels.flash_attention.flash_attention``.
 
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) with Hq % Hkv == 0 (GQA).
     ``q_offset``: absolute position of q[0] (decode: Skv - Sq).
     ``window``: query at position t attends to keys in [t - window + 1, t]
-    (None = unbounded). The logits are materialized, in f32 throughout; a
-    fully masked row gives zeros.
+    (None = unbounded). ``softcap > 0``: each scaled logit ``x`` becomes
+    ``tanh(x / softcap) · softcap`` before the mask, as the reference's
+    ``layers.sdpa`` caps them. The logits are materialized, in f32
+    throughout; a fully masked row gives zeros.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
     scale = scale if scale is not None else d ** -0.5
     qf = (q.to(torch.float32) * scale).reshape(b, hkv, group, sq, d)
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(torch.float32))
+    logits = _cap(torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(torch.float32)), softcap)
     mask = attention_mask(sq, skv, causal=causal, window=window, q_offset=q_offset,
                           device=q.device)
     probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
@@ -89,14 +95,15 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool =
 
 def mha_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                   window: Optional[int] = None, scale: Optional[float] = None,
-                  q_offset: int = 0, sms: int = 132) -> torch.Tensor:
+                  q_offset: int = 0, softcap: float = 0.0, sms: int = 132) -> torch.Tensor:
     """Plain twin of ``csrc/flash_attention.cu``'s split-KV decode (its
     regime for group · Sq <= ``flash_attention.DECODE_MAX_ROWS``): the band
     of visible keys cut by the wrapper's ``decode_plan`` (for ``sms`` SMs),
     each chunk's partial (m, l, unnormalised acc) over its keys, masked
     logits ``MASKED`` and their probabilities exactly 0, so a chunk that
     sees no key adds nothing; then the partials rescaled by their max and
-    merged in chunk order, a row that sees no key giving zeros."""
+    merged in chunk order, a row that sees no key giving zeros. ``softcap``
+    as ``mha_ref``'s, applied to each chunk's logits before the mask."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -109,7 +116,8 @@ def mha_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: 
     ms, ls, accs = [], [], []
     for s in range(splits):
         k0, k1 = lo + s * chunk, min(lo + (s + 1) * chunk, hi)
-        logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k[:, :, k0:k1].to(torch.float32))
+        logits = _cap(torch.einsum("bhgqd,bhkd->bhgqk", qf, k[:, :, k0:k1].to(torch.float32)),
+                      softcap)
         logits = logits.masked_fill(~mask[:, k0:k1], MASKED)
         m = torch.cat([logits, torch.full_like(qf[..., :1], MASKED)], -1).amax(-1, keepdim=True)
         p = torch.where(logits > MASKED, torch.exp(logits - m), 0.0)

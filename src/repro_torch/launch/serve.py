@@ -1,11 +1,13 @@
 """Serving launcher: batched prefill, then greedy decode against a KV cache.
 
-The port of ``repro.launch.serve``. Its LLM-serving mode: a batch of
-prompts is prefilled in one forward pass that fills the per-layer KV cache,
-then each decode step feeds the previous step's greedy token at the next
-position. On the card every attention call is the hand-written flash
-kernel (``kernels/csrc/flash_attention.cu``). Dense archs only; the other
-families' caches wait (ROADMAP Queue 1, item 8).
+The port of ``repro.launch.serve``. Its LLM-serving mode serves any
+arch with its family's cache (KV for dense and moe, SSM / conv state and
+the shared block's KV for hybrid, recurrent state for xLSTM, self and
+cross-attention KV for enc-dec): a batch of prompts is prefilled in one
+forward pass that fills the cache, then each decode step feeds the
+previous step's greedy token at the next position. On the card every
+attention call is the hand-written flash kernel
+(``kernels/csrc/flash_attention.cu``).
 
 ``--federation`` serves an AFL federation instead: a ``FederationService``
 over HTTP or the mux protocol (optionally TLS and a bearer token) hosting a
@@ -271,7 +273,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default=None,
-                    help="LLM serving arch (dense family), e.g. gemma3_12b")
+                    help="LLM serving arch (any family), e.g. gemma3_12b")
     ap.add_argument("--reduced", action="store_true",
                     help="the config's smoke-test variant (default: full width)")
     ap.add_argument("--batch", type=int, default=4)

@@ -1,7 +1,10 @@
 """Training launcher: AFL analytic training of a backbone+head, end to end.
 
 The port of ``repro.launch.train``'s analytic mode on one device: frozen
-backbone forward → Gram statistics folded batch by batch (on CUDA through
+backbone forward (any family whose input is tokens alone: dense, moe,
+hybrid, xlstm; as in the reference, the enc-dec and VLM archs would need
+their modality stubs, which the token-classification data lacks) → Gram
+statistics folded batch by batch (on CUDA through
 the hand-written Gram kernel with ``--kernel``) → one ``ClientReport`` →
 an ``AFLServer`` solves in host f64 (in this process, or behind a
 federation service at ``--server-url``) → linear head → accuracy. With
@@ -146,7 +149,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.mode != "analytic":
         raise SystemExit(f"--mode {args.mode} is not ported to torch yet "
-                         "(ROADMAP Queue 1 item 8)")
+                         "(ROADMAP Queue 1 item 8: its training half)")
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -134,19 +134,16 @@ def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, softcap=0.0,
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), query heads grouped
     ``(hkv, group)`` for GQA; query row ``s`` sits at position ``q_offset +
     s``; ``window`` None or <= 0 means no window. On CUDA tensors this is
-    the hand-written flash kernel (``kernels.ops.flash_attention``), which
-    has no logit softcap. On the CPU it is plain torch: products in f32,
+    the hand-written flash kernel (``kernels.ops.flash_attention``), the
+    softcap included. On the CPU it is plain torch: products in f32,
     masked logits ``-1e30``; up to ``Sq·Skv = 2²²`` the logits are
     materialized, past that an online softmax walks ``q_chunk × kv_chunk``
     blocks, so prefill-length logits never exist at once.
     """
     if q.is_cuda:
-        if softcap:
-            raise NotImplementedError(
-                "a logit softcap is not ported to the card: the flash kernel has none "
-                "(ROADMAP Queue 1, item 8: grok1 is the only config with one)")
         win = None if window is None or window <= 0 else int(window)
-        return ops.flash_attention(q, k, v, causal=causal, window=win, q_offset=q_offset)
+        return ops.flash_attention(q, k, v, causal=causal, window=win, q_offset=q_offset,
+                                   softcap=softcap)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv

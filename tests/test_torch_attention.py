@@ -8,7 +8,9 @@ of that file, with its tolerances: rtol 2e-5 / atol 4e-4 in f32, 2e-2 /
 0.4 in bf16 (both packages round the f32 result to bf16, so an output may
 land one bf16 step apart). ``kernels.ref.mha_split_ref``, the plain twin of
 the CUDA kernel's split-KV decode, is held to the same at decode shapes.
-Inputs are made with numpy from a seed.
+The logit softcap, which the Pallas kernel lacks, is held to the
+reference's ``layers.sdpa(softcap=30)`` at the f32 tolerance. Inputs are
+made with numpy from a seed.
 """
 
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import layers as RL
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
@@ -202,3 +205,42 @@ def test_decode_plan_fills_an_h100_at_the_serve_step(kw):
                                            window=kw.get("window"), sms=132)
     assert splits * 4 * 8 >= 2 * 132
     assert hi == 2049 and lo == (1025 if "window" in kw else 0)
+
+
+# the logit softcap (grok1: 30), which the Pallas kernel lacks: the oracle is
+# the reference's layers.sdpa(softcap=…). q is scaled up so that the logits
+# reach the cap's bend: (b, hq, hkv, sq, skv, d), kw, sms (None: mha_ref)
+SOFTCAP = 30.0
+SOFTCAP_CASES = [
+    ((1, 6, 1, 40, 40, 128), dict(causal=True), None),                 # grok1's group of 6
+    ((2, 4, 2, 33, 70, 64), dict(causal=True, window=20, q_offset=37), None),
+    ((1, 4, 4, 24, 50, 64), dict(causal=False), None),
+    ((2, 6, 1, 1, 300, 128), dict(causal=True, q_offset=299), 16),     # split decode, chunks
+    ((1, 12, 2, 1, 90, 128), dict(causal=False), 132),                 # non-causal decode
+    ((1, 4, 2, 2, 200, 64), dict(causal=True, window=64, q_offset=198), 16),
+]
+
+
+@pytest.mark.parametrize("case", SOFTCAP_CASES, ids=lambda c: _ids((c[0], c[1], "float32")))
+def test_softcap_matches_reference_sdpa(case):
+    """``ref.mha_ref`` (and ``ops.flash_attention`` on CPU tensors) and, at
+    decode shapes, ``ref.mha_split_ref`` with ``softcap=30`` against the
+    reference's ``layers.sdpa(softcap=30)``: the cap applied to the scaled
+    logits before the mask. The cap changes the result by far more than
+    the tolerance."""
+    shape, kw, sms = case
+    (jq, jk, jv), (q, k, v) = _inputs(sum(shape) + 7, *shape, "float32")
+    jq, q = jq * 8, q * 8
+    sdpa_kw = dict(kw, window=kw.get("window") or 0, q_offset=kw.get("q_offset", 0))
+    want = RL.sdpa(jq, jk, jv, softcap=SOFTCAP, **sdpa_kw)
+    got = [ref.mha_ref(q, k, v, softcap=SOFTCAP, **kw),
+           ops.flash_attention(q, k, v, softcap=SOFTCAP, **kw),
+           L.sdpa(q, k, v, softcap=SOFTCAP, **sdpa_kw)]
+    if sms is not None:
+        assert shape[1] // shape[2] * shape[3] <= FA.DECODE_MAX_ROWS
+        got.append(ref.mha_split_ref(q, k, v, softcap=SOFTCAP, sms=sms, **kw))
+    rtol, atol = TOL["float32"]
+    for out in got:
+        np.testing.assert_allclose(_np(out), _np(want), rtol=rtol, atol=atol)
+    uncapped = _np(RL.sdpa(jq, jk, jv, **sdpa_kw))
+    assert np.abs(uncapped - _np(want)).max() > 100 * atol

@@ -136,15 +136,30 @@ def test_mlp_matches(activation):
 
 
 def test_init_params_is_seeded_and_dense_only():
+    """Seeded draws; and every family's init (no longer dense only) has the
+    reference's tree: the same leaves, shapes and types once the
+    reference's stacked layers are carried over by ``params_from_jax``. A
+    dense config relabelled ``moe`` (no MoE block) runs the dense stack."""
     cfg = get_config("minicpm_2b").reduced(num_layers=1)
     a = T.init_params(cfg, seed=3, device="cpu")
     b = T.init_params(cfg, seed=3, device="cpu")
     assert torch.equal(a["embed"], b["embed"])
     assert torch.equal(a["layers"][0]["mlp"]["w_gate"], b["layers"][0]["mlp"]["w_gate"])
     assert a["embed"].dtype == torch.float32 and "lm_head" not in a    # tied
+
+    def shapes(tree):
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [shapes(v) for v in tree]
+        return (tuple(tree.shape), str(tree.dtype).removeprefix("torch."))
+
     for arch in ["granite_moe_3b_a800m", "zamba2_7b", "xlstm_350m", "seamless_m4t_medium"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.init_params(get_config(arch).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.forward(a, dataclasses.replace(cfg, arch_type="moe"),
-                  {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
+        small = get_config(arch).reduced(num_layers=3)
+        ref = RT.init_params(jax.random.key(0), ref_config(arch).reduced(num_layers=3))
+        want = params_from_jax(jax.tree.map(np.asarray, ref), small, device="cpu")
+        assert shapes(T.init_params(small, seed=1, device="cpu")) == shapes(want)
+    toks = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
+    np.testing.assert_array_equal(
+        T.forward(a, dataclasses.replace(cfg, arch_type="moe"), toks).numpy(),
+        T.forward(a, cfg, toks).numpy())

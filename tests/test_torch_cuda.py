@@ -952,13 +952,18 @@ def test_flash_attention_rejects_bad_inputs(cuda):
     big = torch.zeros((1, 2, 2, 320), device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         FA.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="softcap"):
+        FA.flash_attention(q, k, v, softcap=-30.0)
     assert FA.flash_attention.launches == before
 
 
 @pytest.mark.cuda
 def test_sdpa_on_card_is_the_kernel(cuda):
     """models.layers.sdpa on CUDA tensors goes through the kernel (window <= 0
-    meaning none) and refuses a logit softcap."""
+    meaning none), a logit softcap included: softcap 30 (grok1's) in each of
+    the kernel's regimes, against the plain version and, at decode shapes,
+    the split-KV twin. q is scaled up so that the logits reach the cap's
+    bend; the cap changes the result by far more than the tolerance."""
     from repro_torch.models import layers as L
     q, k, v = _attn_inputs(11, 2, 4, 2, 24, 24, 32, torch.float32, cuda)
     before = FA.flash_attention.launches
@@ -967,8 +972,57 @@ def test_sdpa_on_card_is_the_kernel(cuda):
         torch.testing.assert_close(out, ref.mha_ref(q, k, v, window=want_window),
                                    rtol=2e-5, atol=4e-4)
     assert FA.flash_attention.launches == before + 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L.sdpa(q, k, v, softcap=30.0)
+    # (b, hq, hkv, sq, skv, d), kw: prefill tile, short tile, split decode (chunks,
+    # non-causal, windowed), at grok1's group of 6 and D = 128
+    for i, (shape, kw) in enumerate([
+            ((1, 6, 1, 80, 80, 128), dict(causal=True)),
+            ((2, 6, 1, 5, 40, 128), dict(causal=True, q_offset=35)),
+            ((2, 6, 1, 1, 700, 128), dict(causal=True, q_offset=699)),
+            ((1, 16, 16, 1, 300, 64), dict(causal=False)),
+            ((1, 6, 1, 2, 500, 128), dict(causal=True, window=100, q_offset=498))]):
+        q, k, v = _attn_inputs(40 + i, *shape, torch.float32, cuda)
+        q = q * 8
+        before = FA.flash_attention.launches
+        out = L.sdpa(q, k, v, softcap=30.0, window=kw.get("window", 0),
+                     q_offset=kw.get("q_offset", 0), causal=kw["causal"])
+        torch.cuda.synchronize()
+        assert FA.flash_attention.launches == before + 1
+        want = ref.mha_ref(q, k, v, softcap=30.0, **kw)
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=4e-4)
+        if shape[1] // shape[2] * shape[3] <= FA.DECODE_MAX_ROWS:
+            twin = ref.mha_split_ref(q, k, v, softcap=30.0, sms=torch.cuda.get_device_properties(
+                cuda).multi_processor_count, **kw)
+            torch.testing.assert_close(out, twin, rtol=2e-5, atol=4e-4)
+        assert float((ref.mha_ref(q, k, v, **kw) - want).abs().max()) > 0.04
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "grok1_314b", "zamba2_7b",
+                                  "xlstm_350m", "seamless_m4t_medium"])
+def test_zoo_serve_on_card_matches_cpu(cuda, arch):
+    """launch.serve.serve of each other family at 5 layers (two groups and a
+    tail for hybrid and xLSTM): the card gives the CPU's tokens and logits
+    within rtol 1e-4 / atol 1e-4 of the largest |logit|, every attention
+    call the kernel (none for xLSTM)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch).reduced(num_layers=5)
+    p_cpu = T.init_params(cfg, seed=3, device="cpu")
+    p_gpu = _tree_to(p_cpu, cuda)
+    runs = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        seen = []
+        before = FA.flash_attention.launches
+        toks, _, _ = SV.serve(cfg, 2, 40, 6, seed=3, device=dev, params=params,
+                              on_step=lambda i, lg: seen.append(lg.cpu()))
+        runs[dev] = (toks, torch.stack(seen, 1), FA.flash_attention.launches - before)
+    (tg, lg, ng), (tc, lc, nc) = runs["cuda"], runs["cpu"]
+    assert nc == 0 and (ng > 0) == (cfg.arch_type != "xlstm")
+    np.testing.assert_array_equal(tg, tc)
+    top = float(lc.abs().max())
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4 * top)
 
 
 @pytest.mark.cuda

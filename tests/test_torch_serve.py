@@ -116,7 +116,7 @@ def test_decode_from_a_reference_prefill(gemma):
     toks = _tokens(2, 3, PROMPT + 2, cfg.vocab_size)
     _, cr = jax.jit(RST.make_prefill_step(cfg_ref, PROMPT + 4))(
         p_ref, {"tokens": jnp.asarray(toks[:, :PROMPT])})
-    cache = cache_from_jax(jax.tree.map(np.asarray, cr), cfg, device="cpu")
+    cache = cache_from_jax(jax.tree.map(np.asarray, cr), cfg, 3, PROMPT + 4, device="cpu")
     decode_ref, decode = jax.jit(RST.make_serve_step(cfg_ref)), ST.make_serve_step(cfg)
     for pos in (PROMPT, PROMPT + 1):
         lr, cr = decode_ref(p_ref, cr, jnp.asarray(toks[:, pos]), jnp.asarray(pos, jnp.int32))
@@ -124,10 +124,13 @@ def test_decode_from_a_reference_prefill(gemma):
         _close(lt, lr)
     with pytest.raises(ValueError, match="shape"):
         cache_from_jax({"k": np.zeros((1, 1, 2, 4, 32)), "v": np.zeros((1, 1, 2, 4, 32))},
-                       cfg, device="cpu")
+                       cfg, 1, 4, device="cpu")
 
 
 def test_init_cache_and_other_families(gemma):
+    """The dense cache, and every other family's (no longer refused): each
+    leaf of ``init_cache`` equals the reference's, and a reduced zamba2
+    (hybrid) prefill and decode step give the reference's logits."""
     _, cfg, params, _ = gemma
     cache = T.init_cache(cfg, 3, 20, device="cpu")
     for name in ("k", "v"):
@@ -135,14 +138,24 @@ def test_init_cache_and_other_families(gemma):
         assert cache[name].dtype == torch.float32 and not cache[name].any()
     np.testing.assert_array_equal(
         cache["k"].numpy(), np.asarray(RT.init_cache(ref_config("gemma3_12b").reduced(), 3, 20)["k"]))
-    moe = get_config("granite_moe_3b_a800m").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_cache(moe, 1, 4, device="cpu")
-    fake = dataclasses.replace(cfg, arch_type="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.prefill({}, fake, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.decode_step({}, fake, torch.zeros(1, dtype=torch.int32), {}, 4)
+    for arch in ["granite_moe_3b_a800m", "zamba2_7b", "xlstm_350m", "seamless_m4t_medium"]:
+        want = jax.tree.map(np.asarray, RT.init_cache(ref_config(arch).reduced(), 1, 4))
+        got = T.init_cache(get_config(arch).reduced(), 1, 4, device="cpu")
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            np.testing.assert_array_equal(g.numpy(), w)
+    cfg_ref, small = ref_config("zamba2_7b").reduced(), get_config("zamba2_7b").reduced()
+    p_ref = RT.init_params(jax.random.key(0), cfg_ref)
+    p = params_from_jax(jax.tree.map(np.asarray, p_ref), small, device="cpu")
+    toks = _tokens(3, 1, 4, small.vocab_size)
+    lr, cr = jax.jit(RST.make_prefill_step(cfg_ref, 8))(p_ref, {"tokens": jnp.asarray(toks)})
+    lt, ct = ST.make_prefill_step(small, 8)(p, {"tokens": torch.from_numpy(toks)})
+    _close(lt, lr)
+    tok = np.asarray(jnp.argmax(lr, -1)).astype(np.int32)
+    lr, _ = jax.jit(RST.make_serve_step(cfg_ref))(p_ref, cr, jnp.asarray(tok),
+                                                  jnp.asarray(4, jnp.int32))
+    lt, _ = ST.make_serve_step(small)(p, ct, torch.from_numpy(tok), 4)
+    _close(lt, lr)
 
 
 # --- tests/test_ring_cache.py's scenarios, in the port and the reference --------

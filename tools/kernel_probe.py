@@ -4,7 +4,7 @@ chip_smoke.py's main-path shapes, with what bounds them.
 
 Run from the root of a checkout, on a machine with a CUDA GPU:
 
-    python3 tools/kernel_probe.py
+    python3 tools/kernel_probe.py [--flash]
 
 Builds ``csrc/gram.cu`` and ``csrc/flash_attention.cu`` (printing each
 kernel's registers and spills), then times ``gram_update`` at (64, 2304,
@@ -15,6 +15,9 @@ and for ``flash_attention`` times the main path's five shapes beside
 and power limit first. Each kernel is checked against its plain version
 before it is timed (chip_smoke.py's tolerances); times are chip_smoke.py's
 (a sleep kernel holds the stream while the calls queue, median of trials).
+With ``--flash`` it builds and times ``flash_attention`` alone, at the
+main path's five shapes and the backbone zoo's serve shapes, with no
+library times: the form ``tools/flash_ab.sh`` compares across checkouts.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import chip_smoke as CS  # noqa: E402
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_probe: needs an NVIDIA GPU")
+    flash_only = "--flash" in sys.argv[1:]
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gram as G
@@ -44,13 +48,18 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    for built in build.load(G.SOURCE, FA.SOURCE):
+    for built in build.load(*([] if flash_only else [G.SOURCE]), FA.SOURCE):
         print(f"build: {built.path.name} in {built.seconds:.2f} s", flush=True)
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
-    G.build()
     FA.build()
+    if flash_only:
+        zoo = [i for i, row in enumerate(CS.ATTN_SHAPES) if row[0] == "granite prefill"][0]
+        for what, shape, kw, dtype in CS.ATTN_SHAPES[:5] + CS.ATTN_SHAPES[zoo:]:
+            flash_row(FA, ref, what, shape, kw, dtype, library=False)
+        return
+    G.build()
 
     for n, d, c, dtype in CS.GRAM_SHAPES[:2]:
         gen = torch.Generator(device="cuda")
@@ -80,20 +89,24 @@ def main() -> None:
                               ms=CS.time_cuda(lambda: G.gram_update(x, y)))), flush=True)
 
     for what, shape, kw, dtype in CS.ATTN_SHAPES[:5]:
-        b, hq, hkv, sq, skv, d = shape
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(1)
-        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
-                   for s in [(b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)])
-        _, err = CS.check_attention(FA, ref, q, k, v, kw, what)
-        ms = CS.time_auto(lambda: FA.flash_attention(q, k, v, **kw))
-        library_ms = CS.time_auto(CS._sdpa_library(ref, q, k, v, kw))
-        regime, chunks, launches = CS.attention_plan(FA, shape, kw)
-        print(json.dumps(dict(kernel="flash_attention", case=what, shape=list(shape),
-                              regime=regime, chunks=chunks, cuda_launches=launches,
-                              max_abs_err=err, ms=ms, library_ms=library_ms,
-                              bound_ms=CS.attention_bound(ref, shape, kw, dtype)[0])),
-              flush=True)
+        flash_row(FA, ref, what, shape, kw, dtype)
+
+
+def flash_row(FA, ref, what, shape, kw, dtype, library=True) -> None:
+    b, hq, hkv, sq, skv, d = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+               for s in [(b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)])
+    _, err = CS.check_attention(FA, ref, q, k, v, kw, what)
+    ms = CS.time_auto(lambda: FA.flash_attention(q, k, v, **kw))
+    library_ms = CS.time_auto(CS._sdpa_library(ref, q, k, v, kw)) if library else None
+    regime, chunks, launches = CS.attention_plan(FA, shape, kw)
+    print(json.dumps(dict(kernel="flash_attention", case=what, shape=list(shape), kw=kw,
+                          regime=regime, chunks=chunks, cuda_launches=launches,
+                          max_abs_err=err, ms=ms, library_ms=library_ms,
+                          bound_ms=CS.attention_bound(ref, shape, kw, dtype)[0])),
+          flush=True)
 
 
 if __name__ == "__main__":
