@@ -185,7 +185,26 @@ without the repository around it. Phases, each fatal on failure:
      full-width granite and xlstm (Gram and flash launches counted), then
      ``run_afl`` at K = 100 iid and NIID-1 on the card's embeddings, each
      equal in accuracy to the joint solve and within 10·κ·u64 of its
-     weight; its own JSON line ``{"zoo": ...}``.
+     weight; its own JSON line ``{"zoo": ...}``;
+ 16. training, the gradient and LM modes, after the zoo's models are
+     freed: (a) ``models.layers.sdpa`` under grad (``FlashSDPA``: the
+     flash kernel's forward, one launch, and the plain attention's
+     gradient recomputed) against autograd of ``sdpa_plain`` at four
+     shapes (the LM phase's own, a GQA one with a window, grok1's softcap,
+     a non-causal one): output, dq, dk and dv within rtol / atol 1e-4 of
+     the largest entry; at the LM shape the kernel's forward timed beside
+     the plain version and SDPA, and FlashSDPA's forward + backward beside
+     SDPA's; (b) one ``launch.steps.make_full_train_step`` of minicpm_2b
+     at full width, depth cut to 2 of 40 layers, on the card and on the
+     CPU from the same weights (loss within rtol 1e-5, each leaf's Δp
+     within 1e-3 of its largest plus one f32 spacing, 2 flash launches);
+     (c) ``launch.train.run_gradient`` on whole minicpm_2b (1024 × 32
+     tokens, 16 classes, batch 64, 2 rounds) above chance, 40 flash
+     launches a forward; (d) ``launch.train.run_lm`` on whole minicpm_2b,
+     8 steps of 4 × 256 tokens, every loss finite, with ms a step,
+     tokens/s, peak memory and 40 flash launches a step; (e)
+     ``examples/torch_train_100m.py``'s ``main`` at its defaults, its
+     asserts holding; its own JSON line ``{"training": ...}``.
 
 Each path's launches are counted from zero just before it runs. It then
 prints the kernels' JSON line (ten kernels), and last the device line
@@ -3145,8 +3164,9 @@ def serve_phase(K, get_config, T, L, serve_mod, ST, ref):
 
     # teacher-forced: one forward over the prompt and the fed tokens
     toks = torch.from_numpy(out[:, :p + g - 1]).cuda()
-    hidden = T.forward(params, cfg, {"tokens": toks})
-    tf = T.lm_logits(params, cfg, hidden[:, p - 1:])
+    with torch.no_grad():
+        hidden = T.forward(params, cfg, {"tokens": toks})
+        tf = T.lm_logits(params, cfg, hidden[:, p - 1:])
     del hidden
     rel = float(((tf - dec).abs().amax(-1) / tf.abs().amax(-1)).max())
     agree = float((tf.argmax(-1) == dec.argmax(-1)).float().mean())
@@ -3385,11 +3405,12 @@ def zoo_serve(K, cfg, full_layers, T, serve_mod, want_prefill, want_decode):
     row["profile"] = zoo_profile(T, cfg, params, dict(batch, tokens=batch["tokens"][:, :p]),
                                  p + g)
     if cfg.arch_type != "moe":
-        hidden = T.forward(params, cfg, batch)
-        tf = T.lm_logits(params, cfg, hidden[:, p - 1:])
-        # the same forward of row 0 alone: other matmul shapes, the same function
-        alone = T.lm_logits(params, cfg, T.forward(params, cfg, {
-            k: v[:1] for k, v in batch.items()})[:, p - 1:])
+        with torch.no_grad():
+            hidden = T.forward(params, cfg, batch)
+            tf = T.lm_logits(params, cfg, hidden[:, p - 1:])
+            # the same forward of row 0 alone: other matmul shapes, the same function
+            alone = T.lm_logits(params, cfg, T.forward(params, cfg, {
+                k: v[:1] for k, v in batch.items()})[:, p - 1:])
         del hidden
         row["tf_rel"] = float(((tf - dec).abs().amax(-1) / tf.abs().amax(-1)).max())
         row["tf_token_agreement"] = float((tf.argmax(-1) == dec.argmax(-1)).float().mean())
@@ -3541,6 +3562,305 @@ def zoo_phase(K, get_config, T, serve_mod, M, D, train, afl, api, FLConfig):
     return total, dict(serve=served, small=small, table4=t4)
 
 
+# --- training: the gradient and LM modes ------------------------------------------
+
+# (name, (B, Hq, Hkv, S, S, D), kw): attention under grad on the card, the
+# LM phase's own shape first (minicpm_2b at batch 4 × 256), then a GQA
+# shape with a window (gemma3_12b-like at batch 1), grok1's softcap and a
+# non-causal one (seamless's encoder)
+TRAIN_ATTN = [
+    ("lm", (4, 36, 36, 256, 256, 64), dict(causal=True)),
+    ("gqa window", (1, 16, 8, 512, 512, 256), dict(causal=True, window=128)),
+    ("softcap", (1, 48, 8, 256, 256, 128), dict(causal=True, softcap=30.0)),
+    ("non-causal", (2, 16, 16, 512, 512, 64), dict(causal=False)),
+]
+# FlashSDPA's output and dq, dk, dv against autograd of sdpa_plain:
+# rtol and atol relative to the largest entry
+TRAIN_GRAD_REL = 1e-4
+# one full step, card against CPU on the same weights: minicpm_2b at full
+# width, depth cut to 2 of 40 layers (the CPU's step is the time limit)
+TRAIN_STEP = dict(arch="minicpm_2b", layers=2, batch=2, seq=32, lr=1e-2)
+# the loss within rtol TRAIN_LOSS_RTOL; each leaf's Δp within
+# TRAIN_DP_REL of its largest, plus one f32 spacing of the parameter: each
+# device rounds p − lr·g to f32 once (on the CPU the port's Δp lies exactly
+# one spacing from the reference's where it lies above 1e-4 of the largest)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_DP_REL = 1e-3
+TRAIN_GRADIENT = dict(arch="minicpm_2b", samples=1024, seq=32, classes=16, batch=64,
+                      rounds=2)
+TRAIN_LM = dict(arch="minicpm_2b", steps=8, batch=4, seq=256)
+
+
+def grad_attention_phase(FA, ref, L):
+    """``layers.sdpa`` under grad on the card (``FlashSDPA``: one flash
+    launch, the plain backward) against autograd of ``sdpa_plain`` at
+    TRAIN_ATTN; at the LM shape also timed: the kernel's forward beside the
+    plain version and SDPA, and FlashSDPA's forward + backward beside SDPA's.
+    Returns the flash row of the LM shape and the checks."""
+    checks, row = [], None
+    for i, (what, shape, kw) in enumerate(TRAIN_ATTN):
+        b, hq, hkv, sq, skv, d = shape
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(300 + i)
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").requires_grad_(True)
+                   for s in [(b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)])
+        g = torch.randn((b, hq, sq, d), generator=gen, device="cuda")
+        before = FA.flash_attention.launches
+        out = L.sdpa(q, k, v, **kw)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        torch.cuda.synchronize()
+        if FA.flash_attention.launches - before != 1:
+            fail(f"training attention {what}: {FA.flash_attention.launches - before} flash "
+                 "launches under grad, expected 1 (the forward)")
+        if not isinstance(out.grad_fn, L.FlashSDPA._backward_cls):
+            fail(f"training attention {what}: the output's grad_fn is {out.grad_fn}, "
+                 "not FlashSDPA's")
+        want = L.sdpa_plain(q, k, v, **kw)
+        wants = torch.autograd.grad(want, (q, k, v), g)
+        errs = {}
+        for name, a, w in zip(("out", "dq", "dk", "dv"), (out.detach(), *got),
+                              (want.detach(), *wants)):
+            scale = float(w.abs().max())
+            errs[name] = float((a - w).abs().max()) / scale
+            try:
+                torch.testing.assert_close(a, w, rtol=TRAIN_GRAD_REL,
+                                           atol=TRAIN_GRAD_REL * scale)
+            except AssertionError as exc:
+                fail(f"training attention {what} {shape} {kw}: {name}: {exc}")
+        checks.append(dict(case=what, shape=list(shape), kw=kw, rel_err=errs))
+        log(f"training attention {what} (B, Hq, Hkv, Sq, Skv, D)={shape} {kw}: FlashSDPA "
+            f"against autograd of sdpa_plain, largest |err| / max: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (rtol and atol {TRAIN_GRAD_REL:g} of the max)")
+        if i:
+            continue
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        with torch.no_grad():
+            ms = time_auto(lambda: FA.flash_attention(qd, kd, vd, **kw))
+            plain_ms = time_auto(lambda: ref.mha_ref(qd, kd, vd, **kw))
+            library = _sdpa_library(ref, qd, kd, vd, kw)
+            library_ms = time_auto(library)
+        mask = ref.attention_mask(sq, skv, **_mask_kw(kw), device="cuda")
+
+        def fwd_bwd():
+            torch.autograd.grad(L.sdpa(q, k, v, **kw), (q, k, v), g)
+
+        def plain_fwd_bwd():
+            torch.autograd.grad(L.sdpa_plain(q, k, v, **kw), (q, k, v), g)
+
+        def library_fwd_bwd():
+            torch.autograd.grad(F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                               enable_gqa=True), (q, k, v), g)
+
+        fb_ms, plain_fb_ms, lib_fb_ms = (time_auto(f) for f in (fwd_bwd, plain_fwd_bwd,
+                                                                 library_fwd_bwd))
+        bound_ms, bound_by, flops, nbytes = attention_bound(ref, shape, kw, torch.float32)
+        row = dict(case="lm training forward", shape=list(shape), kw=kw, dtype="float32",
+                   max_abs_err=errs["out"] * float(want.detach().abs().max()), ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   library="scaled_dot_product_attention", bound_ms=bound_ms,
+                   bound_by=bound_by, flops=flops, bytes=nbytes, regime="prefill tile",
+                   chunks=1, cuda_launches_per_call=1, fwd_bwd_ms=fb_ms,
+                   plain_fwd_bwd_ms=plain_fb_ms, library_fwd_bwd_ms=lib_fb_ms)
+        log(f"flash_attention lm training forward {shape} {kw}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}) = {100 * bound_ms / ms:.2f}% of bound; forward + backward: "
+            f"FlashSDPA {fb_ms:.4f} ms, sdpa_plain {plain_fb_ms:.4f} ms, SDPA "
+            f"{lib_fb_ms:.4f} ms")
+        del out, got, want, wants
+    return row, checks
+
+
+def _dp_check(old, new, ref_new, what):
+    """Each leaf's Δp of ``new`` against ``ref_new``'s (the CPU's), both
+    from ``old``: within TRAIN_DP_REL of the largest plus one f32 spacing
+    of the parameter. Returns the worst error over the leaf's largest Δp,
+    past that spacing and in all."""
+    worst = worst_raw = 0.0
+    for o, a, b in zip(old, new, ref_new):
+        dp, dr = a.cpu().double() - o.double(), b.double() - o.double()
+        top = float(dr.abs().max())
+        err = (dp - dr).abs()
+        past = (err - torch.from_numpy(np.spacing(np.abs(b.numpy()))).double()).clamp(min=0)
+        if not float(past.max()) <= TRAIN_DP_REL * top:
+            fail(f"{what}: a leaf's Δp is {float(err.max()):.3e} from the CPU's, "
+                 f"max|Δp| {top:.3e}")
+        if top:
+            worst_raw = max(worst_raw, float(err.max()) / top)
+            worst = max(worst, float(past.max()) / top)
+    return worst, worst_raw
+
+
+def train_step_check(K, get_config, T, ST, optim):
+    """(b) one ``make_full_train_step`` of minicpm_2b at full width, 2 layers,
+    on the card and on the CPU from the same weights."""
+    c = TRAIN_STEP
+    cfg = dataclasses.replace(get_config(c["arch"]), num_layers=c["layers"])
+    from repro_torch.launch.inputs import sample_batch
+
+    p_cpu = T.init_params(cfg, seed=0, device="cpu")
+    p_gpu = _params_to(p_cpu, "cuda")
+    old = [p.clone() for p in optim.tree_leaves(p_cpu)]
+    step = ST.make_full_train_step(cfg)
+    _zero(K)
+    t0 = time.perf_counter()
+    _, loss_gpu = step(p_gpu, sample_batch(cfg, c["batch"], c["seq"], seed=0, device="cuda"),
+                       c["lr"])
+    loss_gpu = float(loss_gpu)
+    card_s = time.perf_counter() - t0
+    launches = _read(K)
+    _only(launches, {"flash_attention": cfg.num_layers}, "training step (2 layers)")
+    launches["flash_attention_cuda"] = K.FA.flash_attention.cuda_launches
+    t0 = time.perf_counter()
+    _, loss_cpu = step(p_cpu, sample_batch(cfg, c["batch"], c["seq"], seed=0, device="cpu"),
+                       c["lr"])
+    cpu_s = time.perf_counter() - t0
+    loss_cpu = float(loss_cpu)
+    if not abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu):
+        fail(f"training step: loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+    worst, worst_raw = _dp_check(old, optim.tree_leaves(p_gpu), optim.tree_leaves(p_cpu),
+                                 "training step (2 layers)")
+    log(f"training step: {cfg.name} at full width, {cfg.num_layers} of 40 layers, batch "
+        f"{c['batch']} × {c['seq']}, lr {c['lr']:g}: loss card {loss_gpu:.7f} CPU "
+        f"{loss_cpu:.7f}; Δp worst {worst_raw:.3e} of a leaf's max|Δp| ({worst:.3e} past "
+        f"one f32 spacing; limit {TRAIN_DP_REL:g}); flash launches "
+        f"{launches['flash_attention']}; card {card_s:.3f} s, CPU {cpu_s:.3f} s")
+    del p_cpu, p_gpu, old
+    return launches, dict(loss_card=loss_gpu, loss_cpu=loss_cpu, dp_worst=worst_raw,
+                          dp_worst_past_spacing=worst, card_s=card_s, cpu_s=cpu_s,
+                          flash_launches=launches["flash_attention"])
+
+
+def run_gradient_check(K, get_config, D, train, FLConfig):
+    """(c) ``run_gradient`` on whole minicpm_2b, its flash launches counted
+    (the backbone forward of every batch of every round and of the test
+    set, 40 each)."""
+    c = TRAIN_GRADIENT
+    cfg = dataclasses.replace(get_config(c["arch"]), num_classes=c["classes"])
+    ds = D.token_classification(n=c["samples"], seq=c["seq"], vocab=cfg.vocab_size,
+                                num_classes=c["classes"], seed=0)
+    tr, te = D.train_test_split(ds, 0.25, seed=0)
+    forwards = c["rounds"] * (len(tr) // c["batch"]) + len(te) // c["batch"]
+    _zero(K)
+    t0 = time.perf_counter()
+    acc, train_s = train.run_gradient(cfg, tr, te, FLConfig(gamma=1.0), c["batch"],
+                                      c["rounds"], device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _read(K)
+    launches["flash_attention_cuda"] = K.FA.flash_attention.cuda_launches
+    _only({n: launches[n] for n in K.ALL}, {"flash_attention": cfg.num_layers * forwards},
+          "run_gradient")
+    chance = 1.0 / c["classes"]
+    log(f"run_gradient: {cfg.name} whole, {c['samples']} × {c['seq']} tokens, "
+        f"{c['classes']} classes, batch {c['batch']}, {c['rounds']} rounds: acc={acc:.4f} "
+        f"(chance {chance:.4f}) train_s={train_s:.3f} wall_s={wall:.3f}, flash launches "
+        f"{launches['flash_attention']} ({cfg.num_layers} × {forwards} forwards)")
+    if not acc > chance:
+        fail(f"run_gradient accuracy {acc} is not above chance {chance}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(accuracy=acc, chance=chance, train_s=train_s, wall_s=wall,
+                          flash_launches=launches["flash_attention"])
+
+
+def run_lm_check(K, get_config, T, ST, train):
+    """(d) ``run_lm`` on whole minicpm_2b, its flash launches counted (40
+    forward launches a step), peak memory from the weights' init on; then
+    one more step of the same shape profiled (not counted: the launches
+    are read before it)."""
+    from repro_torch.launch.inputs import sample_batch
+
+    c = TRAIN_LM
+    cfg = get_config(c["arch"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(K)
+    t0 = time.perf_counter()
+    losses = train.run_lm(cfg, c["steps"], c["batch"], c["seq"], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = _read(K)
+    launches["flash_attention_cuda"] = K.FA.flash_attention.cuda_launches
+    _only({n: launches[n] for n in K.ALL}, {"flash_attention": cfg.num_layers * c["steps"]},
+          "run_lm")
+    if len(losses) != c["steps"] or not all(math.isfinite(v) for v in losses):
+        fail(f"run_lm losses {losses}")
+    tokens = c["steps"] * c["batch"] * c["seq"]
+    # where a step's time goes: one more step of the same shape, profiled
+    params = T.init_params(cfg, seed=0, device="cuda")
+    step = ST.make_full_train_step(cfg)
+    batch = sample_batch(cfg, c["batch"], c["seq"], seed=0, device="cuda")
+    step(params, batch, 1e-3)
+    prof = profile_window(lambda: step(params, batch, 1e-3))
+    del params, batch
+    log(f"run_lm: {cfg.name} whole, {c['steps']} steps of {c['batch']} × {c['seq']} "
+        f"tokens: losses {[round(v, 4) for v in losses]}; wall {wall:.3f} s (init "
+        f"included) = {1e3 * wall / c['steps']:.1f} ms a step, {tokens / wall:.1f} tokens/s; "
+        f"peak {peak:.2f} GB; flash launches {launches['flash_attention']}; one profiled "
+        f"step {json.dumps(prof)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(losses=losses, wall_s=wall, ms_per_step=1e3 * wall / c["steps"],
+                          tokens_per_s=tokens / wall, peak_gb=peak,
+                          flash_launches=launches["flash_attention"], profile=prof)
+
+
+def example_check(K):
+    """(e) ``examples/torch_train_100m.py``'s ``main`` at its defaults (its
+    asserts hold or it raises), its flash launches counted: 12 a step and
+    12 a forward of its probe's 20 batches."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / "torch_train_100m.py"
+    spec = importlib.util.spec_from_file_location("torch_train_100m", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    _zero(K)
+    t0 = time.perf_counter()
+    try:
+        out = ex.main([])
+    except AssertionError as exc:
+        fail(f"examples/torch_train_100m.py: {exc}")
+    wall = time.perf_counter() - t0
+    launches = _read(K)
+    launches["flash_attention_cuda"] = K.FA.flash_attention.cuda_launches
+    layers = ex.CFG_100M.num_layers
+    _only({n: launches[n] for n in K.ALL},
+          {"flash_attention": layers * (out["steps"] + -(-2500 // 128))},
+          "examples/torch_train_100m.py")
+    log(f"example torch_train_100m: {out['params'] / 1e6:.1f}M params, loss "
+        f"{out['loss_head']:.3f} → {out['loss_tail']:.3f} in {out['steps']} steps "
+        f"({out['pretrain_s']:.3f} s), AFL probe {out['probe_accuracy']:.4f} = centralized "
+        f"{out['joint_accuracy']:.4f} > chance {out['chance']:.4f}; wall {wall:.3f} s, flash "
+        f"launches {launches['flash_attention']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(out, wall_s=wall, flash_launches=launches["flash_attention"])
+
+
+def training_phase(K, ref, get_config, D, T, L, ST, train, FLConfig, optim):
+    """The gradient and LM modes on the card: (a) attention under grad, (b)
+    one full step card against CPU, (c) ``run_gradient``, (d) ``run_lm``,
+    (e) the 100M example. Returns the summed launches, the LM shape's flash
+    row and the phase's JSON."""
+    t0 = time.perf_counter()
+    row, attn = grad_attention_phase(K.FA, ref, L)
+    total, out = {}, dict(attention=attn)
+    for name, (launches, res) in (
+            ("step", train_step_check(K, get_config, T, ST, optim)),
+            ("run_gradient", run_gradient_check(K, get_config, D, train, FLConfig)),
+            ("run_lm", run_lm_check(K, get_config, T, ST, train)),
+            ("example", example_check(K))):
+        for n, v in launches.items():
+            total[n] = total.get(n, 0) + v
+        out[name] = res
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"training phase: {out['wall_s']:.1f} s")
+    return total, row, out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3584,6 +3904,7 @@ def main() -> None:
     from repro_torch.models import layers as L
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
+    from repro_torch import optim
 
     # every kernel's wrapper, by name: each path's launches are counted on these
     K = SimpleNamespace(G=G, P=P, B=B, R=R, FA=FA, ALL={
@@ -3629,6 +3950,12 @@ def main() -> None:
     zoo_launches, zoo = zoo_phase(K, get_config, T, serve_mod, M, D, train, afl, api,
                                   FLConfig)
     paths.append(zoo_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_launches, lm_row, training = training_phase(K, ref, get_config, D, T, L, ST,
+                                                         train, FLConfig, optim)
+    paths.append(training_launches)
+    rows["flash_attention"].append(lm_row)
     launches = {name: sum(p[name] for p in paths) for name in K.ALL}
     if not all(launches.values()):
         fail(f"a kernel of the path was never launched: {launches}")
@@ -3663,6 +3990,7 @@ def main() -> None:
     log(json.dumps({"f64_engine": f64_times}))
     log(json.dumps({"serve": served}))
     log(json.dumps({"zoo": zoo}))
+    log(json.dumps({"training": training}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

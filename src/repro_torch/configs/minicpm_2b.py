@@ -1,8 +1,8 @@
 """MiniCPM-2B [arXiv:2404.06395] — dense llama-like, trained with WSD.
 
 40L, d_model 2304, 36 heads (kv=36, i.e. MHA), d_ff 5760, vocab 122753.
-The WSD (warmup-stable-decay) schedule lives in the JAX package (repro.optim.wsd) for the
-gradient-FL baseline path (AFL itself is gradient-free).
+The WSD (warmup-stable-decay) schedule is ``repro_torch.optim.wsd_schedule``, which the
+LM driver (``launch.train.run_lm``) trains under (AFL itself is gradient-free).
 """
 from repro_torch.config import ModelConfig
 

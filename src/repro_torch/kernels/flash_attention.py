@@ -110,7 +110,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention.launches`` counts the calls that launched,
     ``flash_attention.cuda_launches`` their kernels (two for a decode split
     over several chunks, else one).
+
+    The kernel has no backward: with grad mode on and an input that
+    requires grad this raises, rather than return attention without a
+    graph. ``models.layers.sdpa`` takes ``FlashSDPA`` there, which calls
+    this on detached inputs.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention kernel has no backward and an input requires grad: "
+            "use models.layers.sdpa (FlashSDPA), or call it under torch.no_grad()")
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
         raise ValueError(
             f"flash_attention kernel needs q, k, v on one CUDA device, got {q.device}, "

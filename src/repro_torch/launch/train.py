@@ -12,7 +12,10 @@ federation service at ``--server-url``) → linear head → accuracy. With
 instead and solves over a mesh of N shards on the device, as the
 reference's does over a multi-device jax mesh; the reference takes the
 shard count from its mesh, the port from the flag (N shards share one
-card).
+card). ``--mode gradient`` runs the gradient-FL baseline (head SGD on the
+frozen backbone's embeddings) on the same data, and ``--mode lm`` the
+full-backbone LM pre-training driver (next-token CE, SGD under a WSD
+schedule), as the reference's do.
 
 Usage (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \\
@@ -23,6 +26,11 @@ Against a federation (``python -m repro_torch.launch.serve --federation``):
 Through the sharded coordinator (8 shards, row-tiled Gram):
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \\
       --reduced --classes 8 --shards 8 --tiled
+The gradient baseline and the LM driver:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \\
+      --mode gradient --samples 256 --seq 16 --classes 8 --rounds 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \\
+      --mode lm --steps 8 --batch 4 --seq 32
 """
 
 from __future__ import annotations
@@ -41,7 +49,10 @@ from repro_torch.data import synthetic as D
 from repro_torch.device import resolve_device
 from repro_torch.fl.api import (AFLClient, AFLServer, ClientReport,
                                 ShardedCoordinator)
+from repro_torch.launch import steps as ST
+from repro_torch.launch.inputs import sample_batch
 from repro_torch.models import transformer as T
+from repro_torch.optim import wsd_schedule
 
 
 def _batches(ds: D.Dataset, batch: int):
@@ -52,7 +63,8 @@ def _batches(ds: D.Dataset, batch: int):
 
 def embed(params, cfg, tokens) -> torch.Tensor:
     """Frozen-backbone embedding: tokens (B,S) → (B,D) f32."""
-    return T.pool(T.forward(params, cfg, {"tokens": tokens})).to(torch.float32)
+    with torch.no_grad():
+        return T.pool(T.forward(params, cfg, {"tokens": tokens})).to(torch.float32)
 
 
 def local_stage(params, cfg, train_ds, fl: FLConfig, batch: int, *,
@@ -118,6 +130,53 @@ def run_analytic(cfg, train_ds, test_ds, fl: FLConfig, batch: int,
     return float(correct / max(total, 1)), train_s
 
 
+def run_gradient(cfg, train_ds, test_ds, fl: FLConfig, batch: int, rounds: int,
+                 lr: float = 0.05, *, device=None, params=None):
+    """Head-only gradient FL baseline on the same frozen features: ``rounds``
+    epochs of ``steps.head_sgd_step`` over the backbone's embeddings of each
+    batch, from a zero head. ``params`` as :func:`run_analytic`'s. Returns
+    (test accuracy, seconds of the rounds)."""
+    dev = resolve_device(device)
+    if params is None:
+        params = T.init_params(cfg, seed=0, device=dev)
+    head = torch.zeros((cfg.d_model, cfg.num_classes), dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        for toks, labels in _batches(train_ds, batch):
+            emb = embed(params, cfg, toks)
+            head = ST.head_sgd_step(head, emb, labels, lr)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    train_s = time.perf_counter() - t0
+    w = to_numpy(head, None)
+    correct = total = 0
+    for toks, labels in _batches(test_ds, batch):
+        pred = np.argmax(to_numpy(embed(params, cfg, toks), None) @ w, -1)
+        correct += int((pred == labels).sum())
+        total += len(labels)
+    return float(correct / max(total, 1)), train_s
+
+
+def run_lm(cfg, steps: int, batch: int, seq: int, base_lr: float = 3e-3, *,
+           device=None, params=None):
+    """Generic LM pre-training driver (WSD schedule, minicpm-style):
+    ``steps`` of ``steps.make_full_train_step`` on ``sample_batch(cfg,
+    batch, seq, seed=i)``, the params (``run_analytic``'s default, or the
+    caller's, updated in place) trained from the first step. Returns the
+    losses, as floats."""
+    dev = resolve_device(device)
+    if params is None:
+        params = T.init_params(cfg, seed=0, device=dev)
+    train_step = ST.make_full_train_step(cfg)
+    sched = wsd_schedule(base_lr, warmup=max(steps // 10, 1), total=steps)
+    losses = []
+    for i in range(steps):
+        b = sample_batch(cfg, batch, seq, seed=i, device=dev)
+        params, loss = train_step(params, b, sched(i))
+        losses.append(float(loss))
+    return losses
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -130,6 +189,8 @@ def main(argv=None) -> None:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--classes", type=int, default=16)
     ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--rounds", type=int, default=5, help="gradient-FL rounds")
+    ap.add_argument("--steps", type=int, default=50, help="lm steps")
     ap.add_argument("--gamma", type=float, default=1.0)
     ap.add_argument("--kernel", action="store_true",
                     help="fold Gram batches with the CUDA kernel")
@@ -147,9 +208,6 @@ def main(argv=None) -> None:
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "versions on the CPU)")
     args = ap.parse_args(argv)
-    if args.mode != "analytic":
-        raise SystemExit(f"--mode {args.mode} is not ported to torch yet "
-                         "(ROADMAP Queue 1 item 8: its training half)")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -157,11 +215,23 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
     print(f"arch={cfg.name} reduced={args.reduced} device={dev}")
 
+    if args.mode == "lm":
+        losses = run_lm(cfg, args.steps, args.batch, args.seq, device=dev)
+        print(f"lm: step0 loss={losses[0]:.4f} → step{len(losses)-1} "
+              f"loss={losses[-1]:.4f}")
+        return
+
     ds = D.token_classification(
         n=args.samples, seq=args.seq, vocab=cfg.vocab_size,
         num_classes=args.classes, seed=0)
     train_ds, test_ds = D.train_test_split(ds, 0.25, seed=0)
     fl = FLConfig(gamma=args.gamma)
+    if args.mode == "gradient":
+        acc, dt = run_gradient(cfg, train_ds, test_ds, fl, args.batch, args.rounds,
+                               device=dev)
+        print(f"gradient FL baseline: acc={acc:.4f} train_time={dt:.2f}s "
+              f"({args.rounds} rounds)")
+        return
     coordinator = None
     if args.shards is not None:
         coordinator = ShardedCoordinator(cfg.d_model, cfg.num_classes,

@@ -135,33 +135,84 @@ def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, softcap=0.0,
     ``(hkv, group)`` for GQA; query row ``s`` sits at position ``q_offset +
     s``; ``window`` None or <= 0 means no window. On CUDA tensors this is
     the hand-written flash kernel (``kernels.ops.flash_attention``), the
-    softcap included. On the CPU it is plain torch: products in f32,
-    masked logits ``-1e30``; up to ``Sq·Skv = 2²²`` the logits are
-    materialized, past that an online softmax walks ``q_chunk × kv_chunk``
-    blocks, so prefill-length logits never exist at once.
+    softcap included; under grad, when q, k or v requires it, the kernel's
+    forward inside :class:`FlashSDPA`, whose backward is ``sdpa_plain``'s
+    gradient. On the CPU it is :func:`sdpa_plain`, which autograd
+    differentiates as it stands.
     """
-    if q.is_cuda:
-        win = None if window is None or window <= 0 else int(window)
-        return ops.flash_attention(q, k, v, causal=causal, window=win, q_offset=q_offset,
-                                   softcap=softcap)
+    if not q.is_cuda:
+        return sdpa_plain(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                          softcap=softcap, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    win = None if window is None or window <= 0 else int(window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashSDPA.apply(q, k, v, causal, win, int(q_offset), float(softcap))
+    return ops.flash_attention(q, k, v, causal=causal, window=win, q_offset=q_offset,
+                               softcap=softcap)
+
+
+class FlashSDPA(torch.autograd.Function):
+    """Attention with a gradient: the forward is the flash kernel on the
+    card (``kernels.ops.flash_attention`` on detached inputs; on the CPU,
+    :func:`sdpa_plain`), the backward recomputes :func:`sdpa_plain` from
+    the saved q, k, v and differentiates it, GQA's k and v gradients summed
+    over the group.
+
+    This backward is what the reference computes: XLA's gradient of its
+    plain jnp ``layers.sdpa`` (its Pallas flash kernel has no backward). A
+    flash backward kernel would be a feature the reference lacks; it waits
+    until the port is done (ROADMAP, after Queue 1).
+
+    ``apply(q, k, v, causal, window, q_offset, softcap)``: ``window`` None
+    or a positive int.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset, softcap=softcap)
+        if q.is_cuda:
+            return ops.flash_attention(q.detach(), k.detach(), v.detach(), **ctx.kw)
+        return sdpa_plain(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            out = sdpa_plain(*ins, **ctx.kw)
+            grads = iter(torch.autograd.grad(out, [t for t in ins if t.requires_grad],
+                                             grad_out))
+        return (*(next(grads) if n else None for n in need), None, None, None, None)
+
+
+def sdpa_plain(q, k, v, *, causal=True, window=None, q_offset=0, softcap=0.0,
+               q_chunk=256, kv_chunk=1024):
+    """Plain torch attention: the counterpart of the reference's
+    differentiable ``layers.sdpa`` (not of the Pallas kernel), with
+    :func:`sdpa`'s arguments. Products in f32 (f64 for f64 inputs), masked
+    logits ``-1e30``; up to ``Sq·Skv = 2²²`` the logits are materialized,
+    past that an online softmax walks ``q_chunk × kv_chunk`` blocks, so
+    prefill-length logits never exist at once.
+    """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
     scale = d ** -0.5
+    ct = torch.promote_types(q.dtype, torch.float32)
     qg = q.reshape(b, hkv, group, sq, d)
     win = BIG_WINDOW if window is None or window <= 0 else int(window)
     dev = q.device
 
     if sq * skv <= 1 << 22:  # small: direct path
-        logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * scale
+        logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(ct), k.to(ct)) * scale
         if softcap:
             logits = torch.tanh(logits / softcap) * softcap
         qpos = torch.arange(sq, device=dev)[:, None] + q_offset
         kpos = torch.arange(skv, device=dev)[None, :]
         logits = logits.masked_fill(~_mask(qpos, kpos, win, causal), MASKED)
         probs = torch.softmax(logits, -1)
-        out = torch.einsum("bhgqk,bhkd->bhgqd", probs.to(v.dtype).float(),
-                           v.float())
+        out = torch.einsum("bhgqk,bhkd->bhgqd", probs.to(v.dtype).to(ct), v.to(ct))
         return out.reshape(b, hq, sq, d).to(q.dtype)
 
     # chunked two-level online-softmax path
@@ -173,13 +224,13 @@ def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, softcap=0.0,
     vp = F.pad(v, (0, 0, 0, skv_p - skv))
     outs = []
     for q0 in range(0, sq_p, qc):
-        q_blk = qg[:, :, :, q0:q0 + qc].float()
+        q_blk = qg[:, :, :, q0:q0 + qc].to(ct)
         qpos = q0 + torch.arange(qc, device=dev)[:, None] + q_offset
-        m = torch.full((b, hkv, group, qc), MASKED, dtype=torch.float32, device=dev)
-        l = torch.zeros((b, hkv, group, qc), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, hkv, group, qc, d), dtype=torch.float32, device=dev)
+        m = torch.full((b, hkv, group, qc), MASKED, dtype=ct, device=dev)
+        l = torch.zeros((b, hkv, group, qc), dtype=ct, device=dev)
+        acc = torch.zeros((b, hkv, group, qc, d), dtype=ct, device=dev)
         for k0 in range(0, skv_p, kc):
-            k_blk = kp[:, :, k0:k0 + kc].float()
+            k_blk = kp[:, :, k0:k0 + kc].to(ct)
             v_blk = vp[:, :, k0:k0 + kc]
             s = torch.einsum("bhgqd,bhkd->bhgqk", q_blk, k_blk) * scale
             if softcap:
@@ -192,7 +243,7 @@ def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, softcap=0.0,
             alpha = torch.exp(m - m_new)
             l = alpha * l + p.sum(-1)
             acc = acc * alpha[..., None] + torch.einsum(
-                "bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v_blk.float())
+                "bhgqk,bhkd->bhgqd", p.to(v.dtype).to(ct), v_blk.to(ct))
             m = m_new
         l = torch.where(l > 0, l, torch.ones_like(l))
         outs.append(acc / l[..., None])

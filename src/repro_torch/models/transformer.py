@@ -13,7 +13,8 @@ forward pass is a Python loop.
 
 Public entry points (uniform across families):
   init_params(cfg, seed, device)         → param dict (random, seeded)
-  forward(params, cfg, batch)            → final hidden states (B, S, D)
+  forward(params, cfg, batch)            → final hidden states (B, S, D),
+                                           differentiable
   pool(hidden)                           → (B, D) embedding for the AFL head
   lm_logits(params, cfg, hidden)         → (B, S, vocab)
   init_cache(cfg, batch, max_seq)        → decode cache (the family's layout)
@@ -568,8 +569,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     return init(gen, cfg, dev)
 
 
-@torch.no_grad()
 def forward(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Final hidden states (B, S, D) of ``batch``. Differentiable: under grad
+    mode, params that require grad get gradients (attention on the card
+    through ``layers.FlashSDPA``); the frozen-backbone callers run it under
+    ``torch.no_grad()``."""
     fam = _family(cfg)
     if fam == "encdec":
         return _encdec_forward(params, cfg, batch)

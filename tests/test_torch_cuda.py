@@ -676,43 +676,46 @@ def test_blocked_cholesky_f64_at_path_width_matches_numpy(cuda):
     assert _rel_x64(l[0], np.linalg.cholesky(a)) < REL64
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,d", [(1, 1536), (3, 130), (1, 128)])
-def test_blocked_cholesky_cuda_launches_match_profiler(cuda, m, d):
-    """One wrapper call makes blocked.cuda_launches(d) CUDA launches, as
-    torch.profiler counts them."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    a = torch.stack([_spd_block(d + i, d, cuda) for i in range(m)])
-    ops.blocked_cholesky(a)
-    torch.cuda.synchronize()
-    before = B.blocked_cholesky.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ops.blocked_cholesky(a)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-               and "chol_" in e.name]
-    assert B.blocked_cholesky.launches == before + 1
-    assert len(kernels) == B.cuda_launches(d)
-
-
 BLOCKED_KERNELS = ("chol_", "solve_inverse_kernel", "forward_", "backward_")
 
 
-def _cuda_kernels(fn) -> int:
-    """The blocked kernels torch.profiler counts in one synchronised call of
-    ``fn``."""
+# host seconds a counted call sits inside the profiler's window on each side
+PROFILE_PAD_S = 0.02
+
+
+def _cuda_kernels(fn, names=BLOCKED_KERNELS) -> int:
+    """The kernels (by ``names``) torch.profiler counts in one synchronised
+    call of ``fn``, after a warm-up call outside the window; ``fn`` runs
+    twice. The counted call sits PROFILE_PAD_S inside the window on each
+    side: the profiler keeps only the kernels whose card timestamps fall in
+    its capture window, and a call right at the window's start lost some or
+    all of its kernels (on an H100, 2 of 54 windows that opened with a
+    warm-up step lost every kernel; none of 270 padded windows lost one)."""
+    import time
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-               and any(k in e.name for k in BLOCKED_KERNELS))
+               and any(k in e.name for k in names))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(1, 1536), (3, 130), (1, 128)])
+def test_blocked_cholesky_cuda_launches_match_profiler(cuda, m, d):
+    """One wrapper call makes blocked.cuda_launches(d) CUDA launches, as
+    torch.profiler counts them."""
+    a = torch.stack([_spd_block(d + i, d, cuda) for i in range(m)])
+    before = B.blocked_cholesky.launches
+    assert _cuda_kernels(lambda: ops.blocked_cholesky(a), ("chol_",)) == B.cuda_launches(d)
+    assert B.blocked_cholesky.launches == before + 2
 
 
 @pytest.mark.cuda
@@ -994,6 +997,80 @@ def test_sdpa_on_card_is_the_kernel(cuda):
                 cuda).multi_processor_count, **kw)
             torch.testing.assert_close(out, twin, rtol=2e-5, atol=4e-4)
         assert float((ref.mha_ref(q, k, v, **kw) - want).abs().max()) > 0.04
+
+
+# the training path's attention shapes (chip_smoke.py's training phase):
+# (B, Hq, Hkv, S, S, D), kw
+GRAD_ATTN_CASES = [
+    ((4, 36, 36, 256, 256, 64), dict(causal=True)),                  # run_lm's minicpm_2b
+    ((1, 16, 8, 512, 512, 256), dict(causal=True, window=128)),      # gemma3_12b-like
+    ((1, 48, 8, 256, 256, 128), dict(causal=True, softcap=30.0)),    # grok1's cap
+    ((2, 16, 16, 512, 512, 64), dict(causal=False)),                 # seamless's encoder
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", GRAD_ATTN_CASES)
+def test_flash_sdpa_under_grad_matches_plain_autograd(cuda, shape, kw):
+    """models.layers.sdpa under grad on the card: the flash kernel's forward
+    (one launch) inside FlashSDPA, its output and dq, dk, dv against
+    autograd of sdpa_plain at rtol 1e-4 / atol 1e-4 of the largest entry."""
+    from repro_torch.models import layers as L
+    q, k, v = (t.requires_grad_(True) for t in _attn_inputs(60, *shape, torch.float32, cuda))
+    g = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(61), device=cuda)
+    before = FA.flash_attention.launches
+    out = L.sdpa(q, k, v, **kw)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert isinstance(out.grad_fn, L.FlashSDPA._backward_cls)
+    want = L.sdpa_plain(q, k, v, **kw)
+    ref_grads = torch.autograd.grad(want, (q, k, v), g)
+    for a, b in zip((out.detach(), *got), (want.detach(), *ref_grads)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_raw_flash_wrapper_raises_under_grad(cuda):
+    q, k, v = _attn_inputs(62, 1, 2, 2, 8, 8, 64, torch.float32, cuda)
+    before = FA.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        FA.flash_attention(q, k.requires_grad_(True), v)
+    with torch.no_grad():
+        FA.flash_attention(q, k, v)
+    assert FA.flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_full_train_step_on_card_matches_cpu(cuda):
+    """launch.steps.make_full_train_step (reduced minicpm_2b, lr 1e-2) on the
+    card, two flash launches (the forward of each layer; the backward
+    recomputes the plain attention), against the same step on the CPU: the
+    loss within rtol 1e-5, each leaf's Δp within 1e-3 of its largest plus
+    one f32 spacing of the parameter (each device rounds p − lr·g once)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.launch.inputs import sample_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import tree_leaves
+
+    cfg = get_config("minicpm_2b").reduced()
+    p_cpu = T.init_params(cfg, seed=0, device="cpu")
+    p_gpu = _tree_to(p_cpu, cuda)
+    old = [p.clone() for p in tree_leaves(p_cpu)]
+    step = STEPS.make_full_train_step(cfg)
+    before = FA.flash_attention.launches
+    _, loss_gpu = step(p_gpu, sample_batch(cfg, 2, 32, seed=0, device=cuda), 1e-2)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + cfg.num_layers
+    _, loss_cpu = step(p_cpu, sample_batch(cfg, 2, 32, seed=0, device="cpu"), 1e-2)
+    torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, rtol=1e-5, atol=0)
+    for o, a, b in zip(old, tree_leaves(p_gpu), tree_leaves(p_cpu)):
+        assert a.is_cuda and not a.requires_grad
+        dp, dr = a.cpu().double() - o.double(), b.double() - o.double()
+        tol = 1e-3 * float(dr.abs().max()) + torch.from_numpy(
+            np.spacing(np.abs(b.numpy()))).double()
+        assert bool(((dp - dr).abs() <= tol).all())
 
 
 @pytest.mark.cuda

@@ -116,12 +116,18 @@ def test_run_analytic_submits_to_a_given_coordinator(setup):
     assert PA.evaluate_weight(server.solve(target_gamma=0.0), emb, test.y) == acc
 
 
-def test_entry_points_refuse_what_is_not_ported(setup, monkeypatch):
+def test_entry_points_refuse_what_is_not_ported(setup, capsys):
+    """Without a card an entry point called with no device refuses (it
+    never drops to the CPU by itself); ``--mode gradient`` and ``--mode
+    lm``, ported now, run instead of refusing and print the reference's
+    lines."""
     _, cfg, train, test, _, params = setup
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             PTrain.run_analytic(cfg, train, test, FLConfig(), BATCH, params=params)
-    for argv in (["--mode", "gradient"], ["--mode", "lm"]):
-        monkeypatch.setattr("sys.argv", ["train", "--arch", "minicpm_2b", *argv])
-        with pytest.raises(SystemExit, match="Queue 1 item 8"):
-            PTrain.main()
+    tiny = ["--samples", "64", "--seq", "8", "--classes", "4", "--batch", "16",
+            "--rounds", "1", "--steps", "2"]
+    for mode, line in (("gradient", "gradient FL baseline: acc="), ("lm", "lm: step0 loss=")):
+        PTrain.main(["--arch", "minicpm_2b", "--mode", mode, "--device", "cpu", *tiny])
+        out = capsys.readouterr().out
+        assert "arch=minicpm-2b reduced=True device=cpu" in out and line in out
