@@ -89,8 +89,9 @@ without the repository around it. Phases, each fatal on failure:
  11. paper round: the paper's single round (``fl.afl.run_afl``) on the
      card's pooled embeddings of the slice's data (the flash kernel's
      launches counted over exactly that call, 40 a forward): Table 1's
-     partitions at K = 100 (iid, NIID-1 α = 0.1, NIID-2 s = 2) and Figure
-     2's K = 1000 (NIID-1 α = 0.1), each with the joint solve's test
+     partitions at K = 100 (iid, NIID-1 α = 0.1, NIID-2 s = 2; Figure 2's
+     K = 1000 is host f64 alone, held to the reference by
+     tests/test_torch_fl.py on the CPU), each with the joint solve's test
      accuracy and a weight within 10·κ·u64 of ``joint_ridge`` (accuracy
      only if the host Gram is singular), its host seconds split into local
      stages, submits and solve; ``run_afl(backbone_fn=…)`` with the
@@ -204,7 +205,24 @@ without the repository around it. Phases, each fatal on failure:
      8 steps of 4 × 256 tokens, every loss finite, with ms a step,
      tokens/s, peak memory and 40 flash launches a step; (e)
      ``examples/torch_train_100m.py``'s ``main`` at its defaults, its
-     asserts holding; its own JSON line ``{"training": ...}``.
+     asserts holding; its own JSON line ``{"training": ...}``;
+ 17. the dry run: (a) ``python -m repro_torch.launch.dryrun --mesh one
+     --variant flash`` over every arch and input shape, an arch a process,
+     all at once: every record ``ok`` but the documented skip (seamless at
+     long_500k), a line each with the predicted peak against the card's
+     memory and the roofline's dominant term; (b) the dry run's per-step
+     function (a meta walk) against the card at minicpm_2b's analytic
+     step of the slice's batch (64 × 32, ``use_kernel=True``) and
+     gemma3_12b's prefill at 4 × 2048 and one decode step against a
+     2048-slot cache, all full width in f32: the static bytes those of
+     the card's tensors exactly, the predicted peak within 10% of
+     ``max_memory_allocated`` over the step, the walk's flops the card's
+     ``FlopCounterMode`` count + ``attention_flops`` + the Gram's
+     2·N·d·(d + C) exactly, and the median of 5 timed steps giving a
+     roofline share and an MFU of at most 1; (c)
+     ``examples/torch_serve_demo.py`` and ``torch_federated_niid.py`` on
+     the card, their flash launches counted; its own JSON line
+     ``{"dryrun": ...}``.
 
 Each path's launches are counted from zero just before it runs. It then
 prints the kernels' JSON line (ten kernels), and last the device line
@@ -238,11 +256,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12,      # f32 outside the tensor cores
-              torch.bfloat16: 989e12,
-              torch.float64: 67e12}      # f64 in the tensor cores (34 outside them)
+# the H100's peaks (repro_torch.launch.mesh: HBM_BW, PEAK_FLOPS), set by
+# main() once the port is on the path
+PEAK_BYTES_S = PEAK_FLOPS = None
 # tests/test_kernels_gram.py's tolerances: (rtol, atol)
 GRAM_TOL = {torch.float32: (2e-4, 2e-3), torch.bfloat16: (2e-2, 2e-1)}
 # (N, d, C, dtype): the main path's per-batch shape first
@@ -1759,13 +1775,13 @@ def f64_engine_phase(K, S, engine, api, server, x_te, y_te, fl):
 
 # --- the paper's single round: fl/afl.run_afl and core/streaming ----------------
 
-# Table 1's partitions at K = 100 and Figure 2's largest K (about 3 rows a
-# client, far below d): (K, scheme, options)
+# Table 1's partitions at K = 100: (K, scheme, options). Figure 2's K = 1000
+# is host f64 alone (no card code, about 99 s): tests/test_torch_fl.py holds
+# it to the reference on the CPU
 PAPER_SETTINGS = [
     (100, "iid", {}),
     (100, "niid1", dict(alpha=0.1)),
     (100, "niid2", dict(shards_per_client=2)),
-    (1000, "niid1", dict(alpha=0.1)),
 ]
 PAPER_BACKBONE = (100, "niid1", dict(alpha=0.1))    # run_afl's own embedding branch
 PAPER_KU = 10.0          # AFL weight vs the joint solve: within 10·κ·u64
@@ -1811,7 +1827,7 @@ def _add_launches(total: dict, K) -> None:
 
 def paper_round_phase(K, sl, train, afl, partition, streaming, ST, api, D, FLConfig):
     """The paper's single round on the card's embeddings of the slice's data
-    (full-width minicpm_2b): Table 1's partitions and Figure 2's K = 1000
+    (full-width minicpm_2b): Table 1's partitions
     through ``run_afl`` against the joint solve, ``run_afl`` with the
     backbone itself, and the same round on the card through
     ``make_analytic_train_step`` and ``core.streaming`` (K = 16)."""
@@ -1856,7 +1872,7 @@ def paper_round_phase(K, sl, train, afl, partition, streaming, ST, api, D, FLCon
     log(f"paper round: host Gram d={d} eigenvalues [{evals[0]:.4e}, {evals[-1]:.4e}], "
         f"κ={kappa:.4e}; {case}; joint ridge (γ=0) acc={acc_joint:.4f} in {joint_s:.3f} s")
 
-    # 2. Table 1's partitions and Figure 2's K = 1000 on those embeddings
+    # 2. Table 1's partitions on those embeddings
     settings, servers, weights, accuracies = [], {}, {}, {}
     for k, scheme, kw in PAPER_SETTINGS:
         fl = FLConfig(num_clients=k, gamma=1.0, partition=scheme, **kw)
@@ -3861,6 +3877,250 @@ def training_phase(K, ref, get_config, D, T, L, ST, train, FLConfig, optim):
     return total, row, out
 
 
+# --- the dry run: its grid, its prediction against the card, two examples --------
+
+# (a) every arch × input shape on the port's mesh of one card, the flash
+# variant; the one documented skip; each architecture a process of its own
+DRYRUN_SKIP = {("seamless_m4t_medium", "long_500k")}
+DRYRUN_GRID_TIMEOUT_S = 120
+# (b) two full-width f32 steps the smoke already runs, predicted by the
+# dry run's per-step function and measured on the card: (what, arch,
+# InputShape fields, kind)
+DRYRUN_STEPS = [("minicpm_2b analytic step", "minicpm_2b", ("slice_batch", 32, 64, "train")),
+                ("gemma3_12b prefill", "gemma3_12b", ("serve_prefill", 2048, 4, "prefill")),
+                ("gemma3_12b decode step", "gemma3_12b", ("serve_decode", 2048, 4, "decode"))]
+DRYRUN_PEAK_REL = 0.10      # predicted peak within 10% of the card's
+DRYRUN_TIMED = 5            # a step's time: the median of 5 synchronised runs
+
+
+def dryrun_grid(root: Path, list_archs, M) -> dict:
+    """``python -m repro_torch.launch.dryrun --mesh one --variant flash`` for
+    every arch and shape, the archs in parallel processes; every record
+    ``ok`` but the documented skip. One line a combination: the predicted
+    peak against the card's memory, and the roofline's dominant term."""
+    out = root / "results" / "torch_dryrun"
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for arch in list_archs():
+            procs[arch] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", "all", "--mesh", "one", "--variant", "flash", "--out", str(out)],
+                cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs = {}
+        for arch, proc in procs.items():
+            left = max(1.0, DRYRUN_GRID_TIMEOUT_S - (time.perf_counter() - t0))
+            try:
+                logs[arch] = proc.communicate(timeout=left)[0]
+            except subprocess.TimeoutExpired:
+                fail(f"dry run of {arch} took more than {DRYRUN_GRID_TIMEOUT_S} s")
+            if proc.returncode != 0:
+                fail(f"dry run of {arch} exited {proc.returncode}:\n{logs[arch][-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    log(f"dry run: the card's memory {hbm} bytes ({hbm / 2**30:.2f} GiB); "
+        f"launch.mesh.HBM_BYTES {M.HBM_BYTES}" + ("" if hbm == M.HBM_BYTES else " (differs)"))
+    grid, fits = {}, 0
+    for arch in list_archs():
+        for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            rec = json.loads((out / f"{arch}__{shape}__one__flash.json").read_text())
+            if (arch, shape) in DRYRUN_SKIP:
+                if rec["ok"] or "skipped" not in rec:
+                    fail(f"dry run {arch} {shape}: expected the documented skip, got {rec}")
+                log(f"dry run: {arch} {shape}: skipped ({rec['skipped']})")
+                grid[f"{arch}/{shape}"] = "skipped"
+                continue
+            if not rec["ok"]:
+                fail(f"dry run {arch} {shape} failed: {rec.get('error')}")
+            mem, roof = rec["memory"], rec["roofline"]
+            peak = mem["peak_bytes_per_device"]
+            fits += peak <= hbm
+            grid[f"{arch}/{shape}"] = dict(
+                peak_gib=peak / 2**30, fits=peak <= hbm, dominant=roof["dominant"],
+                compute_ms=1e3 * roof["compute_s"], memory_ms=1e3 * roof["memory_s"],
+                flops=rec["flops_global"], bytes=rec["bytes_global"], walk_s=rec["walk_s"])
+            log(f"dry run: {arch} {shape}: peak {peak / 2**30:.2f} GiB of {hbm / 2**30:.2f} "
+                f"GiB ({'fits' if peak <= hbm else 'does not fit'}); compute "
+                f"{1e3 * roof['compute_s']:.2f} ms, memory {1e3 * roof['memory_s']:.2f} ms "
+                f"→ {roof['dominant']}; walk {rec['walk_s']} s")
+    log(f"dry run grid: {len(grid)} combinations in {wall:.1f} s ({fits} fit one card)")
+    return dict(wall_s=wall, hbm_bytes=hbm, fits=fits, combinations=grid)
+
+
+def _timed_step(fn, args, n):
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    return statistics.median(times)
+
+
+def dryrun_step_check(K, what, cfg, shape, params, DR, CA, M):
+    """(b) for one step: the dry run's prediction (a meta walk, the flash
+    variant) against the step on the card. Static bytes exact; the peak
+    within ``DRYRUN_PEAK_REL`` of ``max_memory_allocated`` over the step;
+    the flops identity: the walk's = the card's ``FlopCounterMode`` count
+    (which does not see the extension kernels) + ``attention_flops`` + the
+    Gram's 2·N·d·(d + C); the median time's roofline share and MFU at most
+    1. Returns the step's launches and its record."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    t0 = time.perf_counter()
+    pred = DR.step_cost(cfg, shape, "flash", use_kernel=True)
+    walk_s = time.perf_counter() - t0
+    cost = pred["cost"]
+    fn, args, static = DR.build_step(cfg, shape, "flash", device="cuda", use_kernel=True,
+                                     params=params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - CA.storage_bytes(args, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args)                                     # also the warm-up
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - other
+    card_static = {k: CA.storage_bytes(v, "cuda") for k, v in static.items() if k != "cache"}
+    if "cache" in static:
+        card_static["cache"] = CA.storage_bytes(out[1] if shape.kind == "prefill"
+                                                else static["cache"], "cuda")
+    del out
+    _zero(K)
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    del out
+    launches = _read(K)
+    launches["flash_attention_cuda"] = K.FA.flash_attention.cuda_launches
+    counted = int(fc.get_total_flops())
+    attn = int(pred["attn_flops"])
+    gram = 0
+    if shape.kind == "train":
+        n, d, c = shape.global_batch, cfg.d_model, cfg.num_classes
+        gram = 2 * n * d * (d + c)
+    t = _timed_step(fn, args, DRYRUN_TIMED)
+    del fn, args, static
+    bound_s = max(cost.flops / M.PEAK_FLOPS[cfg.param_dtype], cost.bytes_accessed / M.HBM_BW)
+    share, mfu = bound_s / t, cost.flops / (t * M.PEAK_FLOPS[cfg.param_dtype])
+    rec = dict(step=what, shape=dataclasses.asdict(shape), walk_s=walk_s,
+               static_predicted=pred["static"], static_card=card_static,
+               peak_predicted=cost.peak_bytes, peak_card=peak,
+               peak_rel=(cost.peak_bytes - peak) / peak,
+               peak_aval=cost.peak_aval_shape, temp_predicted=cost.temp_bytes,
+               flops_walk=cost.flops, flops_card_counted=counted, attn_flops=attn,
+               gram_flops=gram, bytes_walk=cost.bytes_accessed, step_s=t,
+               bound_s=bound_s, bound_by="operations" if bound_s == cost.flops / M.PEAK_FLOPS[
+                   cfg.param_dtype] else "bytes", roofline_share=share, mfu=mfu,
+               launches={k: v for k, v in launches.items() if v})
+    log(f"dry run vs card: {what} {shape.global_batch} × {shape.seq_len}: static "
+        f"{card_static} (predicted {pred['static']}); peak {peak} B card, "
+        f"{cost.peak_bytes} B predicted ({100 * rec['peak_rel']:+.2f}%; largest "
+        f"intermediate {cost.peak_aval_shape}); flops walk {cost.flops} = card "
+        f"{counted} + attention {attn} + Gram {gram} "
+        f"({'exact' if cost.flops == counted + attn + gram else 'DIFFERS'}); step "
+        f"{1e3 * t:.2f} ms (median of {DRYRUN_TIMED}), bound {1e3 * bound_s:.2f} ms "
+        f"({rec['bound_by']}): roofline share {share:.4f}, MFU {mfu:.4f}; launches "
+        f"{rec['launches']}")
+    if card_static != pred["static"]:
+        fail(f"{what}: static bytes {card_static} on the card, {pred['static']} predicted")
+    if abs(rec["peak_rel"]) > DRYRUN_PEAK_REL:
+        fail(f"{what}: predicted peak {cost.peak_bytes} B is {100 * rec['peak_rel']:+.2f}% "
+             f"of the card's {peak} B, past ±{100 * DRYRUN_PEAK_REL:g}%")
+    if cost.flops != counted + attn + gram:
+        fail(f"{what}: walk flops {cost.flops} != card {counted} + attention {attn} "
+             f"+ Gram {gram}")
+    if not (0 < share <= 1.0 and 0 < mfu <= 1.0):
+        fail(f"{what}: roofline share {share:.4f}, MFU {mfu:.4f}: the count is short")
+    return launches, rec
+
+
+def dryrun_example_check(K, root, zoo_calls, get_config):
+    """(c) ``examples/torch_serve_demo.py`` and ``torch_federated_niid.py``
+    on the card (their ``main``), their flash launches counted: every
+    serve call of the demo (``zoo_flash_calls``), and one a layer for each
+    embedding batch of the sweep."""
+    import importlib.util
+
+    total, out = {}, {}
+    for name in ("torch_serve_demo", "torch_federated_niid"):
+        spec = importlib.util.spec_from_file_location(name, root / "examples" / f"{name}.py")
+        ex = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(ex)
+        _zero(K)
+        t0 = time.perf_counter()
+        try:
+            res = ex.main([])
+        except AssertionError as exc:
+            fail(f"examples/{name}.py: {exc}")
+        wall = time.perf_counter() - t0
+        launches = _read(K)
+        launches["flash_attention_cuda"] = K.FA.flash_attention.cuda_launches
+        if name == "torch_serve_demo":
+            want = sum(len(zoo_calls(get_config(arch).reduced(), ex.BATCH, ex.PROMPT, ex.GEN))
+                       for arch, _ in ex.REQUESTS)
+            out[name] = dict(wall_s=wall, **{a: dict(prefill_s=r["prefill_s"],
+                                                     decode_s=r["decode_s"])
+                                             for a, r in res.items()})
+        else:
+            want = res["batches"] * res["layers"]
+            afl = {r["afl"] for r in res["rows"].values()}
+            if len(afl) != 1:
+                fail(f"examples/{name}.py: the AFL column varies: {res['rows']}")
+            out[name] = dict(wall_s=wall, rows=res["rows"])
+        _only({n: launches[n] for n in K.ALL}, {"flash_attention": want}, f"examples/{name}.py")
+        out[name]["flash_launches"] = launches["flash_attention"]
+        log(f"example {name}: wall {wall:.2f} s, flash launches "
+            f"{launches['flash_attention']} ({launches['flash_attention_cuda']} CUDA)")
+        for n, v in launches.items():
+            total[n] = total.get(n, 0) + v
+    return total, out
+
+
+def dryrun_phase(K, root, get_config, list_archs, InputShape):
+    """Phase 17: (a) the grid, (b) the prediction of two full-width steps
+    against the card, (c) two examples on the card."""
+    from repro_torch.launch import cost_analysis as CA
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    out = dict(grid=dryrun_grid(root, list_archs, M))
+    total, steps, params, loaded = {}, [], None, None
+    for what, arch, fields in DRYRUN_STEPS:
+        cfg = get_config(arch)
+        if arch == SLICE["arch"]:
+            cfg = dataclasses.replace(cfg, num_classes=SLICE["classes"])
+        if loaded != arch:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            params, loaded = T.init_params(cfg, seed=0, device="cuda"), arch
+        launches, rec = dryrun_step_check(K, what, cfg, InputShape(*fields), params, DR, CA, M)
+        steps.append(rec)
+        for n, v in launches.items():
+            total[n] = total.get(n, 0) + v
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["steps"] = steps
+    launches, out["examples"] = dryrun_example_check(K, root, zoo_flash_calls, get_config)
+    for n, v in launches.items():
+        total[n] = total.get(n, 0) + v
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"dry run phase: {out['wall_s']:.1f} s")
+    return total, out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3883,9 +4143,12 @@ def main() -> None:
     if not (src / "repro_torch").is_dir():
         fail(f"the port's package is not at {src / 'repro_torch'}; run from a checkout")
     sys.path.insert(0, str(src))
-    from repro_torch.config import FLConfig
+    global PEAK_BYTES_S, PEAK_FLOPS
+    from repro_torch.launch import mesh
+    PEAK_BYTES_S, PEAK_FLOPS = mesh.HBM_BW, mesh.PEAK_FLOPS
+    from repro_torch.config import FLConfig, InputShape
     from repro_torch.core import engine
-    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.registry import get_config, list_archs
     from repro_torch.data import synthetic as D
     from repro_torch.core import distributed, streaming
     from repro_torch import checkpoint
@@ -3956,6 +4219,9 @@ def main() -> None:
                                                          train, FLConfig, optim)
     paths.append(training_launches)
     rows["flash_attention"].append(lm_row)
+    dryrun_launches, dryrun = dryrun_phase(K, Path(__file__).resolve().parent, get_config,
+                                           list_archs, InputShape)
+    paths.append(dryrun_launches)
     launches = {name: sum(p[name] for p in paths) for name in K.ALL}
     if not all(launches.values()):
         fail(f"a kernel of the path was never launched: {launches}")
@@ -3991,6 +4257,7 @@ def main() -> None:
     log(json.dumps({"serve": served}))
     log(json.dumps({"zoo": zoo}))
     log(json.dumps({"training": training}))
+    log(json.dumps({"dryrun": dryrun}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

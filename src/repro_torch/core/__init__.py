@@ -5,6 +5,7 @@ Host path (float64, paper-literal API):  :mod:`repro_torch.core.analytic`
 Device path (f32 tensors on the card):   :mod:`repro_torch.core.streaming`
 Non-linear feature maps (paper §5):      :mod:`repro_torch.core.features`
 Sharded aggregation (a shard mesh):      :mod:`repro_torch.core.distributed`
+Activation-sharding policy (dry run):    :mod:`repro_torch.core.act`
 """
 
 from repro_torch.core.engine import (  # noqa: F401

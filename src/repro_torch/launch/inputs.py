@@ -1,10 +1,11 @@
-"""Concrete sample batches for the port's launchers.
+"""Abstract input specs (meta tensors) and concrete sample batches.
 
-The port of ``repro.launch.inputs.sample_batch``: the same numpy draws from
-``default_rng(seed)`` in the same order, so both packages get equal tokens
-(and modality stubs) for the same arguments; the tensors go on the caller's
-device. The reference's abstract input specs are the dry run's and are not
-ported (ROADMAP Queue 1, item 9).
+The port of ``repro.launch.inputs``. ``input_specs(cfg, shape)`` returns
+the dry run's abstract inputs: meta tensors of the reference's
+``ShapeDtypeStruct`` shapes and dtypes, with no storage. ``sample_batch``
+makes the same numpy draws from ``default_rng(seed)`` in the same order as
+the reference's, so both packages get equal tokens (and modality stubs) for
+the same arguments; the tensors go on the caller's device.
 
 Modality stubs: VLM archs get pre-computed patch embeddings
 (``cfg.prefix_tokens`` of them), audio enc-dec archs pre-computed frame
@@ -18,7 +19,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import InputShape, ModelConfig
 from repro_torch.device import resolve_device
 
 
@@ -27,6 +28,43 @@ def _token_len(cfg: ModelConfig, seq_len: int) -> int:
     if cfg.prefix_tokens:
         return max(1, seq_len - cfg.prefix_tokens)
     return seq_len
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_specs(cfg: ModelConfig, shape: InputShape,
+                dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    b, s = shape.global_batch, shape.seq_len
+    specs = {"tokens": _meta((b, _token_len(cfg, s)), torch.int32),
+             "labels": _meta((b,), torch.int32)}
+    if cfg.prefix_tokens:
+        specs["prefix_embeds"] = _meta((b, cfg.prefix_tokens, cfg.d_model), dtype)
+    if cfg.encoder_layers:
+        specs["enc_feats"] = _meta((b, min(cfg.encoder_seq, s), cfg.d_model), dtype)
+    return specs
+
+
+def prefill_specs(cfg: ModelConfig, shape: InputShape,
+                  dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    specs = train_specs(cfg, shape, dtype)
+    del specs["labels"]
+    return specs
+
+
+def decode_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, torch.Tensor]:
+    return {"token": _meta((shape.global_batch,), torch.int32),
+            "pos": _meta((), torch.int32)}
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    if shape.kind == "train":
+        return train_specs(cfg, shape, dtype)
+    if shape.kind == "prefill":
+        return prefill_specs(cfg, shape, dtype)
+    return decode_specs(cfg, shape)
 
 
 def sample_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,

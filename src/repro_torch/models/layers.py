@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import act
 from repro_torch.kernels import ops
 
 BIG_WINDOW = 1 << 30
@@ -139,7 +140,14 @@ def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, softcap=0.0,
     forward inside :class:`FlashSDPA`, whose backward is ``sdpa_plain``'s
     gradient. On the CPU it is :func:`sdpa_plain`, which autograd
     differentiates as it stands.
+
+    Under ``act.flash_surrogate_active()`` (the dry run's ``flash``
+    variant) it returns the reference's stand-in for the kernel: an output
+    of (B, Hq, Sq, D) built from one read of q, k and v and no logits, the
+    kernel's boundary traffic; the dry run adds the kernel's flops.
     """
+    if act.flash_surrogate_active():
+        return _flash_surrogate(q, k, v)
     if not q.is_cuda:
         return sdpa_plain(q, k, v, causal=causal, window=window, q_offset=q_offset,
                           softcap=softcap, q_chunk=q_chunk, kv_chunk=kv_chunk)
@@ -148,6 +156,17 @@ def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, softcap=0.0,
         return FlashSDPA.apply(q, k, v, causal, win, int(q_offset), float(softcap))
     return ops.flash_attention(q, k, v, causal=causal, window=win, q_offset=q_offset,
                                softcap=softcap)
+
+
+def _flash_surrogate(q, k, v):
+    """The reference's surrogate (``repro.models.layers.sdpa``): the means of
+    k and v over the keys, scaled, broadcast over each GQA group and added
+    to q."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    kv = (k.mean(2, keepdim=True) + v.mean(2, keepdim=True)) * d ** -0.5    # (b,hkv,1,d)
+    kv = kv[:, :, None].expand(b, hkv, hq // hkv, 1, d)
+    return q + kv.reshape(b, hq, 1, d).to(q.dtype)
 
 
 class FlashSDPA(torch.autograd.Function):

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import act
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -106,6 +107,7 @@ def _init_block(gen, cfg: ModelConfig, device, cross_attn: bool = False):
 
 
 def _block_ffn(p, cfg: ModelConfig, x):
+    x = act.constrain_bsd(x)
     h = L.norm_apply(p["ln2"], x, cfg.norm_eps, cfg.norm)
     if cfg.moe is not None:
         out, _aux = M.moe_apply(p["moe"], h, cfg.moe, cfg.activation)
@@ -132,8 +134,10 @@ def _block_fwd(p, cfg: ModelConfig, x, positions, window, theta, *, causal=True,
     (slot <= pos) masks the slots not yet written.
     """
     dims = _attn_dims(cfg)
+    x = act.constrain_bsd(x)
     h = L.norm_apply(p["ln1"], x, cfg.norm_eps, cfg.norm)
     q, k, v = L.qkv_project(p["attn"], dims, h, positions, theta, cfg.norm_eps)
+    q, k, v = act.constrain_heads(q), act.constrain_heads(k), act.constrain_heads(v)
     if kv_cache is None:
         attn = L.sdpa(q, k, v, causal=causal, window=window,
                       softcap=cfg.logit_softcap)
@@ -194,7 +198,7 @@ def embed_inputs(params: Params, cfg: ModelConfig, batch):
     if cfg.prefix_tokens:
         prefix = torch.as_tensor(batch["prefix_embeds"], device=emb.device)
         x = torch.cat([prefix.to(x.dtype) @ params["mm_proj"], x], dim=1)
-    return x, _positions(x.shape[0], x.shape[1], x.device)
+    return act.constrain_bsd(x), _positions(x.shape[0], x.shape[1], x.device)
 
 
 def pool(hidden: torch.Tensor) -> torch.Tensor:
@@ -321,7 +325,9 @@ def _dense_prefill(params, cfg, x, positions, max_seq):
 
 def _dense_decode(params, cfg, x, cache, pos):
     """One-token decode: each layer writes its key and value into its slice
-    of the stacked cache (slot ``pos % max_seq``) and attends over it."""
+    of the stacked cache (slot ``pos % max_seq``) and attends over it. The
+    reference's decode body constrains each layer's input; here that is
+    ``_block_fwd``'s own ``constrain_bsd``."""
     window, theta = layer_meta(cfg, cfg.num_layers)
     positions = _positions(x.shape[0], 1, x.device, int(pos))
     for i, (lp, w, th) in enumerate(zip(params["layers"], window, theta)):
@@ -359,6 +365,7 @@ def _init_hybrid(gen, cfg: ModelConfig, device):
 def _mamba_layer_fwd(lp, cfg, h, state=None):
     """One Mamba2 layer; with ``state`` (the layer's views in the cache)
     the state is carried and written back in place."""
+    h = act.constrain_bsd(h)
     hin = L.norm_apply(lp["ln"], h, cfg.norm_eps, cfg.norm)
     if state is None:
         return h + SSM.mamba_apply(lp["mixer"], hin, cfg.ssm)
@@ -460,10 +467,11 @@ def _xlstm_run(params, cfg, x, states=None):
 
     for gi, gp in enumerate(params.get("mlstm_groups", [])):
         for li, lp in enumerate(gp):
-            x = _xlstm_layer(X.mlstm_apply, lp, cfg, x, at("mlstm_groups", gi, li))
+            x = _xlstm_layer(X.mlstm_apply, lp, cfg, act.constrain_bsd(x),
+                             at("mlstm_groups", gi, li))
         x = _xlstm_layer(X.slstm_apply, params["slstm"][gi], cfg, x, at("slstm", gi))
     for li, lp in enumerate(params.get("mlstm_tail", [])):
-        x = _xlstm_layer(X.mlstm_apply, lp, cfg, x, at("mlstm_tail", li))
+        x = _xlstm_layer(X.mlstm_apply, lp, cfg, act.constrain_bsd(x), at("mlstm_tail", li))
     x = _final(params, cfg, x)
     return x if states is None else (x, states)
 
@@ -561,11 +569,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random parameters drawn on ``device`` (CUDA unless named) from a
     ``torch.Generator`` seeded with ``seed``. They are not the reference's
     ``jax.random`` draws; ``models.convert.params_from_jax`` carries those
-    over when both packages must run on the same weights."""
+    over when both packages must run on the same weights.
+
+    ``device="meta"`` gives the same tree of shapes and dtypes with no
+    storage and no draw (the counterpart of ``jax.eval_shape(init_params)``,
+    for the dry run): the meta device has no generator, and its tensors no
+    values to draw."""
     init = _INIT[_family(cfg)]
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     return init(gen, cfg, dev)
 
 

@@ -1,0 +1,207 @@
+"""The port's cost walk against the reference's loop-aware HLO analysis.
+
+``repro_torch.launch.cost_analysis.walk`` runs a step on meta tensors; its
+flops are held to ``repro.launch.hlo_analysis.analyze(...).flops`` of the
+same step jitted by the reference on the CPU, for the reduced analytic,
+prefill and decode steps of one arch per family. Where they differ the
+test names why and checks the difference to the flop. ``attention_flops``
+and ``resolve_config`` are held to the reference's, read from its source:
+importing ``repro.launch.dryrun`` would set ``XLA_FLAGS``. The walk's bytes
+and live-storage accounting are checked on small functions, and the
+affine extension of the per-token families against full walks.
+"""
+
+import ast
+import dataclasses
+from pathlib import Path
+from typing import Optional
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.config import INPUT_SHAPES as R_SHAPES
+from repro.config import InputShape as RInputShape
+from repro.config import ModelConfig as RModelConfig
+from repro.configs.registry import get_config as r_get_config
+from repro.core import streaming as rstreaming
+from repro.launch import hlo_analysis as HA
+from repro.launch import inputs as rinputs
+from repro.launch import steps as RST
+from repro.models import transformer as RT
+
+from repro_torch.config import INPUT_SHAPES, InputShape
+from repro_torch.configs.registry import get_config, list_archs
+from repro_torch.launch import cost_analysis as CA
+from repro_torch.launch import dryrun as DR
+
+FAMILY_ARCHS = ["minicpm_2b", "granite_moe_3b_a800m", "zamba2_7b", "xlstm_350m",
+                "seamless_m4t_medium"]
+B, S = 2, 24
+
+
+def _reference_dryrun_namespace() -> dict:
+    """``resolve_config``, ``attention_flops`` and the long_500k constants
+    of ``src/repro/launch/dryrun.py``, executed from its source with the
+    reference's own modules bound to the names they use."""
+    path = Path(RT.__file__).resolve().parents[1] / "launch" / "dryrun.py"
+    tree = ast.parse(path.read_text())
+    keep = [n for n in tree.body
+            if (isinstance(n, ast.FunctionDef) and n.name in ("resolve_config",
+                                                              "attention_flops"))
+            or (isinstance(n, ast.Assign)
+                and all(isinstance(t, ast.Name) and t.id.startswith("LONG_")
+                        for t in n.targets))]
+    ns = dict(dataclasses=dataclasses, np=np, T=RT, get_config=r_get_config,
+              InputShape=RInputShape, ModelConfig=RModelConfig, Optional=Optional)
+    exec(compile(ast.Module(body=keep, type_ignores=[]), str(path), "exec"), ns)
+    return ns
+
+
+def _ref_flops(rcfg, kind):
+    params = jax.eval_shape(lambda: RT.init_params(jax.random.key(0), rcfg))
+    shape = RInputShape("t", S, B, kind)
+    specs = rinputs.input_specs(rcfg, shape)
+    if kind == "train":
+        state = jax.eval_shape(lambda: rstreaming.init_state(rcfg.d_model, rcfg.num_classes))
+        fn, args = RST.make_analytic_train_step(rcfg), (params, state, specs)
+    elif kind == "prefill":
+        fn, args = RST.make_prefill_step(rcfg, S), (params, specs)
+    else:
+        cache = jax.eval_shape(lambda: RT.init_cache(rcfg, B, S))
+        fn, args = RST.make_serve_step(rcfg), (params, cache, specs["token"], specs["pos"])
+    return HA.analyze(jax.jit(fn).lower(*args).compile().as_text()).flops
+
+
+def _known_gap(cfg, kind) -> int:
+    """walk − reference flops, by design of the port's code:
+
+    - xLSTM: the mLSTM normalizer n·q is an elementwise product and a sum
+      in the port (no matmul flops) and an einsum (a dot) in the
+      reference: 2·B·H·dh a token of each mLSTM layer;
+    - enc-dec: the port's cross-attention projects all of q, k, v and
+      drops what it does not use (q of the encoder memory, k and v of the
+      decoder's stream), which XLA removes as dead code: 2·rows·d·width
+      for each dropped projection, every decoder layer.
+    """
+    tokens = 1 if kind == "decode" else S
+    if cfg.arch_type == "xlstm":
+        g, n_groups = cfg.slstm_every, cfg.num_layers // cfg.slstm_every
+        mlstm = n_groups * (g - 1) + (cfg.num_layers - n_groups * g)
+        dh = 2 * cfg.d_model // cfg.num_heads
+        return -2 * B * cfg.num_heads * dh * tokens * mlstm
+    if cfg.arch_type == "encdec":
+        hd = cfg.resolved_head_dim
+        q_mem = 0 if kind == "decode" else 2 * B * min(cfg.encoder_seq, S) * cfg.d_model * (
+            cfg.num_heads * hd)
+        kv_dec = 2 * 2 * B * tokens * cfg.d_model * (cfg.num_kv_heads * hd)
+        return cfg.num_layers * (q_mem + kv_dec)
+    return 0
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_walk_flops_match_reference(arch, kind):
+    """Within 1% of the reference's, and equal to it once the named gap is
+    taken out."""
+    rcfg, cfg = r_get_config(arch).reduced(), get_config(arch).reduced()
+    want = _ref_flops(rcfg, kind)
+    got = DR.step_cost(cfg, InputShape("t", S, B, kind), "baseline",
+                       use_kernel=False)["cost"].flops
+    assert abs(got - want) <= 0.01 * want or arch == "seamless_m4t_medium", (got, want)
+    assert got - _known_gap(cfg, kind) == want
+
+
+def test_attention_flops_and_resolve_config_match_reference():
+    ref = _reference_dryrun_namespace()
+    for arch in list_archs():
+        for name, shape in INPUT_SHAPES.items():
+            for variant in ("baseline", "flash", "flash_pad"):
+                rcfg = ref["resolve_config"](arch, R_SHAPES[name], variant)
+                cfg = DR.resolve_config(arch, shape, variant)
+                assert (rcfg is None) == (cfg is None), (arch, name)
+                if cfg is None:
+                    continue
+                for f in dataclasses.fields(cfg):
+                    if f.name not in ("moe", "ssm"):
+                        assert getattr(cfg, f.name) == getattr(rcfg, f.name), (arch, f.name)
+                assert DR.attention_flops(cfg, shape) == ref["attention_flops"](
+                    rcfg, R_SHAPES[name]), (arch, name)
+    assert (DR.LONG_WINDOW, DR.LONG_NATIVE, DR.LONG_SKIP) == (
+        ref["LONG_WINDOW"], ref["LONG_NATIVE"], ref["LONG_SKIP"])
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_affine_extension_equals_full_walks(kind):
+    """The per-token family's every count read off the line through S = 8
+    and 16 equals a full walk's at S = 24 and 32."""
+    cfg = get_config("xlstm_350m").reduced()
+
+    def make(s):
+        fn, args, _ = DR.build_step(cfg, InputShape("t", s, B, kind), "flash")
+        return fn, args
+
+    for s in (24, 32):
+        fn, args = make(s)
+        full, _ = CA.walk(fn, *args)
+        ext = CA.affine_walk(make, s)
+        for f in CA._AFFINE:
+            assert getattr(ext, f) == getattr(full, f), (s, f)
+        assert ext.flops > 0 and ext.peak_bytes > ext.static_bytes
+
+
+def test_walk_bytes_and_live_storage():
+    """A matmul reads both operands and writes its result; a view moves
+    nothing; a gather reads the rows it gathers; a freed intermediate
+    leaves the live count; the largest intermediate is named."""
+    a = torch.empty(64, 32, device="meta")
+    w = torch.empty(32, 16, device="meta")
+    idx = torch.empty(8, dtype=torch.int64, device="meta")
+
+    def fn(a, w, idx):
+        t = a @ w                      # 64·16·4 written, (64·32 + 32·16)·4 read
+        v = t.T                        # a view: nothing moved
+        r = v.sum()                    # reads 64·16·4, writes 4
+        del t, v
+        return a[idx], r               # gathers 8 rows of 32 (+ the indices)
+
+    cost, (rows, _) = CA.walk(fn, a, w, idx)
+    assert cost.flops == 2 * 64 * 32 * 16
+    f = 4
+    want = ((64 * 32 + 32 * 16 + 64 * 16) * f
+            + (64 * 16 * f + f)
+            + (2 * 8 * 32 * f + 8 * 8))
+    assert cost.bytes_accessed == want
+    assert cost.static_bytes == (64 * 32 + 32 * 16) * f + 8 * 8
+    # at most the product and the sum's scalar live at once, or the gather
+    assert cost.peak_bytes == cost.static_bytes + 64 * 16 * f + f
+    assert cost.peak_aval_bytes == 64 * 16 * f and cost.peak_aval_shape == "float32[64, 16]"
+    assert tuple(rows.shape) == (8, 32)
+
+
+def test_step_cost_static_bytes_are_the_tensors():
+    """The dry run's static bytes on the host mesh are the bytes of the
+    tensors the step is given (and, for prefill, of the cache it makes)."""
+    from repro_torch.core import streaming
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("minicpm_2b").reduced()
+    for kind in ("train", "prefill", "decode"):
+        shape = InputShape("t", S, B, kind)
+        out = DR.step_cost(cfg, shape, "flash")
+        params = T.init_params(cfg, device="meta")
+        want = {"params": CA.storage_bytes(params)}
+        if kind == "train":
+            want["state"] = CA.storage_bytes(streaming.init_state(cfg.d_model,
+                                                                 cfg.num_classes,
+                                                                 device="meta"))
+            want["batch"] = (B * S + B) * 4
+        elif kind == "prefill":
+            want["cache"] = CA.storage_bytes(T.init_cache(cfg, B, S, device="meta"))
+            want["batch"] = B * S * 4
+        else:
+            want["cache"] = CA.storage_bytes(T.init_cache(cfg, B, S, device="meta"))
+            want["batch"] = B * 4
+        assert out["static"] == want, kind
+        assert out["attn_flops"] == DR.attention_flops(cfg, shape) > 0

@@ -1473,3 +1473,58 @@ def test_failing_shard_on_the_card_raises_without_hanging(cuda):
     totals = DD.ShardGroup(DD.federation_mesh(8, [cuda])).run(
         lambda s: s.psum(torch.ones((), device=s.device)))
     assert [float(t) for t in totals] == [8.0] * 8
+
+
+# --- the dry run against the card ------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_dryrun_static_bytes_and_flops_identity(cuda, kind):
+    """A reduced step's prediction (a meta walk, the flash variant) against
+    the same step on the card: the static bytes are the tensors', and the
+    walk's flops are the card's ``FlopCounterMode`` count (blind to the
+    extension kernels) + ``attention_flops`` + the Gram kernel's
+    2·N·d·(d + C)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.config import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import cost_analysis as CA
+    from repro_torch.launch import dryrun as DR
+
+    cfg = get_config("gemma3_12b").reduced()
+    shape = InputShape("t", 48, 3, kind)
+    pred = DR.step_cost(cfg, shape, "flash", use_kernel=True)
+    fn, args, static = DR.build_step(cfg, shape, "flash", device=cuda, use_kernel=True)
+    FA.flash_attention.launches = G.gram_update.launches = 0
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    card = {k: CA.storage_bytes(v, cuda) for k, v in static.items() if k != "cache"}
+    if kind == "prefill":
+        card["cache"] = CA.storage_bytes(out[1], cuda)
+    elif kind == "decode":
+        card["cache"] = CA.storage_bytes(static["cache"], cuda)
+    assert card == pred["static"]
+    gram = 2 * 3 * cfg.d_model * (cfg.d_model + cfg.num_classes) if kind == "train" else 0
+    assert pred["cost"].flops == fc.get_total_flops() + int(pred["attn_flops"]) + gram
+    assert FA.flash_attention.launches == cfg.num_layers
+    assert G.gram_update.launches == (kind == "train")
+
+
+@pytest.mark.cuda
+def test_meta_init_params_next_to_cuda_init(cuda):
+    """``init_params(device="meta")``: the CUDA draw's tree, shapes and
+    dtypes, and a CUDA draw after it the same bits as before it."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import tree_leaves
+
+    cfg = get_config("zamba2_7b").reduced()
+    first = tree_leaves(T.init_params(cfg, seed=1, device=cuda))
+    meta = tree_leaves(T.init_params(cfg, seed=1, device="meta"))
+    again = tree_leaves(T.init_params(cfg, seed=1, device=cuda))
+    assert len(first) == len(meta) > 0
+    for a, m, b in zip(first, meta, again):
+        assert m.is_meta and (m.shape, m.dtype) == (a.shape, a.dtype)
+        assert torch.equal(a, b)

@@ -6,8 +6,9 @@ gives the same index arrays, and the baselines the same accuracies and
 curves (1e-12). ``run_afl`` is host f64 in both packages: its weight agrees
 with the reference's to 1e-10 (relative to the largest weight, or absolute
 below 1) and its accuracy is equal, over every partition scheme, the
-paper-literal pairwise and no-RI branches, a feature map, and K = 300 at
-d = 64 (N_k < d; tests/test_fl.py:99-106). Through a backbone — reduced
+paper-literal pairwise and no-RI branches, a feature map, K = 300 at
+d = 64 (N_k < d; tests/test_fl.py:99-106) and Figure 2's K = 1000 NIID-1 (about
+3 rows a client). Through a backbone — reduced
 minicpm_2b on the CPU, on the reference's weights (``params_from_jax``) —
 the embeddings agree with the reference's at tests/test_torch_backbone.py's
 ``FWD_TOL`` and ``run_afl`` equals its own ``joint_ridge`` in accuracy.
@@ -110,6 +111,7 @@ def test_unknown_scheme_raises():
     (20, "niid1", dict(alpha=0.1), False, False),     # the biased no-RI aggregate
     (20, "niid2", dict(shards_per_client=2), True, False),
     (300, "iid", {}, False, True),                     # N_k = 10 < d = 64
+    (1000, "niid1", dict(alpha=0.1), False, True),     # Figure 2's K = 1000, N_k ≈ 3
 ])
 def test_run_afl_matches_reference(data, k, scheme, kw, pairwise, use_ri):
     (train, test), (train_r, test_r) = data
