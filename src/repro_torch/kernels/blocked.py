@@ -22,6 +22,13 @@ triangle of a system or factor. ``kernels.solve`` dispatches between these
 wrappers (CUDA tensors) and the plain versions in ``kernels.ref`` (CPU
 tensors).
 Each wrapper counts its calls in ``.launches``, one a call.
+
+Each takes the reference's ``precision``: ``"f32_x2"`` (f32 only) calls
+the split instance (``afl_*_f32x2``): the trsm, the trailing update and
+the substitutions' products split each operand into exact 12-bit halves
+as it is staged and sum three FFMA products, the reference's
+``_make_mm``; the diagonal blocks stay native. The same schedule, so the
+same CUDA launches; such calls are counted in ``.x2_launches`` as well.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "blocked.cu"
 PANEL = 128              # the panel width compiled into the kernels (kPanel)
@@ -45,6 +53,7 @@ _SIGNATURES = {
     "afl_cholesky_solve": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "afl_multi_gamma_solve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
+X2_SUFFIX = "f32x2"      # the split products' f32 instances: afl_<kernel>_f32x2
 
 
 @functools.cache
@@ -53,15 +62,21 @@ def build() -> _build.Build:
     declare its entry points."""
     built = _build.load(SOURCE)[0]
     for name, argtypes in _SIGNATURES.items():
-        for suffix in _build.SUFFIX.values():
+        for suffix in (*_build.SUFFIX.values(), X2_SUFFIX):
             fn = getattr(built.lib, f"{name}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return built
 
 
-def _entry(name: str, dtype: torch.dtype):
-    return getattr(build().lib, f"afl_{name}_{_build.SUFFIX[dtype]}")
+def _entry(name: str, dtype: torch.dtype, precision: str):
+    x2 = _ref.check_precision(precision, dtype)
+    return getattr(build().lib, f"afl_{name}_{X2_SUFFIX if x2 else _build.SUFFIX[dtype]}"), x2
+
+
+def _count(wrapper, x2: bool) -> None:
+    wrapper.launches += 1
+    wrapper.x2_launches += x2
 
 
 def cuda_launches(d: int) -> int:
@@ -135,13 +150,13 @@ def _inverses(n: int, d: int, like: torch.Tensor) -> torch.Tensor:
     return _scratch(n, -(-d // PANEL), PANEL, PANEL, like=like)
 
 
-def blocked_cholesky(a: torch.Tensor) -> torch.Tensor:
+def blocked_cholesky(a: torch.Tensor, *, precision: str = "native") -> torch.Tensor:
     """Lower Cholesky factors of (m, d, d) SPD systems, panels of 128;
     clean lower triangles. Only the lower triangle of ``a`` is read. A
     system that is not positive definite gives NaNs."""
     m, d = _systems("blocked_cholesky", a)
     _operand("blocked_cholesky a", a, (m, d, d))
-    fn = _entry("blocked_cholesky", a.dtype)
+    fn, x2 = _entry("blocked_cholesky", a.dtype, precision)
     out = torch.empty_like(a)
     zs = _scratch(m, PANEL, PANEL, like=a)
     panels = _scratch(m, d, PANEL, like=a)
@@ -150,11 +165,12 @@ def blocked_cholesky(a: torch.Tensor) -> torch.Tensor:
         err = fn(a.data_ptr(), out.data_ptr(), zs.data_ptr(), panels.data_ptr(), m, d,
                  stream)
     _check(err, "blocked_cholesky")
-    blocked_cholesky.launches += 1
+    _count(blocked_cholesky, x2)
     return out
 
 
-def cholesky_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def cholesky_solve(l: torch.Tensor, b: torch.Tensor, *,
+                   precision: str = "native") -> torch.Tensor:
     """``L Lᵀ x = b`` for lower factors ``l`` (m, d, d) (the upper triangle
     is not read) and right-hand sides ``b`` (m, d, c) → x (m, d, c)."""
     m, d = _systems("cholesky_solve", l)
@@ -165,7 +181,7 @@ def cholesky_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     c = b.shape[2]
     _operand("cholesky_solve b", b, (m, d, c), l.dtype)
     _same_device(l, b)
-    fn = _entry("cholesky_solve", l.dtype)
+    fn, x2 = _entry("cholesky_solve", l.dtype, precision)
     x = torch.empty_like(b)
     zs = _inverses(m, d, like=l)
     y = torch.empty_like(b)
@@ -174,11 +190,12 @@ def cholesky_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         err = fn(l.data_ptr(), b.data_ptr(), x.data_ptr(), zs.data_ptr(), y.data_ptr(),
                  m, d, c, stream)
     _check(err, "cholesky_solve")
-    cholesky_solve.launches += 1
+    _count(cholesky_solve, x2)
     return x
 
 
-def multi_gamma_solve(c: torch.Tensor, q: torch.Tensor, gammas: torch.Tensor) -> torch.Tensor:
+def multi_gamma_solve(c: torch.Tensor, q: torch.Tensor, gammas: torch.Tensor, *,
+                      precision: str = "native") -> torch.Tensor:
     """The fused γ sweep: ``(C + γ_j I) W_j = Q`` for every γ of ``gammas``
     (n_g,), C (d, d) (lower triangle read), Q (d, c) → W (n_g, d, c). C
     and Q are read in place by every γ; the wrapper allocates each γ's
@@ -195,7 +212,7 @@ def multi_gamma_solve(c: torch.Tensor, q: torch.Tensor, gammas: torch.Tensor) ->
     _operand("multi_gamma_solve Q", q, (d, n_cls), c.dtype)
     _operand("multi_gamma_solve gammas", gammas, (n_g,), c.dtype)
     _same_device(c, q, gammas)
-    fn = _entry("multi_gamma_solve", c.dtype)
+    fn, x2 = _entry("multi_gamma_solve", c.dtype, precision)
     factors = _scratch(n_g, d, d, like=c)
     zs = _inverses(n_g, d, like=c)
     panels = _scratch(n_g, d, PANEL, like=c)
@@ -207,10 +224,13 @@ def multi_gamma_solve(c: torch.Tensor, q: torch.Tensor, gammas: torch.Tensor) ->
             c.data_ptr(), q.data_ptr(), gammas.data_ptr(), factors.data_ptr(), zs.data_ptr(),
             panels.data_ptr(), y.data_ptr(), w.data_ptr(), n_g, d, n_cls, stream)
     _check(err, "multi_gamma_solve")
-    multi_gamma_solve.launches += 1
+    _count(multi_gamma_solve, x2)
     return w
 
 
 blocked_cholesky.launches = 0
 cholesky_solve.launches = 0
 multi_gamma_solve.launches = 0
+blocked_cholesky.x2_launches = 0
+cholesky_solve.x2_launches = 0
+multi_gamma_solve.x2_launches = 0

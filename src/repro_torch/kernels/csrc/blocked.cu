@@ -88,6 +88,17 @@
 // tile grids. The solve is a chain of 2·(2·⌈d/128⌉ − 1) small steps: its
 // launches bound it, not its bytes.
 //
+// precision "f32_x2" (the reference's _make_mm split products, f32 only):
+// instances of the trsm, trailing and substitution kernels (template flag
+// X2) whose staging splits each operand value into exact 12-bit halves
+// (afl::split: tile_gemm.cuh's Split, sub_tile's two planes) and whose
+// threads keep three FMA sums an output, hh + (hl + lh) at the epilogue:
+// trail − (hh + (hl + lh)), and (a + γ_j) − (hh + (hl + lh)) on the
+// sweep's first trailing diagonal. The diagonal kernels stay native, as
+// the reference's _factor_tile and _tri_inv_tile do; the schedule and its
+// launches are the same. Entry points afl_<kernel>_f32x2. The bound
+// counts the three products' flops: 3× the native rows'.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libblocked.so blocked.cu
 // Each entry point launches on the caller's stream, does not synchronise,
@@ -179,7 +190,7 @@ chol_diag_kernel(const T* src, size_t src_stride, const T* gammas, T* out, T* zs
 
 // L21 = A21 · Z11ᵀ into the system's (d, kPanel) scratch panel: one 64×64
 // tile (blockIdx.y rows, blockIdx.x columns) of system blockIdx.z.
-template <class T>
+template <class T, bool X2>
 __global__ void __launch_bounds__(kThreads)
 chol_trsm_kernel(const T* src, size_t src_stride, const T* zs, bool keep_all, T* panels,
                  int d, int o) {
@@ -192,18 +203,18 @@ chol_trsm_kernel(const T* src, size_t src_stride, const T* zs, bool keep_all, T*
   const int t = d - e;
   const int i0 = blockIdx.y * kTile;
   const int j0 = blockIdx.x * kTile;
-  afl_tile::tile_gemm<T>(
+  afl_tile::tile_gemm<T, X2>(
       bw,
-      [=](afl_tile::Stage<T> a_tile, afl_tile::Stage<T> b_tile, int k0) {
+      [=](auto a_tile, auto b_tile, int k0) {
 #pragma unroll
         for (int l = 0; l < kLoadsPerThread; ++l) {
           const int idx = threadIdx.x + l * kThreads;
           const int r = idx / kStep;
           const int kk = idx % kStep;
           const int col = k0 + kk;
-          a_tile[kk][r] = (i0 + r < t && col < bw) ? w[at(e + i0 + r, o + col, d)] : T(0);
+          a_tile.put(kk, r, (i0 + r < t && col < bw) ? w[at(e + i0 + r, o + col, d)] : T(0));
           const int zr = j0 + r;
-          b_tile[kk][r] = (zr < bw && col <= zr) ? z[at(zr, col, kPanel)] : T(0);
+          b_tile.put(kk, r, (zr < bw && col <= zr) ? z[at(zr, col, kPanel)] : T(0));
         }
       },
       [=](int r, int c, T v) {
@@ -216,7 +227,7 @@ chol_trsm_kernel(const T* src, size_t src_stride, const T* zs, bool keep_all, T*
 // the lower triangle's, row by row, of system blockIdx.y. The diagonal tile
 // of each row of tiles then copies those rows of L21 into place, and zeros
 // into their mirror above the diagonal.
-template <class T>
+template <class T, bool X2>
 __global__ void __launch_bounds__(kThreads)
 chol_trailing_kernel(const T* src, size_t src_stride, const T* gammas, T* out,
                      const T* panels, int d, int o) {
@@ -235,17 +246,17 @@ chol_trailing_kernel(const T* src, size_t src_stride, const T* gammas, T* out,
   const int tj = x - ti * (ti + 1) / 2;
   const int i0 = ti * kTile;
   const int j0 = tj * kTile;
-  afl_tile::tile_gemm<T>(
+  afl_tile::tile_gemm<T, X2>(
       bw,
-      [=](afl_tile::Stage<T> a_tile, afl_tile::Stage<T> b_tile, int k0) {
+      [=](auto a_tile, auto b_tile, int k0) {
 #pragma unroll
         for (int l = 0; l < kLoadsPerThread; ++l) {
           const int idx = threadIdx.x + l * kThreads;
           const int r = idx / kStep;
           const int kk = idx % kStep;
           const int col = k0 + kk;
-          a_tile[kk][r] = (i0 + r < t && col < bw) ? panel[at(i0 + r, col, kPanel)] : T(0);
-          b_tile[kk][r] = (j0 + r < t && col < bw) ? panel[at(j0 + r, col, kPanel)] : T(0);
+          a_tile.put(kk, r, (i0 + r < t && col < bw) ? panel[at(i0 + r, col, kPanel)] : T(0));
+          b_tile.put(kk, r, (j0 + r < t && col < bw) ? panel[at(j0 + r, col, kPanel)] : T(0));
         }
       },
       [=](int r, int c, T v) {
@@ -292,44 +303,57 @@ solve_inverse_kernel(const T* l, T* zs, int d) {
 // y_at(kk, j) read the operands; kATransposed says that neighbouring i
 // (rather than kk) are neighbouring addresses of A, so the staging reads
 // stay coalesced. Thread t owns row t / 4 and columns 4·(t % 4) .. +3; its
-// sums run over k in order.
-template <bool kATransposed, class T, class AAt, class YAt, class Store>
+// sums run over k in order. X2 (f32): each staged value split into a hi
+// and a lo plane, three sums an output (afl::Sums), store gets
+// hh + (hl + lh).
+template <bool kATransposed, class T, bool X2, class AAt, class YAt, class Store>
 __device__ __forceinline__ void sub_tile(int rows, int cols, int k, AAt a_at, YAt y_at,
                                          Store store) {
-  __shared__ T sa[kK][kRows + 1];
-  __shared__ __align__(16) T sy[kK][kCols];
+  static_assert(!X2 || sizeof(T) == 4, "the split products are f32 only");
+  constexpr int kPlanes = X2 ? 2 : 1;
+  __shared__ T sa[kPlanes][kK][kRows + 1];
+  __shared__ __align__(16) T sy[kPlanes][kK][kCols];
   const int r = threadIdx.x / 4;
   const int q = 4 * (threadIdx.x % 4);
-  T acc[4] = {T(0), T(0), T(0), T(0)};
+  afl::Sums<T, X2> acc[4];
   for (int k0 = 0; k0 < k; k0 += kK) {
 #pragma unroll
     for (int l = 0; l < kK * kRows / kThreads; ++l) {
       const int e = threadIdx.x + l * kThreads;
       const int kk = kATransposed ? e / kRows : e % kK;
       const int i = kATransposed ? e % kRows : e / kK;
-      sa[kk][i] = (i < rows && k0 + kk < k) ? a_at(i, k0 + kk) : T(0);
+      const T v = (i < rows && k0 + kk < k) ? a_at(i, k0 + kk) : T(0);
+      if constexpr (X2) afl::split(v, sa[0][kk][i], sa[1][kk][i]);
+      else sa[0][kk][i] = v;
     }
 #pragma unroll
     for (int l = 0; l < kK * kCols / kThreads; ++l) {
       const int e = threadIdx.x + l * kThreads;
       const int kk = e / kCols;
       const int j = e % kCols;
-      sy[kk][j] = (k0 + kk < k && j < cols) ? y_at(k0 + kk, j) : T(0);
+      const T v = (k0 + kk < k && j < cols) ? y_at(k0 + kk, j) : T(0);
+      if constexpr (X2) afl::split(v, sy[0][kk][j], sy[1][kk][j]);
+      else sy[0][kk][j] = v;
     }
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < kK; ++kk) {
-      const T a = sa[kk][r];
-      T yv[4];
-      afl::load4(&sy[kk][q], yv);
+      // the hi halves (native: the values), and X2's lo halves
+      const T a = sa[0][kk][r];
+      T al = T(0), yv[4], yl[4] = {};
+      afl::load4(&sy[0][kk][q], yv);
+      if constexpr (X2) {
+        al = sa[1][kk][r];
+        afl::load4(&sy[1][kk][q], yl);
+      }
 #pragma unroll
-      for (int t = 0; t < 4; ++t) acc[t] = fma_(a, yv[t], acc[t]);
+      for (int t = 0; t < 4; ++t) acc[t].add(a, al, yv[t], yl[t]);
     }
     __syncthreads();
   }
 #pragma unroll
   for (int t = 0; t < 4; ++t)
-    if (r < rows && q + t < cols) store(r, q + t, acc[t]);
+    if (r < rows && q + t < cols) store(r, q + t, acc[t].sum());
 }
 
 // Each substitution kernel takes tile (blockIdx.x of 64 rows, blockIdx.y of
@@ -350,14 +374,14 @@ __device__ __forceinline__ Step step_of(int d, int p) {
 }
 
 // Forward: y_p = Z_p · r_p, r at r_stride values a system.
-template <class T>
+template <class T, bool X2>
 __global__ void __launch_bounds__(kThreads)
 forward_apply_kernel(const T* zs, const T* r, size_t r_stride, T* y, int d, int c, int p) {
   const Step s = step_of(d, p);
   const T* z = z_slot(zs, s.sys, p, d, true);
   const T* rs = r + s.sys * r_stride + at(s.o, s.j0, c);
   T* ys = y + s.sys * d * c + at(s.o + s.i0, s.j0, c);
-  sub_tile<false, T>(
+  sub_tile<false, T, X2>(
       min(kRows, s.e - s.o - s.i0), min(kCols, c - s.j0), s.e - s.o,
       [=](int i, int k) { return z[at(s.i0 + i, k, kPanel)]; },
       [=](int k, int j) { return rs[at(k, j, c)]; },
@@ -365,7 +389,7 @@ forward_apply_kernel(const T* zs, const T* r, size_t r_stride, T* y, int d, int 
 }
 
 // Forward: x_{>p} = r_{>p} − L_{>p,p} · y_p, the rows below the panel.
-template <class T>
+template <class T, bool X2>
 __global__ void __launch_bounds__(kThreads)
 forward_update_kernel(const T* l, const T* y, const T* r, size_t r_stride, T* x, int d, int c,
                       int p) {
@@ -375,7 +399,7 @@ forward_update_kernel(const T* l, const T* y, const T* r, size_t r_stride, T* x,
   const T* ys = y + s.sys * d * c + at(s.o, s.j0, c);
   const T* rs = r + s.sys * r_stride + at(row0, s.j0, c);
   T* xs = x + s.sys * d * c + at(row0, s.j0, c);
-  sub_tile<false, T>(
+  sub_tile<false, T, X2>(
       min(kRows, d - row0), min(kCols, c - s.j0), s.e - s.o,
       [=](int i, int k) { return ls[at(i, k, d)]; },
       [=](int k, int j) { return ys[at(k, j, c)]; },
@@ -383,14 +407,14 @@ forward_update_kernel(const T* l, const T* y, const T* r, size_t r_stride, T* x,
 }
 
 // Backward: x_p = Z_pᵀ · y_p.
-template <class T>
+template <class T, bool X2>
 __global__ void __launch_bounds__(kThreads)
 backward_apply_kernel(const T* zs, const T* y, T* x, int d, int c, int p) {
   const Step s = step_of(d, p);
   const T* z = z_slot(zs, s.sys, p, d, true);
   const T* ys = y + s.sys * d * c + at(s.o, s.j0, c);
   T* xs = x + s.sys * d * c + at(s.o + s.i0, s.j0, c);
-  sub_tile<true, T>(
+  sub_tile<true, T, X2>(
       min(kRows, s.e - s.o - s.i0), min(kCols, c - s.j0), s.e - s.o,
       [=](int i, int k) { return z[at(k, s.i0 + i, kPanel)]; },
       [=](int k, int j) { return ys[at(k, j, c)]; },
@@ -398,14 +422,14 @@ backward_apply_kernel(const T* zs, const T* y, T* x, int d, int c, int p) {
 }
 
 // Backward: y_{<p} −= L_{p,<p}ᵀ · x_p, the rows above the panel, in place.
-template <class T>
+template <class T, bool X2>
 __global__ void __launch_bounds__(kThreads)
 backward_update_kernel(const T* l, const T* x, T* y, int d, int c, int p) {
   const Step s = step_of(d, p);
   const T* ls = l + s.sys * d * d + at(s.o, s.i0, d);
   const T* xs = x + s.sys * d * c + at(s.o, s.j0, c);
   T* ys = y + s.sys * d * c + at(s.i0, s.j0, c);
-  sub_tile<true, T>(
+  sub_tile<true, T, X2>(
       min(kRows, s.o - s.i0), min(kCols, c - s.j0), s.e - s.o,
       [=](int i, int k) { return ls[at(k, i, d)]; },
       [=](int k, int j) { return xs[at(k, j, c)]; },
@@ -430,8 +454,8 @@ constexpr int kDiagBytes = kDiagValues * static_cast<int>(sizeof(T));
 
 // The factors of m systems into out, the inverse diagonal blocks into zs:
 // the first panel reads a at a_stride values a system and adds gammas (if
-// not null) to the diagonal.
-template <class T>
+// not null) to the diagonal. X2: the split products.
+template <class T, bool X2>
 int factor(const T* a, size_t a_stride, const T* gammas, T* out, T* zs, bool keep_all,
            T* panels, int m, int d, cudaStream_t st) {
   if (int err = prepare(chol_diag_kernel<T>, kDiagBytes<T>)) return err;
@@ -446,10 +470,10 @@ int factor(const T* a, size_t a_stride, const T* gammas, T* out, T* zs, bool kee
                                                             d, o);
     AFL_LAUNCHED();
     if (nt > 0) {
-      chol_trsm_kernel<T><<<dim3((e - o + kTile - 1) / kTile, nt, m), kThreads, 0, st>>>(
+      chol_trsm_kernel<T, X2><<<dim3((e - o + kTile - 1) / kTile, nt, m), kThreads, 0, st>>>(
           src, stride, zs, keep_all, panels, d, o);
       AFL_LAUNCHED();
-      chol_trailing_kernel<T><<<dim3(nt * (nt + 1) / 2, m), kThreads, 0, st>>>(
+      chol_trailing_kernel<T, X2><<<dim3(nt * (nt + 1) / 2, m), kThreads, 0, st>>>(
           src, stride, g, out, panels, d, o);
       AFL_LAUNCHED();
     }
@@ -460,7 +484,7 @@ int factor(const T* a, size_t a_stride, const T* gammas, T* out, T* zs, bool kee
 // L Lᵀ x = b for m factors l with their inverse diagonal blocks in zs (one
 // slot a panel): b at
 // b_stride values a system (read in place), y a (m, d, c) scratch.
-template <class T>
+template <class T, bool X2>
 int substitute(const T* l, const T* zs, const T* b, size_t b_stride, T* y, T* x, int m, int d,
                int c, cudaStream_t st) {
   const int n = panels_of(d);
@@ -472,11 +496,11 @@ int substitute(const T* l, const T* zs, const T* b, size_t b_stride, T* y, T* x,
     const int e = min(o + kPanel, d);
     const T* r = p == 0 ? b : x;
     const size_t r_stride = p == 0 ? b_stride : dc;
-    forward_apply_kernel<T><<<dim3(tiles(e - o), chunks, m), kThreads, 0, st>>>(
+    forward_apply_kernel<T, X2><<<dim3(tiles(e - o), chunks, m), kThreads, 0, st>>>(
         zs, r, r_stride, y, d, c, p);
     AFL_LAUNCHED();
     if (e < d) {
-      forward_update_kernel<T><<<dim3(tiles(d - e), chunks, m), kThreads, 0, st>>>(
+      forward_update_kernel<T, X2><<<dim3(tiles(d - e), chunks, m), kThreads, 0, st>>>(
           l, y, r, r_stride, x, d, c, p);
       AFL_LAUNCHED();
     }
@@ -484,11 +508,11 @@ int substitute(const T* l, const T* zs, const T* b, size_t b_stride, T* y, T* x,
   for (int p = n - 1; p >= 0; --p) {
     const int o = p * kPanel;
     const int e = min(o + kPanel, d);
-    backward_apply_kernel<T><<<dim3(tiles(e - o), chunks, m), kThreads, 0, st>>>(
+    backward_apply_kernel<T, X2><<<dim3(tiles(e - o), chunks, m), kThreads, 0, st>>>(
         zs, y, x, d, c, p);
     AFL_LAUNCHED();
     if (o > 0) {
-      backward_update_kernel<T><<<dim3(tiles(o), chunks, m), kThreads, 0, st>>>(l, x, y, d, c,
+      backward_update_kernel<T, X2><<<dim3(tiles(o), chunks, m), kThreads, 0, st>>>(l, x, y, d, c,
                                                                                  p);
       AFL_LAUNCHED();
     }
@@ -496,15 +520,15 @@ int substitute(const T* l, const T* zs, const T* b, size_t b_stride, T* y, T* x,
   return 0;
 }
 
-template <class T>
+template <class T, bool X2>
 int blocked_cholesky(const void* a, void* out, void* zs, void* panels, int m, int d,
                      void* stream) {
-  return factor<T>(static_cast<const T*>(a), static_cast<size_t>(d) * d, nullptr,
+  return factor<T, X2>(static_cast<const T*>(a), static_cast<size_t>(d) * d, nullptr,
                    static_cast<T*>(out), static_cast<T*>(zs), false, static_cast<T*>(panels), m,
                    d, static_cast<cudaStream_t>(stream));
 }
 
-template <class T>
+template <class T, bool X2>
 int cholesky_solve(const void* l, const void* b, void* x, void* zs, void* y, int m, int d,
                    int c, void* stream) {
   if (int err = prepare(solve_inverse_kernel<T>, kDiagBytes<T>)) return err;
@@ -513,21 +537,21 @@ int cholesky_solve(const void* l, const void* b, void* x, void* zs, void* y, int
   T* z = static_cast<T*>(zs);
   solve_inverse_kernel<T><<<dim3(panels_of(d), m), kThreads, kDiagBytes<T>, st>>>(lm, z, d);
   AFL_LAUNCHED();
-  return substitute<T>(lm, z, static_cast<const T*>(b), static_cast<size_t>(d) * c,
+  return substitute<T, X2>(lm, z, static_cast<const T*>(b), static_cast<size_t>(d) * c,
                        static_cast<T*>(y), static_cast<T*>(x), m, d, c, st);
 }
 
-template <class T>
+template <class T, bool X2>
 int multi_gamma_solve(const void* cm, const void* q, const void* gammas, void* factors,
                       void* zs, void* panels, void* y, void* w, int n_g, int d, int c,
                       void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   T* l = static_cast<T*>(factors);
   T* z = static_cast<T*>(zs);
-  if (int err = factor<T>(static_cast<const T*>(cm), 0, static_cast<const T*>(gammas), l, z,
+  if (int err = factor<T, X2>(static_cast<const T*>(cm), 0, static_cast<const T*>(gammas), l, z,
                           true, static_cast<T*>(panels), n_g, d, st))
     return err;
-  return substitute<T>(l, z, static_cast<const T*>(q), 0, static_cast<T*>(y),
+  return substitute<T, X2>(l, z, static_cast<const T*>(q), 0, static_cast<T*>(y),
                        static_cast<T*>(w), n_g, d, c, st);
 }
 
@@ -535,26 +559,28 @@ int multi_gamma_solve(const void* cm, const void* q, const void* gammas, void* f
 
 }  // namespace
 
-// One set of entry points for each type: _f32 and _f64.
-#define AFL_BLOCKED_ENTRY_POINTS(T, SUFFIX)                                             \
+// One set of entry points for each type, _f32 and _f64, and one for the
+// f32 split products, _f32x2.
+#define AFL_BLOCKED_ENTRY_POINTS(T, SUFFIX, X2)                                         \
   extern "C" int afl_blocked_cholesky_##SUFFIX(const void* a, void* out, void* zs,      \
                                                void* panels, int m, int d,              \
                                                void* stream) {                          \
-    return blocked_cholesky<T>(a, out, zs, panels, m, d, stream);                       \
+    return blocked_cholesky<T, X2>(a, out, zs, panels, m, d, stream);                   \
   }                                                                                     \
   extern "C" int afl_cholesky_solve_##SUFFIX(const void* l, const void* b, void* x,     \
                                              void* zs, void* y, int m, int d, int c,    \
                                              void* stream) {                            \
-    return cholesky_solve<T>(l, b, x, zs, y, m, d, c, stream);                          \
+    return cholesky_solve<T, X2>(l, b, x, zs, y, m, d, c, stream);                      \
   }                                                                                     \
   extern "C" int afl_multi_gamma_solve_##SUFFIX(const void* cm, const void* q,          \
                                                 const void* gammas, void* factors,      \
                                                 void* zs, void* panels, void* y,        \
                                                 void* w, int n_g, int d, int c,         \
                                                 void* stream) {                         \
-    return multi_gamma_solve<T>(cm, q, gammas, factors, zs, panels, y, w, n_g, d, c,    \
-                                stream);                                                \
+    return multi_gamma_solve<T, X2>(cm, q, gammas, factors, zs, panels, y, w, n_g, d, c, \
+                                    stream);                                            \
   }
 
-AFL_BLOCKED_ENTRY_POINTS(float, f32)
-AFL_BLOCKED_ENTRY_POINTS(double, f64)
+AFL_BLOCKED_ENTRY_POINTS(float, f32, false)
+AFL_BLOCKED_ENTRY_POINTS(double, f64, false)
+AFL_BLOCKED_ENTRY_POINTS(float, f32x2, true)

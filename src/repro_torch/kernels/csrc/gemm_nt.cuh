@@ -30,6 +30,15 @@
 // while the current slice computes. (A cp.async ring cannot transpose but
 // value by value, and its 4-byte copies ran slower than this.)
 //
+// f32 split products (FfmaTile<..., X2 = true>, precision "f32_x2"):
+// each operand value is split once, where stash writes it to shared
+// memory, into exact 12-bit halves (afl::split) in a hi and a lo plane,
+// which doubles the stages' bytes; each thread keeps three sums for each
+// output, hi·hi, hi·lo and lo·hi, each an FMA chain over k in order, and
+// the epilogue gets hh + (hl + lh) (afl::Sums, shared with tile_gemm.cuh
+// and blocked.cu's substitutions). The native instance is the code above:
+// the flag only adds.
+//
 // Ragged edges are masked on the way in (zeros past m, n or k, which add
 // nothing) and on the way out. Nothing is atomic, and the f64 tile's
 // split sums (KS > 1) are added in a fixed order: the same inputs give the
@@ -43,6 +52,7 @@
 #include <cstdint>
 
 #include "cp_async.cuh"
+#include "scalar.cuh"
 
 namespace afl_gemm {
 
@@ -325,17 +335,19 @@ __device__ __forceinline__ void dmma_tile(const Problem<double>& p, int i0, int 
 
 // TY × TX threads in warps of 4 × 8, each owning TM × TN outputs (4 or 8
 // each way) made of 4×4 blocks 4·TY rows (4·TX columns) apart; the
-// reduction runs kStep = BK indices per stage.
-template <int TY, int TX, int TM, int TN, int BK>
+// reduction runs kStep = BK indices per stage. X2: the split products,
+// two planes of each stage and three sums an output.
+template <int TY, int TX, int TM, int TN, int BK, bool X2 = false>
 struct FfmaTile {
   static_assert(TY % 4 == 0 && TX % 8 == 0 && TM % 4 == 0 && TN % 4 == 0 && BK % 4 == 0,
                 "tile shape");
   static constexpr int kTY = TY, kTX = TX, kTM = TM, kTN = TN;
   static constexpr int kThreads = TY * TX;
   static constexpr int kRows = TY * TM, kCols = TX * TN, kStep = BK;
+  static constexpr bool kX2 = X2;
   template <class Epi>
   static constexpr int smem_bytes() {
-    return 2 * BK * (kRows + kCols + 8) * static_cast<int>(sizeof(float));
+    return (X2 ? 2 : 1) * 2 * BK * (kRows + kCols + 8) * static_cast<int>(sizeof(float));
   }
 };
 
@@ -359,18 +371,22 @@ __device__ __forceinline__ float4 load4(const Matrix<float>& x, int row, int col
 // stores and the 16-byte fragment reads are conflict-free) in two stages:
 // the next slice's global loads are held in registers while the current
 // slice computes, then stored into the other stage behind one barrier.
-// `smem` holds Tile::smem_bytes<Epi>(), 16-byte aligned.
+// `smem` holds Tile::smem_bytes<Epi>(), 16-byte aligned. With Tile::kX2
+// the lo planes follow the hi ones, in the same layout.
 template <class Tile, class Epi>
 __device__ __forceinline__ void ffma_tile(const Problem<float>& p, int i0, int j0, Epi epi,
                                           float* smem) {
   constexpr int TY = Tile::kTY, TX = Tile::kTX, TM = Tile::kTM, TN = Tile::kTN;
   constexpr int BM = Tile::kRows, BN = Tile::kCols, BK = Tile::kStep, NT = Tile::kThreads;
+  constexpr bool X2 = Tile::kX2;
   constexpr int LA = BM + 4, LB = BN + 4;
   constexpr int kPer = BK / 4;                      // 16-byte words per staged row
   constexpr int kWordsA = BM * kPer, kWordsB = BN * kPer;
   constexpr int kLoadsA = (kWordsA + NT - 1) / NT, kLoadsB = (kWordsB + NT - 1) / NT;
   float* const as = smem;                           // [2][BK][LA]
   float* const bs = smem + 2 * BK * LA;             // [2][BK][LB]
+  float* const as_lo = bs + 2 * BK * LB;            // X2: [2][BK][LA]
+  float* const bs_lo = as_lo + 2 * BK * LA;         // X2: [2][BK][LB]
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int tx = (warp % (TX / 8)) * 8 + lane % 8;
@@ -389,18 +405,25 @@ __device__ __forceinline__ void ffma_tile(const Problem<float>& p, int i0, int j
       if (e < kWordsB) rb[l] = load4(p.b, j0 + e / kPer, k0 + (e % kPer) * 4, p.n, p.k);
     }
   };
+  // One staged value: as it is, or (X2) split into its hi and lo planes.
+  auto put = [](float* hi, float* lo, int at, float v) {
+    if constexpr (X2) afl::split(v, hi[at], lo[at]);
+    else hi[at] = v;
+  };
   auto stash = [&](int buf) {
     float* a = as + buf * BK * LA;
     float* b = bs + buf * BK * LB;
+    float* a_lo = as_lo + buf * BK * LA;
+    float* b_lo = bs_lo + buf * BK * LB;
 #pragma unroll
     for (int l = 0; l < kLoadsA; ++l) {
       const int e = threadIdx.x + l * NT;
       if (e < kWordsA) {
         const int r = e / kPer, kc = (e % kPer) * 4;
-        a[kc * LA + r] = ra[l].x;
-        a[(kc + 1) * LA + r] = ra[l].y;
-        a[(kc + 2) * LA + r] = ra[l].z;
-        a[(kc + 3) * LA + r] = ra[l].w;
+        put(a, a_lo, kc * LA + r, ra[l].x);
+        put(a, a_lo, (kc + 1) * LA + r, ra[l].y);
+        put(a, a_lo, (kc + 2) * LA + r, ra[l].z);
+        put(a, a_lo, (kc + 3) * LA + r, ra[l].w);
       }
     }
 #pragma unroll
@@ -408,19 +431,15 @@ __device__ __forceinline__ void ffma_tile(const Problem<float>& p, int i0, int j
       const int e = threadIdx.x + l * NT;
       if (e < kWordsB) {
         const int r = e / kPer, kc = (e % kPer) * 4;
-        b[kc * LB + r] = rb[l].x;
-        b[(kc + 1) * LB + r] = rb[l].y;
-        b[(kc + 2) * LB + r] = rb[l].z;
-        b[(kc + 3) * LB + r] = rb[l].w;
+        put(b, b_lo, kc * LB + r, rb[l].x);
+        put(b, b_lo, (kc + 1) * LB + r, rb[l].y);
+        put(b, b_lo, (kc + 2) * LB + r, rb[l].z);
+        put(b, b_lo, (kc + 3) * LB + r, rb[l].w);
       }
     }
   };
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  afl::Sums<float, X2> acc[TM][TN];
 
   const int kt_n = (p.k + BK - 1) / BK;
   fetch(0);
@@ -431,8 +450,11 @@ __device__ __forceinline__ void ffma_tile(const Problem<float>& p, int i0, int j
     if (kt + 1 < kt_n) fetch((kt + 1) * BK);     // in flight while this slice computes
     const float* a = as + buf * BK * LA + ty * 4;
     const float* b = bs + buf * BK * LB + tx * 4;
+    const float* a_lo = as_lo + buf * BK * LA + ty * 4;
+    const float* b_lo = bs_lo + buf * BK * LB + tx * 4;
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
+      // the hi halves (native: the values)
       float av[TM], bv[TN];
 #pragma unroll
       for (int h = 0; h < TM / 4; ++h) {
@@ -448,10 +470,28 @@ __device__ __forceinline__ void ffma_tile(const Problem<float>& p, int i0, int j
 #pragma unroll
         for (int q = 0; q < 4; ++q) bv[4 * h + q] = w[q];
       }
+      // X2's lo halves (native: zeros, which afl::Sums does not read)
+      float al[TM] = {}, bl[TN] = {};
+      if constexpr (X2) {
+#pragma unroll
+        for (int h = 0; h < TM / 4; ++h) {
+          float w[4];
+          load16(a_lo + kk * LA + h * 4 * TY, w);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) al[4 * h + q] = w[q];
+        }
+#pragma unroll
+        for (int h = 0; h < TN / 4; ++h) {
+          float w[4];
+          load16(b_lo + kk * LB + h * 4 * TX, w);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) bl[4 * h + q] = w[q];
+        }
+      }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j].add(av[i], al[i], bv[j], bl[j]);
     }
     if (kt + 1 < kt_n) stash(buf ^ 1);           // the stage slice kt − 1 used
     __syncthreads();
@@ -479,8 +519,8 @@ __device__ __forceinline__ void ffma_tile(const Problem<float>& p, int i0, int j
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int h = 0; h < TN / 4; ++h) {
-        const float v[4] = {acc[4 * g + i][4 * h], acc[4 * g + i][4 * h + 1],
-                            acc[4 * g + i][4 * h + 2], acc[4 * g + i][4 * h + 3]};
+        const float v[4] = {acc[4 * g + i][4 * h].sum(), acc[4 * g + i][4 * h + 1].sum(),
+                            acc[4 * g + i][4 * h + 2].sum(), acc[4 * g + i][4 * h + 3].sum()};
         write_out(p, epi, i0 + g * 4 * TY + ty * 4 + i, j0 + h * 4 * TX + tx * 4, v,
                   &t[i][4 * h]);
       }

@@ -79,6 +79,12 @@
 //     block's 16 warps. A scheduler with one warp whose eight chains of mma
 //     are all it has gets 58% of the DMMA rate (tools/dmma_probe.cu), so
 //     each of the 72 SMs wants four warps a scheduler.
+// precision "f32_x2" (the reference's _make_mm2 split products): f32
+// instances of panel_trsm and panel_update whose tiles split each operand
+// value as it is staged (gemm_nt.cuh, FfmaTile<..., true>): the same tiles
+// and grids, twice the stage bytes (51.2 KB for the 128×64 tile), three
+// FMA chains an output, entry points afl_panel_{trsm,update}_f32x2. Their
+// bound counts the three products' flops: 3× the native rows'.
 // The tile for each call comes from the output's shape (launch_f32,
 // launch_f64). Nothing is split across blocks and a block adds its split
 // sums in a fixed order, so a call gives the same bits every time. Skipping Z's zero half and the schedule's masked rows
@@ -197,8 +203,10 @@ gemm_nt_kernel(afl_gemm::Problem<T> p, Epi epi) {
 // b = 128, the last update: 72 blocks at m = 2304) 64-deep slices, so
 // that the whole k = 128 is in flight in two stages, each slice split
 // over four groups of four warps.
-using F32Mid = afl_gemm::FfmaTile<16, 16, 8, 4, 16>;
-using F32Narrow = afl_gemm::FfmaTile<24, 16, 4, 4, 16>;
+template <bool X2>
+using F32Mid = afl_gemm::FfmaTile<16, 16, 8, 4, 16, X2>;
+template <bool X2>
+using F32Narrow = afl_gemm::FfmaTile<24, 16, 4, 4, 16, X2>;
 using F64Mid = afl_gemm::DmmaTile<2, 2, 16, 3>;
 using F64Narrow = afl_gemm::DmmaTile<2, 2, 64, 2, 4>;
 
@@ -227,9 +235,9 @@ int launch_tile(const afl_gemm::Problem<T>& p, Epi epi, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Epi>
+template <bool X2, class Epi>
 int launch_f32(const afl_gemm::Problem<float>& p, Epi epi, cudaStream_t s) {
-  return p.n <= 256 ? launch_tile<F32Narrow>(p, epi, s) : launch_tile<F32Mid>(p, epi, s);
+  return p.n <= 256 ? launch_tile<F32Narrow<X2>>(p, epi, s) : launch_tile<F32Mid<X2>>(p, epi, s);
 }
 
 template <class Epi>
@@ -238,8 +246,9 @@ int launch_f64(const afl_gemm::Problem<double>& p, Epi epi, cudaStream_t s) {
 }
 
 // C (m, n) = A (m, k) · B (n, k)ᵀ, or T − A · Bᵀ. Row strides lda, ldb,
-// ldt, ldc; unit column strides. t and c may be the same matrix.
-template <class T, bool kSubtract>
+// ldt, ldc; unit column strides. t and c may be the same matrix. X2: the
+// split products (f32 only).
+template <class T, bool kSubtract, bool X2 = false>
 int launch_gemm(const void* t, int ldt, const void* a, int lda, const void* b, int ldb,
                 void* c, int ldc, int m, int n, int k, void* stream) {
   using afl_gemm::vec16;
@@ -251,9 +260,10 @@ int launch_gemm(const void* t, int ldt, const void* a, int lda, const void* b, i
       static_cast<T*>(c), ldc, vec16(c, ldc, kSize), m, n, k};
   const auto s = static_cast<cudaStream_t>(stream);
   if constexpr (sizeof(T) == 4) {
-    if constexpr (kSubtract) return launch_f32(p, afl_gemm::SubtractFrom{}, s);
-    else return launch_f32(p, afl_gemm::StoreProduct{}, s);
+    if constexpr (kSubtract) return launch_f32<X2>(p, afl_gemm::SubtractFrom{}, s);
+    else return launch_f32<X2>(p, afl_gemm::StoreProduct{}, s);
   } else {
+    static_assert(!X2, "the split products are f32 only");
     if constexpr (kSubtract) return launch_f64(p, afl_gemm::SubtractFrom{}, s);
     else return launch_f64(p, afl_gemm::StoreProduct{}, s);
   }
@@ -287,3 +297,16 @@ int launch_gemm(const void* t, int ldt, const void* a, int lda, const void* b, i
 
 AFL_PANEL_ENTRY_POINTS(float, f32)
 AFL_PANEL_ENTRY_POINTS(double, f64)
+
+// precision "f32_x2": the two products' split instances.
+extern "C" int afl_panel_trsm_f32x2(const void* raw, int ldr, const void* zinv, int ldz,
+                                    void* out, int ldo, int r, int b, void* stream) {
+  return launch_gemm<float, false, true>(nullptr, 0, raw, ldr, zinv, ldz, out, ldo, r, b, b,
+                                         stream);
+}
+extern "C" int afl_panel_update_f32x2(const void* trail, int ldt, const void* lp, int ldl,
+                                      const void* pt, int ldp, void* out, int ldo, int r,
+                                      int w, int b, void* stream) {
+  return launch_gemm<float, true, true>(trail, ldt, lp, ldl, pt, ldp, out, ldo, r, w, b,
+                                        stream);
+}

@@ -37,15 +37,17 @@ def panel_tri_inv(l: torch.Tensor) -> torch.Tensor:
     return panels(l.device).panel_tri_inv(l)
 
 
-def panel_trsm(raw: torch.Tensor, zinv: torch.Tensor) -> torch.Tensor:
+def panel_trsm(raw: torch.Tensor, zinv: torch.Tensor, *,
+               precision: str = "native") -> torch.Tensor:
     """Panel trsm ``raw @ zinvᵀ``: the kernel on the card."""
-    return panels(raw.device).panel_trsm(raw, zinv)
+    return panels(raw.device).panel_trsm(raw, zinv, precision=precision)
 
 
 def panel_update(trail: torch.Tensor, lp: torch.Tensor, pt: torch.Tensor, *,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out: Optional[torch.Tensor] = None,
+                 precision: str = "native") -> torch.Tensor:
     """Trailing update ``trail − lp @ ptᵀ``: the kernel on the card."""
-    return panels(trail.device).panel_update(trail, lp, pt, out=out)
+    return panels(trail.device).panel_update(trail, lp, pt, out=out, precision=precision)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

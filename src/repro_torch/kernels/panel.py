@@ -16,6 +16,11 @@ of a larger matrix is read or written where it lies. ``kernels.ops``
 dispatches between these wrappers (CUDA tensors) and the plain versions in
 ``kernels.ref`` (CPU tensors). Each wrapper counts its launches in
 ``.launches`` (under a lock: the shards of a mesh launch from threads).
+
+The two products take the reference's ``precision``: ``"f32_x2"`` (f32
+only) launches their split instance (``afl_panel_*_f32x2``: each operand
+split into exact 12-bit halves as it is staged, three FFMA sums, the
+reference's ``_make_mm2``), counted in ``.x2_launches`` as well.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "panel.cu"
 # the widest (b, b) triangle one SM holds, packed, in each type: 128.5 KB
@@ -43,6 +49,8 @@ _SIGNATURES = {
     "afl_panel_trsm": [_P, _I, _P, _I, _P, _I, _I, _I, _P],
     "afl_panel_update": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P],
 }
+X2_SUFFIX = "f32x2"      # the split products' f32 instances: afl_panel_{trsm,update}_f32x2
+_X2 = ("afl_panel_trsm", "afl_panel_update")
 
 
 @functools.cache
@@ -51,7 +59,7 @@ def build() -> _build.Build:
     declare its entry points."""
     built = _build.load(SOURCE)[0]
     for name, argtypes in _SIGNATURES.items():
-        for suffix in _build.SUFFIX.values():
+        for suffix in (*_build.SUFFIX.values(), *((X2_SUFFIX,) if name in _X2 else ())):
             fn = getattr(built.lib, f"{name}_{suffix}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -61,15 +69,18 @@ def build() -> _build.Build:
 _LAUNCHES = threading.Lock()
 
 
-def _count(wrapper) -> None:
-    """One more launch of ``wrapper``, under a lock: the shards of a
-    ``core.distributed.ShardGroup`` launch from threads of their own."""
+def _count(wrapper, x2: bool = False) -> None:
+    """One more launch of ``wrapper`` (and of its split instance), under a
+    lock: the shards of a ``core.distributed.ShardGroup`` launch from
+    threads of their own."""
     with _LAUNCHES:
         wrapper.launches += 1
+        if x2:
+            wrapper.x2_launches += 1
 
 
-def _entry(name: str, dtype: torch.dtype):
-    return getattr(build().lib, f"afl_{name}_{_build.SUFFIX[dtype]}")
+def _entry(name: str, dtype: torch.dtype, x2: bool = False):
+    return getattr(build().lib, f"afl_{name}_{X2_SUFFIX if x2 else _build.SUFFIX[dtype]}")
 
 
 def _row_stride(name: str, t: torch.Tensor, shape: tuple[int, int],
@@ -148,8 +159,10 @@ def panel_tri_inv(l: torch.Tensor) -> torch.Tensor:
     return z
 
 
-def panel_trsm(raw: torch.Tensor, zinv: torch.Tensor) -> torch.Tensor:
-    """``raw (r, b) @ zinv (b, b)ᵀ`` into a new contiguous (r, b) tensor."""
+def panel_trsm(raw: torch.Tensor, zinv: torch.Tensor, *,
+               precision: str = "native") -> torch.Tensor:
+    """``raw (r, b) @ zinv (b, b)ᵀ`` into a new contiguous (r, b) tensor;
+    ``precision`` as the module says."""
     if raw.dim() != 2 or raw.shape[0] == 0 or raw.shape[1] == 0:
         raise ValueError(f"panel_trsm: expected a non-empty (r, b) slab, got "
                          f"{tuple(raw.shape)}")
@@ -157,19 +170,22 @@ def panel_trsm(raw: torch.Tensor, zinv: torch.Tensor) -> torch.Tensor:
     ldr = _row_stride("panel_trsm raw", raw, (r, b))
     ldz = _row_stride("panel_trsm zinv", zinv, (b, b), raw.dtype)
     _same_device(raw, zinv)
-    fn = _entry("panel_trsm", raw.dtype)
+    x2 = _ref.check_precision(precision, raw.dtype)
+    fn = _entry("panel_trsm", raw.dtype, x2)
     out = torch.empty((r, b), dtype=raw.dtype, device=raw.device)
     with torch.cuda.device(raw.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(raw.data_ptr(), ldr, zinv.data_ptr(), ldz, out.data_ptr(), b, r, b, stream)
     _check(err, "panel_trsm")
-    _count(panel_trsm)
+    _count(panel_trsm, x2)
     return out
 
 
 def panel_update(trail: torch.Tensor, lp: torch.Tensor, pt: torch.Tensor, *,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``trail (r, w) − lp (r, b) @ pt (w, b)ᵀ``.
+                 out: Optional[torch.Tensor] = None,
+                 precision: str = "native") -> torch.Tensor:
+    """``trail (r, w) − lp (r, b) @ pt (w, b)ᵀ``; ``precision`` as the
+    module says.
 
     Written into ``out`` when given (an (r, w) tensor of the same dtype on
     the same device, which may be ``trail`` itself but must not overlap ``lp`` or
@@ -187,13 +203,14 @@ def panel_update(trail: torch.Tensor, lp: torch.Tensor, pt: torch.Tensor, *,
         out = torch.empty((r, w), dtype=trail.dtype, device=trail.device)
     ldo = _row_stride("panel_update out", out, (r, w), trail.dtype)
     _same_device(trail, lp, pt, out)
-    fn = _entry("panel_update", trail.dtype)
+    x2 = _ref.check_precision(precision, trail.dtype)
+    fn = _entry("panel_update", trail.dtype, x2)
     with torch.cuda.device(trail.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(trail.data_ptr(), ldt, lp.data_ptr(), ldl, pt.data_ptr(), ldp,
                  out.data_ptr(), ldo, r, w, b, stream)
     _check(err, "panel_update")
-    _count(panel_update)
+    _count(panel_update, x2)
     return out
 
 
@@ -201,3 +218,5 @@ panel_factor.launches = 0
 panel_tri_inv.launches = 0
 panel_trsm.launches = 0
 panel_update.launches = 0
+panel_trsm.x2_launches = 0
+panel_update.x2_launches = 0

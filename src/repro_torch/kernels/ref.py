@@ -7,6 +7,12 @@ and ``_tri_inv_tile`` column loops, ``_factor_panels`` / ``_solve_panels``
 and ``_rank_update_kernel``'s sweep), not LAPACK, so the CPU route does
 the JAX package's arithmetic in the same order as far as torch allows.
 The tile loops take a batch of tiles on leading dimensions.
+
+The products of the solve take the reference's ``precision`` argument:
+``"native"`` computes in the input's type; ``"f32_x2"`` (f32 only) splits
+each operand into exact 12-bit halves (:func:`split_ref`, a Dekker split)
+and sums three products of halves (:func:`mm_x2`), as the reference's
+``_make_mm`` does. The diagonal blocks' column loops stay native.
 """
 
 from __future__ import annotations
@@ -260,16 +266,64 @@ def panel_tri_inv_ref(l: torch.Tensor) -> torch.Tensor:
     return tri_inv_tile(l)
 
 
-def panel_trsm_ref(raw: torch.Tensor, zinv: torch.Tensor) -> torch.Tensor:
+PRECISIONS = ("native", "f32_x2")
+SPLIT = 4097.0           # 2^12 + 1: the reference's Dekker split constant for f32
+
+
+def check_precision(precision: str, dtype: torch.dtype) -> bool:
+    """Whether ``precision`` asks for the split products; raises
+    ``ValueError`` for an unknown name, or for ``"f32_x2"`` on anything
+    but f32 (the reference would take both silently: the first as native,
+    the second split by the f32 constant)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if precision == "f32_x2" and dtype != torch.float32:
+        raise ValueError(f"precision='f32_x2' takes float32 only, got {dtype}")
+    return precision == "f32_x2"
+
+
+def split_ref(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_split``: ``a == hi + lo`` exactly, each half with
+    at most 12 significant bits, so a product of two halves is exact in
+    f32. ``t = a·4097; hi = t − (t − a); lo = a − hi``, one rounding a
+    step (eager torch fuses nothing)."""
+    t = a * SPLIT
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def mm_x2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the reference's ``mm_x2``: ``hh + (hl + lh)`` with
+    ``hh = ah @ bh``, ``hl = ah @ bl``, ``lh = al @ bh``. Each product of
+    halves is exact, so on the card the matmuls must be IEEE f32: TF32
+    would round the halves."""
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("mm_x2 needs IEEE f32 matmuls; TF32 is on "
+                           "(torch.backends.cuda.matmul.allow_tf32)")
+    ah, al = split_ref(a)
+    bh, bl = split_ref(b)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def matmul(precision: str = "native"):
+    """The product at ``precision``: ``torch.matmul`` or :func:`mm_x2`."""
+    return mm_x2 if precision == "f32_x2" else torch.matmul
+
+
+def panel_trsm_ref(raw: torch.Tensor, zinv: torch.Tensor, *,
+                   precision: str = "native") -> torch.Tensor:
     """Plain version of ``kernels.panel.panel_trsm``: ``raw @ zinvᵀ``."""
-    return raw @ zinv.T
+    check_precision(precision, raw.dtype)
+    return matmul(precision)(raw, zinv.T)
 
 
 def panel_update_ref(trail: torch.Tensor, lp: torch.Tensor, pt: torch.Tensor, *,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     out: Optional[torch.Tensor] = None,
+                     precision: str = "native") -> torch.Tensor:
     """Plain version of ``kernels.panel.panel_update``: ``trail − lp @ ptᵀ``
     (into ``out`` when given, which may be ``trail`` itself)."""
-    return torch.sub(trail, lp @ pt.T, out=out)
+    check_precision(precision, trail.dtype)
+    return torch.sub(trail, matmul(precision)(lp, pt.T), out=out)
 
 
 BLOCK = 128              # panel width of the blocked path (the reference's DEFAULT_BLOCK)
@@ -288,11 +342,13 @@ def _t(a: torch.Tensor) -> torch.Tensor:
     return a.transpose(-1, -2)
 
 
-def factor_panels(a: torch.Tensor) -> tuple[torch.Tensor, list]:
+def factor_panels(a: torch.Tensor, precision: str = "native") -> tuple[torch.Tensor, list]:
     """Right-looking blocked Cholesky of (m, d, d) systems: the reference's
     ``_factor_panels``. Returns the clean lower factors and each panel's
     inverse diagonal block (which the solve reuses). Only the lower
-    triangle of ``a`` is read."""
+    triangle of ``a`` is read. ``precision`` is the trsm's and the
+    trailing update's."""
+    mm = matmul(precision)
     d = a.shape[-1]
     a = a.clone()
     zs = []
@@ -302,18 +358,19 @@ def factor_panels(a: torch.Tensor) -> tuple[torch.Tensor, list]:
         zs.append(z)
         a[..., o:e, o:e] = l11
         if e < d:
-            l21 = a[..., e:, o:e] @ _t(z)
+            l21 = mm(a[..., e:, o:e], _t(z))
             a[..., e:, o:e] = l21
-            a[..., e:, e:] -= l21 @ _t(l21)
+            a[..., e:, e:] -= mm(l21, _t(l21))
     return torch.tril(a), zs
 
 
-def solve_panels(l: torch.Tensor, b: torch.Tensor,
-                 zs: Optional[list] = None) -> torch.Tensor:
+def solve_panels(l: torch.Tensor, b: torch.Tensor, zs: Optional[list] = None,
+                 precision: str = "native") -> torch.Tensor:
     """``L Lᵀ x = b`` for (m, d, d) lower factors and (m, d, c) right-hand
     sides by blocked forward and backward substitution: the reference's
     ``_solve_panels``. ``zs`` are the inverse diagonal blocks, computed
-    here when None."""
+    here when None; ``precision`` is the four products'."""
+    mm = matmul(precision)
     d = l.shape[-1]
     edges = _panel_edges(d)
     if zs is None:
@@ -322,47 +379,52 @@ def solve_panels(l: torch.Tensor, b: torch.Tensor,
     for (o, e), z in zip(edges, zs):
         rhs = b[..., o:e, :]
         if o:
-            rhs = rhs - l[..., o:e, :o] @ y[..., :o, :]
-        y[..., o:e, :] = z @ rhs
+            rhs = rhs - mm(l[..., o:e, :o], y[..., :o, :])
+        y[..., o:e, :] = mm(z, rhs)
     x = torch.zeros_like(y)
     for (o, e), z in reversed(list(zip(edges, zs))):
         rhs = y[..., o:e, :]
         if e < d:
-            rhs = rhs - _t(l[..., e:, o:e]) @ x[..., e:, :]
-        x[..., o:e, :] = _t(z) @ rhs
+            rhs = rhs - mm(_t(l[..., e:, o:e]), x[..., e:, :])
+        x[..., o:e, :] = mm(_t(z), rhs)
     return x
 
 
-def blocked_cholesky_ref(a: torch.Tensor) -> torch.Tensor:
+def blocked_cholesky_ref(a: torch.Tensor, *, precision: str = "native") -> torch.Tensor:
     """Plain version of ``kernels.blocked.blocked_cholesky``: (m, d, d) SPD
     → clean lower factors; NaNs where a system is not positive definite."""
-    return factor_panels(a)[0]
+    check_precision(precision, a.dtype)
+    return factor_panels(a, precision)[0]
 
 
-def cholesky_solve_ref(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def cholesky_solve_ref(l: torch.Tensor, b: torch.Tensor, *,
+                       precision: str = "native") -> torch.Tensor:
     """Plain version of ``kernels.blocked.cholesky_solve``: ``L Lᵀ x = b``
     for l (m, d, d) and b (m, d, c)."""
-    return solve_panels(l, b)
+    check_precision(precision, l.dtype)
+    return solve_panels(l, b, precision=precision)
 
 
-def multi_gamma_solve_ref(c: torch.Tensor, q: torch.Tensor,
-                          gammas: torch.Tensor) -> torch.Tensor:
+def multi_gamma_solve_ref(c: torch.Tensor, q: torch.Tensor, gammas: torch.Tensor, *,
+                          precision: str = "native") -> torch.Tensor:
     """Plain version of ``kernels.blocked.multi_gamma_solve``: ``(C + γ_j I)
     W_j = Q`` for each γ, ``GAMMA_BLOCK`` systems factored together. Returns (n_g, d, c); a singular γ gives
     NaNs."""
+    check_precision(precision, c.dtype)
     d, n_cls = q.shape
     gammas = gammas.to(c.dtype)
     eye = torch.eye(d, dtype=c.dtype, device=c.device)
     out = torch.empty((gammas.shape[0], d, n_cls), dtype=c.dtype, device=c.device)
     for g0 in range(0, gammas.shape[0], GAMMA_BLOCK):
         g = gammas[g0:g0 + GAMMA_BLOCK]
-        l, zs = factor_panels(c[None] + g[:, None, None] * eye)
-        out[g0:g0 + g.shape[0]] = solve_panels(l, q.expand(g.shape[0], d, n_cls), zs)
+        l, zs = factor_panels(c[None] + g[:, None, None] * eye, precision)
+        out[g0:g0 + g.shape[0]] = solve_panels(l, q.expand(g.shape[0], d, n_cls), zs,
+                                               precision)
     return out
 
 
-def solve_right_looking_ref(l: torch.Tensor, b: torch.Tensor,
-                            zs: Optional[list] = None) -> torch.Tensor:
+def solve_right_looking_ref(l: torch.Tensor, b: torch.Tensor, zs: Optional[list] = None,
+                            precision: str = "native") -> torch.Tensor:
     """The CUDA ``cholesky_solve`` (``csrc/blocked.cu``) in plain PyTorch:
     ``L Lᵀ x = b`` for (m, d, d) lower factors and (m, d, c) right-hand
     sides as the kernel computes it, to prove its schedule on the CPU (no
@@ -374,8 +436,10 @@ def solve_right_looking_ref(l: torch.Tensor, b: torch.Tensor,
     r is ``b`` at the first panel (read, never copied) and the running
     right-hand side after it. Backward, mirrored: x_p = Z_pᵀ · y_p, then
     y_{<p} −= L_{p,<p}ᵀ · x_p. The strict upper triangle of ``l`` is not
-    read.
+    read. ``precision`` is the four products' (as the kernel's x2
+    instance: the inverses stay native).
     """
+    mm = matmul(precision)
     d = l.shape[-1]
     edges = _panel_edges(d)
     if zs is None:
@@ -384,18 +448,18 @@ def solve_right_looking_ref(l: torch.Tensor, b: torch.Tensor,
     x = torch.empty(b.shape, dtype=b.dtype, device=b.device)
     for (o, e), z in zip(edges, zs):
         r = b if o == 0 else x
-        y[..., o:e, :] = z @ r[..., o:e, :]
+        y[..., o:e, :] = mm(z, r[..., o:e, :])
         if e < d:
-            x[..., e:, :] = r[..., e:, :] - l[..., e:, o:e] @ y[..., o:e, :]
+            x[..., e:, :] = r[..., e:, :] - mm(l[..., e:, o:e], y[..., o:e, :])
     for (o, e), z in reversed(list(zip(edges, zs))):
-        x[..., o:e, :] = _t(z) @ y[..., o:e, :]
+        x[..., o:e, :] = mm(_t(z), y[..., o:e, :])
         if o:
-            y[..., :o, :] -= _t(l[..., o:e, :o]) @ x[..., o:e, :]
+            y[..., :o, :] -= mm(_t(l[..., o:e, :o]), x[..., o:e, :])
     return x
 
 
-def multi_gamma_blocked_ref(c: torch.Tensor, q: torch.Tensor,
-                            gammas: torch.Tensor) -> torch.Tensor:
+def multi_gamma_blocked_ref(c: torch.Tensor, q: torch.Tensor, gammas: torch.Tensor,
+                            precision: str = "native") -> torch.Tensor:
     """The CUDA ``multi_gamma_solve`` (``csrc/blocked.cu``) in plain
     PyTorch: ``(C + γ_j I) W_j = Q`` for each γ as the kernel computes it,
     to prove its schedule on the CPU (no path calls it). Returns (n_g, d,
@@ -408,8 +472,10 @@ def multi_gamma_blocked_ref(c: torch.Tensor, q: torch.Tensor,
     Each diagonal block is factored by :func:`factor_blocked_ref` and
     inverted by :func:`invert_blocked_ref`, every inverse is kept, and the
     solve is :func:`solve_right_looking_ref` with Q read by every γ. Only
-    the lower triangle of C is read.
+    the lower triangle of C is read. ``precision`` is the trsm's, the
+    trailing update's and the substitution's.
     """
+    mm = matmul(precision)
     d, n_cls = q.shape
     g = gammas.to(c.dtype)
     n_g = g.shape[0]
@@ -426,15 +492,15 @@ def multi_gamma_blocked_ref(c: torch.Tensor, q: torch.Tensor,
         zs.append(z)
         out[..., o:e, o:e] = l11
         if e < d:
-            l21 = src[..., e:, o:e] @ _t(z)
+            l21 = mm(src[..., e:, o:e], _t(z))
             a22 = src[..., e:, e:].clone()
             if o == 0:
                 idx = torch.arange(d - e, device=c.device)
                 a22[..., idx, idx] += g[:, None]
-            out[..., e:, e:] = a22 - l21 @ _t(l21)
+            out[..., e:, e:] = a22 - mm(l21, _t(l21))
             out[..., e:, o:e] = l21
         src = out
-    return solve_right_looking_ref(torch.tril(out), q.expand(n_g, d, n_cls), zs)
+    return solve_right_looking_ref(torch.tril(out), q.expand(n_g, d, n_cls), zs, precision)
 
 
 def chol_rank_update_ref(l: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,16 @@ tensors on a CUDA device when ``use_kernel=True``, else their plain
 versions in ``kernels.ref`` (CPU tensors, or ``use_kernel=False`` on any
 device). The substitution products of the solve are not panel kernels in
 the reference either, and stay ``torch.matmul``.
+
+Every entry point and schedule takes the reference's keyword
+``precision``: ``"native"`` (the default) or ``"f32_x2"``, f32 only (an
+unknown name or another dtype raises ``ValueError``, where the reference
+would go on). ``"f32_x2"`` splits the products the reference splits (the
+trsm, the trailing update, the substitutions; the panel products through
+their split instances, the tile solve's four through ``ref.mm_x2``) and
+leaves the diagonal blocks native. The name is checked once a call, by
+the wrapper or plain version that chooses what to run (here only where
+nothing else is called: an empty batch, the tile solve's products).
 """
 
 from __future__ import annotations
@@ -119,7 +129,8 @@ def _pad_spd(a: torch.Tensor, d_p: int) -> torch.Tensor:
 
 
 def tile_cholesky_factor(tile: torch.Tensor, *, shard, n_shards: int, gather,
-                         block: int, use_kernel: bool = True, in_place: bool = False):
+                         block: int, use_kernel: bool = True, in_place: bool = False,
+                         precision: str = "native"):
     """Blocked right-looking Cholesky of a row-tiled global system.
 
     ``tile`` is this shard's ``(r, d)`` row slab of the global SPD system
@@ -145,7 +156,7 @@ def tile_cholesky_factor(tile: torch.Tensor, *, shard, n_shards: int, gather,
         diag = gather(work[lo:lo + b, o:o + b])[own]
         l_d, z = k.panel_factor(diag)
         zs.append(z)
-        colv = k.panel_trsm(work[:, o:o + b], z)
+        colv = k.panel_trsm(work[:, o:o + b], z, precision=precision)
         below = (rows_g >= o + b)[:, None]
         in_diag = ((rows_g >= o) & (rows_g < o + b))[:, None]
         ld_full = torch.zeros((r, b), dtype=tile.dtype, device=tile.device)
@@ -156,13 +167,13 @@ def tile_cholesky_factor(tile: torch.Tensor, *, shard, n_shards: int, gather,
             pt = gather(col).reshape(n_shards * r, b)[o + b:]
             lp = torch.where(below, col, zero)
             trail = work[:, o + b:]
-            k.panel_update(trail, lp, pt, out=trail)
+            k.panel_update(trail, lp, pt, out=trail, precision=precision)
     return work, zs
 
 
 def tile_cholesky_solve(tile_l: torch.Tensor, q_tile: torch.Tensor, zs=None, *,
                         shard, n_shards: int, gather, psum, block: int,
-                        use_kernel: bool = True) -> torch.Tensor:
+                        use_kernel: bool = True, precision: str = "native") -> torch.Tensor:
     """``L Lᵀ x = q`` against a row-tiled factor from
     :func:`tile_cholesky_factor`; returns the replicated ``(d, C)`` solution.
 
@@ -173,6 +184,8 @@ def tile_cholesky_solve(tile_l: torch.Tensor, q_tile: torch.Tensor, zs=None, *,
     rows and the psum broadcasts it; backward sweep: every shard adds its
     rows' partial product through the psum.
     """
+    ref.check_precision(precision, tile_l.dtype)
+    mm = ref.matmul(precision)
     r, d_p = tile_l.shape
     cdim = q_tile.shape[-1]
     b = block
@@ -192,8 +205,8 @@ def tile_cholesky_solve(tile_l: torch.Tensor, q_tile: torch.Tensor, zs=None, *,
         own, lo = o // r, o - (o // r) * r
         rhs = q_tile[lo:lo + b]
         if o:
-            rhs = rhs - tile_l[lo:lo + b, :o] @ y[:o]
-        y_p = zs[p] @ rhs
+            rhs = rhs - mm(tile_l[lo:lo + b, :o], y[:o])
+        y_p = mm(zs[p], rhs)
         if shard != own:
             y_p = torch.zeros_like(y_p)
         y[o:o + b] = psum(y_p)
@@ -202,8 +215,8 @@ def tile_cholesky_solve(tile_l: torch.Tensor, q_tile: torch.Tensor, zs=None, *,
         o = p * b
         lp = torch.where((rows_g >= o + b)[:, None], tile_l[:, o:o + b], zero)
         xs_local = x[shard * r:shard * r + r]
-        total = psum(lp.T @ xs_local)
-        x[o:o + b] = zs[p].T @ (y[o:o + b] - total)
+        total = psum(mm(lp.T, xs_local))
+        x[o:o + b] = mm(zs[p].T, y[o:o + b] - total)
     return x
 
 
@@ -215,7 +228,7 @@ def stream_block(dtype: torch.dtype) -> int:
 
 
 def streamed_cholesky(a: torch.Tensor, *, block: Optional[int] = None,
-                      use_kernel: bool = True) -> torch.Tensor:
+                      use_kernel: bool = True, precision: str = "native") -> torch.Tensor:
     """Single-system lower Cholesky ``a (d, d) SPD → L`` via panel streaming.
 
     The one-shard instance of :func:`tile_cholesky_factor`, at panels of
@@ -228,13 +241,13 @@ def streamed_cholesky(a: torch.Tensor, *, block: Optional[int] = None,
     d_p = _ceil_mult(d, bs)
     l, _ = tile_cholesky_factor(
         _pad_spd(a, d_p), shard=0, n_shards=1, gather=lambda v: v[None],
-        block=bs, use_kernel=use_kernel)
+        block=bs, use_kernel=use_kernel, precision=precision)
     return l[:d, :d]
 
 
 def streamed_cholesky_solve(l: torch.Tensor, b: torch.Tensor, *,
-                            block: Optional[int] = None,
-                            use_kernel: bool = True) -> torch.Tensor:
+                            block: Optional[int] = None, use_kernel: bool = True,
+                            precision: str = "native") -> torch.Tensor:
     """``L Lᵀ x = b`` against a :func:`streamed_cholesky` factor —
     ``l (d, d)`` lower, ``b (d, c)`` → ``x (d, c)``; ``block`` as there."""
     d = l.shape[-1]
@@ -247,46 +260,52 @@ def streamed_cholesky_solve(l: torch.Tensor, b: torch.Tensor, *,
     x = tile_cholesky_solve(
         _pad_spd(l, d_p), bp, None, shard=0, n_shards=1,
         gather=lambda v: v[None], psum=lambda v: v, block=bs,
-        use_kernel=use_kernel)
+        use_kernel=use_kernel, precision=precision)
     return x[:d]
 
 
 # --- the blocked path --------------------------------------------------------
 
 
-def blocked_cholesky(a: torch.Tensor) -> torch.Tensor:
+def blocked_cholesky(a: torch.Tensor, *, precision: str = "native") -> torch.Tensor:
     """Lower Cholesky factors of (m, d, d) SPD systems, panels of
     ``DEFAULT_BLOCK`` (the last one ragged); clean lower triangles, NaNs
     where a system is not positive definite."""
     m, d, _ = a.shape
     if m == 0:
+        ref.check_precision(precision, a.dtype)
         return torch.zeros((0, d, d), dtype=a.dtype, device=a.device)
     if a.is_cuda:
-        return blocked.blocked_cholesky(a.contiguous())
-    return ref.blocked_cholesky_ref(a)
+        return blocked.blocked_cholesky(a.contiguous(), precision=precision)
+    return ref.blocked_cholesky_ref(a, precision=precision)
 
 
-def cholesky_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def cholesky_solve(l: torch.Tensor, b: torch.Tensor, *,
+                   precision: str = "native") -> torch.Tensor:
     """``L Lᵀ x = b`` for lower factors from :func:`blocked_cholesky`:
     ``l`` (m, d, d), ``b`` (m, d, c) → x (m, d, c)."""
     m, d, _ = l.shape
     if m == 0:
+        ref.check_precision(precision, l.dtype)
         return torch.zeros((0, d, b.shape[-1]), dtype=b.dtype, device=b.device)
     if l.is_cuda:
-        return blocked.cholesky_solve(l.contiguous(), b.contiguous())
-    return ref.cholesky_solve_ref(l, b)
+        return blocked.cholesky_solve(l.contiguous(), b.contiguous(), precision=precision)
+    return ref.cholesky_solve_ref(l, b, precision=precision)
 
 
-def multi_gamma_solve(c: torch.Tensor, q: torch.Tensor, gammas) -> torch.Tensor:
+def multi_gamma_solve(c: torch.Tensor, q: torch.Tensor, gammas, *,
+                      precision: str = "native") -> torch.Tensor:
     """The fused γ sweep: ``(C + γ_j I) W_j = Q`` for the whole grid →
     (n_g, d, c). A γ whose system is singular comes back as NaNs (the
     engine then reroutes the grid to the eigendecomposition)."""
     gammas = torch.as_tensor(gammas, dtype=c.dtype, device=c.device)
     if gammas.shape[0] == 0:
+        ref.check_precision(precision, c.dtype)
         return torch.zeros((0, *q.shape), dtype=c.dtype, device=c.device)
     if c.is_cuda:
-        return blocked.multi_gamma_solve(c.contiguous(), q.contiguous(), gammas)
-    return ref.multi_gamma_solve_ref(c, q, gammas)
+        return blocked.multi_gamma_solve(c.contiguous(), q.contiguous(), gammas,
+                                         precision=precision)
+    return ref.multi_gamma_solve_ref(c, q, gammas, precision=precision)
 
 
 def chol_rank_update(l: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:

@@ -1528,3 +1528,346 @@ def test_meta_init_params_next_to_cuda_init(cuda):
     for a, m, b in zip(first, meta, again):
         assert m.is_meta and (m.shape, m.dtype) == (a.shape, a.dtype)
         assert torch.equal(a, b)
+
+
+# --- precision "f32_x2": the split products -----------------------------------
+
+X2 = "f32_x2"
+
+
+def _x2_counts():
+    """(launches, x2_launches) of each wrapper with a split instance."""
+    return [(f.launches, f.x2_launches) for f in (P.panel_trsm, P.panel_update,
+                                                  B.blocked_cholesky, B.cholesky_solve,
+                                                  B.multi_gamma_solve)]
+
+
+# the main paths' product shapes, where the split instances gave the plain
+# split version's bits on random operands (chip_smoke.py's phase 18 holds
+# them so): both sum each output over k in order, one FMA chain
+X2_EXACT = {(2304, 256), (2304, 2048, 256), (6144, 5888, 256)}
+
+
+def _moved(before, which):
+    """The counts now, against ``before``: +1 launch and +1 x2 launch for
+    the wrappers named by index in ``which``, nothing for the others."""
+    return [(n + (i in which), x + (i in which)) for i, (n, x) in enumerate(before)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,b,ld", [(2304, 256, 2304), (1000, 200, 977), (20, 12, 15)])
+def test_x2_panel_trsm_matches_plain(cuda, r, b, ld):
+    rng = np.random.default_rng(r + b + 2)
+    raw = _column_slab(torch.from_numpy(rng.standard_normal((r, b))).to(cuda, torch.float32), ld)
+    zinv = torch.from_numpy(np.tril(rng.standard_normal((b, b)))).to(cuda, torch.float32)
+    before = _x2_counts()
+    out = ops.panel_trsm(raw, zinv, precision=X2)
+    torch.cuda.synchronize()
+    assert _x2_counts() == _moved(before, {0})
+    want = ref.panel_trsm_ref(raw, zinv, precision=X2)
+    _assert_product(out, want)
+    if (r, b) in X2_EXACT:
+        assert torch.equal(out, want)
+    assert torch.equal(ops.panel_trsm(raw, zinv, precision=X2), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,w,b,odd", [(2304, 2048, 256, False), (2304, 256, 256, False),
+                                       (6144, 5888, 256, False), (1000, 777, 200, True),
+                                       (30, 20, 12, True)])
+def test_x2_panel_update_matches_plain_in_place(cuda, r, w, b, odd):
+    rng = np.random.default_rng(w + b + 2)
+    dev = lambda a: torch.from_numpy(a).to(cuda, torch.float32)  # noqa: E731
+    work = dev(rng.standard_normal((r, w + b + odd)))
+    lp, pt = dev(rng.standard_normal((r, b))), dev(rng.standard_normal((w, b)))
+    if odd:
+        lp, pt = _column_slab(lp, b + 1), _column_slab(pt, b + 1)
+    trail = work[:, b + odd:]
+    orig = trail.clone()
+    want = ref.panel_update_ref(trail, lp, pt, precision=X2)
+    before = _x2_counts()
+    ops.panel_update(trail, lp, pt, out=trail, precision=X2)
+    torch.cuda.synchronize()
+    assert _x2_counts() == _moved(before, {1})
+    _assert_product(trail, want)
+    if (r, w, b) in X2_EXACT:
+        assert torch.equal(trail, want)
+    assert torch.equal(ops.panel_update(orig, lp, pt, precision=X2), trail)
+
+
+def _spread(rng, shape, lo=-30, hi=30, positive=False):
+    """f32 values of both signs (or positive) with exponents spread over
+    lo..hi: every product of their halves stays a normal f32."""
+    v = rng.uniform(1, 2, shape) * 2.0 ** rng.integers(lo, hi + 1, shape)
+    if not positive:
+        v *= rng.choice([-1.0, 1.0], shape)
+    return v.astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_x2_panel_trsm_at_b1_is_the_plain_bits(cuda):
+    """At b = 1 each output is one product of split halves, every one exact,
+    so no sum order is left to differ: 2^20 values spanning exponents
+    −30…30 must give the plain split's bits (a split contracted into an
+    FMA would leave hi more than 12 bits and round the products)."""
+    rng = np.random.default_rng(20)
+    raw = torch.from_numpy(_spread(rng, (1 << 20, 1))).to(cuda)
+    zinv = torch.from_numpy(_spread(rng, (1, 1))).to(cuda)
+    got = ops.panel_trsm(raw, zinv, precision=X2)
+    assert torch.equal(got, ref.panel_trsm_ref(raw, zinv, precision=X2))
+
+
+@pytest.mark.cuda
+def test_x2_cholesky_solve_at_d1_is_the_plain_bits(cuda):
+    """d = 1: z = 1 / l (one IEEE division in both), then y = z·b and
+    x = z·y, each a product of halves: the plain split's bits."""
+    rng = np.random.default_rng(21)
+    l = torch.from_numpy(_spread(rng, (4096, 1, 1), -15, 15, positive=True)).to(cuda)
+    b = torch.from_numpy(_spread(rng, (4096, 1, 16))).to(cuda)
+    got = ops.cholesky_solve(l, b, precision=X2)
+    assert torch.equal(got, ref.solve_right_looking_ref(l, b, precision=X2))
+    assert torch.equal(got, ref.cholesky_solve_ref(l, b, precision=X2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(1, 1536), (3, 130), (2, 257)])
+def test_x2_blocked_cholesky_matches_plain(cuda, m, d):
+    a = torch.stack([_spd_block(d + i, d, cuda) for i in range(m)])
+    before = _x2_counts()
+    l = ops.blocked_cholesky(a, precision=X2)
+    torch.cuda.synchronize()
+    assert _x2_counts() == _moved(before, {2})
+    assert not torch.triu(l, 1).any() and torch.isfinite(l).all()
+    assert _rel(l, ref.blocked_cholesky_ref(a, precision=X2)) < REL
+    assert torch.equal(ops.blocked_cholesky(a, precision=X2), l)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,c", [(1, 1536, 16), (2, 130, 7), (3, 257, 1)])
+def test_x2_cholesky_solve_matches_plain(cuda, m, d, c):
+    rng = np.random.default_rng(d + c + 2)
+    a = torch.stack([_spd_block(d + i, d, cuda) for i in range(m)])
+    l = ref.blocked_cholesky_ref(a)
+    b = torch.from_numpy(rng.standard_normal((m, d, c))).to(cuda, torch.float32)
+    before = _x2_counts()
+    x = ops.cholesky_solve(l, b, precision=X2)
+    torch.cuda.synchronize()
+    assert _x2_counts() == _moved(before, {3})
+    assert _rel(x, ref.cholesky_solve_ref(l, b, precision=X2)) < REL
+    assert _rel(x, ref.solve_right_looking_ref(l, b, precision=X2)) < REL
+    assert torch.equal(ops.cholesky_solve(l, b, precision=X2), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,c,n_g", [(2304, 16, 16), (130, 7, 11)])
+def test_x2_multi_gamma_solve_matches_plain(cuda, d, c, n_g):
+    rng = np.random.default_rng(d + 2)
+    a = _spd_block(d, d, cuda)
+    q = torch.from_numpy(rng.standard_normal((d, c))).to(cuda, torch.float32)
+    gammas = torch.logspace(-4, 0, n_g, device=cuda) * float(torch.trace(a)) / d
+    before = _x2_counts()
+    w = ops.multi_gamma_solve(a, q, gammas, precision=X2)
+    torch.cuda.synchronize()
+    assert _x2_counts() == _moved(before, {4})
+    plain = ref.multi_gamma_solve_ref(a, q, gammas, precision=X2)
+    twin = ref.multi_gamma_blocked_ref(a, q, gammas, X2)
+    for j in range(n_g):
+        assert _rel(w[j], plain[j]) < REL
+        assert _rel(w[j], twin[j]) < REL
+    assert torch.equal(ops.multi_gamma_solve(a, q, gammas, precision=X2), w)
+
+
+def _one_term_rows(rng, r, b):
+    """(r, b) with one nonzero normal entry a row, in a random column."""
+    x = np.zeros((r, b))
+    x[np.arange(r), rng.integers(0, b, r)] = rng.standard_normal(r)
+    return x
+
+
+def _one_term_system(rng, d, panel=B.PANEL):
+    """An SPD system whose blocked factor, solve and sweep have at most one
+    nonzero term in every output of every product: a diagonal in [2, 3),
+    and for each panel after the first one entry a row in the panel before
+    it, in distinct columns, within ±0.5 (chip_smoke.py's twin)."""
+    a = np.diag(2 + rng.random(d))
+    for o in range(panel, d, panel):
+        rows = np.arange(o, min(o + panel, d))
+        cols = o - panel + rng.permutation(panel)[:rows.size]
+        a[rows, cols] = a[cols, rows] = rng.random(rows.size) - 0.5
+    return a
+
+
+def _split_bits(got, want, native):
+    """The split instance gives the plain split's bits; the native one does
+    not (so the check tells the two apart)."""
+    assert torch.equal(got, want)
+    assert (native != want).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,w,b,ld", [(2304, 2048, 256, 2304), (6144, 5888, 256, 6144),
+                                      (1000, 777, 200, 977), (30, 20, 12, 15)])
+def test_x2_panel_products_one_term_bits(cuda, r, w, b, ld):
+    """Operands with one nonzero term an output (a diagonal zinv, one entry
+    a row of lp): no sum order is left to differ, so each product's split
+    instance (F32Narrow, F32Mid) gives the plain split's bits at the main
+    paths' shapes and at ragged ones."""
+    rng = np.random.default_rng(r + w + 3)
+    dev = lambda a: torch.from_numpy(a).to(cuda, torch.float32)  # noqa: E731
+    raw = _column_slab(dev(rng.standard_normal((r, b))), ld)
+    zinv = dev(np.diag(1 + rng.random(b)))
+    _split_bits(ops.panel_trsm(raw, zinv, precision=X2),
+                ref.panel_trsm_ref(raw, zinv, precision=X2), ops.panel_trsm(raw, zinv))
+    trail, pt = dev(rng.standard_normal((r, w))), dev(rng.standard_normal((w, b)))
+    lp = _column_slab(dev(_one_term_rows(rng, r, b)), ld)
+    _split_bits(ops.panel_update(trail, lp, pt, precision=X2),
+                ref.panel_update_ref(trail, lp, pt, precision=X2),
+                ops.panel_update(trail, lp, pt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,c,n_g", [(2, 1536, 16, 1), (1, 2304, 16, 16), (3, 1000, 7, 3),
+                                       (2, 257, 1, 2)])
+def test_x2_blocked_one_term_bits(cuda, m, d, c, n_g):
+    """On ``_one_term_system`` the blocked factor's trsm and trailing update
+    (tile_gemm.cuh's split loop) and the substitutions (sub_tile) give the
+    plain split's bits, in the factor, the solve and the sweep."""
+    rng = np.random.default_rng(d + m)
+    dev = lambda a: torch.from_numpy(np.asarray(a)).to(cuda, torch.float32)  # noqa: E731
+    a = dev(np.stack([_one_term_system(rng, d) for _ in range(m)]))
+    _split_bits(ops.blocked_cholesky(a, precision=X2),
+                ref.blocked_cholesky_ref(a, precision=X2), ops.blocked_cholesky(a))
+    l = ref.blocked_cholesky_ref(a)
+    rhs = dev(rng.standard_normal((m, d, c)))
+    _split_bits(ops.cholesky_solve(l, rhs, precision=X2),
+                ref.cholesky_solve_ref(l, rhs, precision=X2), ops.cholesky_solve(l, rhs))
+    gammas = dev(np.logspace(-4, 0, n_g))
+    _split_bits(ops.multi_gamma_solve(a[0], rhs[0], gammas, precision=X2),
+                ref.multi_gamma_solve_ref(a[0], rhs[0], gammas, precision=X2),
+                ops.multi_gamma_solve(a[0], rhs[0], gammas))
+
+
+def _x2_spd(d, seed=5):
+    """The reference's property-test system: XᵀX from 8d normal rows, f64."""
+    x = np.random.default_rng(seed).standard_normal((8 * d, d))
+    return x.T @ x
+
+
+@pytest.mark.cuda
+def test_x2_streamed_solve_launches_and_bound(cuda):
+    """The streamed factor and solve at d = 2304 in f32_x2: the native
+    schedule's panel launches, every product through its split instance;
+    the plain route's answer; and the reference test's bound against f64:
+    x2's error ≤ 4 × native's + 1e-9, and < 1e-4."""
+    d, c = 2304, 16
+    a64 = _x2_spd(d) + 0.5 * np.eye(d)
+    q64 = np.random.default_rng(6).standard_normal((d, c))
+    a = torch.from_numpy(a64).to(cuda, torch.float32)
+    q = torch.from_numpy(q64).to(cuda, torch.float32)
+    panels = (P.panel_factor, P.panel_trsm, P.panel_update, P.panel_tri_inv)
+    before = [f.launches for f in panels] + [P.panel_trsm.x2_launches,
+                                              P.panel_update.x2_launches]
+    x2 = S.streamed_cholesky_solve(S.streamed_cholesky(a, precision=X2), q, precision=X2)
+    torch.cuda.synchronize()
+    n = d // S.DEFAULT_STREAM_BLOCK
+    after = [f.launches for f in panels] + [P.panel_trsm.x2_launches,
+                                             P.panel_update.x2_launches]
+    assert [u - v for u, v in zip(after, before)] == [n, n, n - 1, n, n, n - 1]
+    plain = S.streamed_cholesky_solve(S.streamed_cholesky(a, use_kernel=False, precision=X2),
+                                      q, use_kernel=False, precision=X2)
+    assert _rel(x2, plain) < REL
+    native = S.streamed_cholesky_solve(S.streamed_cholesky(a), q)
+    want = torch.from_numpy(np.linalg.solve(a64, q64)).to(cuda)
+    err_x2, err_native = _rel(x2, want), _rel(native, want)
+    assert err_x2 <= 4 * err_native + 1e-9 and err_x2 < 1e-4
+
+
+@pytest.mark.cuda
+def test_x2_blocked_and_sweep_bound(cuda):
+    """The reference test's bound on the blocked factor and solve at
+    d = 1536 and on the sweep at d = 2304 (γ = 0.5)."""
+    for d, sweep in ((1536, False), (2304, True)):
+        a64 = _x2_spd(d)
+        q64 = np.random.default_rng(d).standard_normal((d, 5))
+        a = torch.from_numpy(a64).to(cuda, torch.float32)
+        q = torch.from_numpy(q64).to(cuda, torch.float32)
+        g = torch.tensor([0.5], device=cuda)
+        want = torch.from_numpy(np.linalg.solve(a64 + 0.5 * np.eye(d), q64)).to(cuda)
+        errs = {}
+        for prec in ("native", X2):
+            if sweep:
+                w = ops.multi_gamma_solve(a, q, g, precision=prec)[0]
+            else:
+                sys = (a + 0.5 * torch.eye(d, device=cuda))[None]
+                w = ops.cholesky_solve(ops.blocked_cholesky(sys, precision=prec), q[None],
+                                       precision=prec)[0]
+            errs[prec] = _rel(w, want)
+        assert errs[X2] <= 4 * errs["native"] + 1e-9 and errs[X2] < 1e-4, (d, errs)
+
+
+@pytest.mark.cuda
+def test_x2_refuses_f64_and_unknown_names(cuda):
+    """f32_x2 on f64, and an unknown name, raise ValueError before any launch."""
+    a = _spd_block(0, 64, cuda)
+    before = _x2_counts()
+    for t, prec in ((a.double(), X2), (a, "bf16_x3")):
+        with pytest.raises(ValueError):
+            ops.panel_trsm(t, t, precision=prec)
+        with pytest.raises(ValueError):
+            ops.panel_update(t, t, t, precision=prec)
+        with pytest.raises(ValueError):
+            ops.blocked_cholesky(t[None], precision=prec)
+        with pytest.raises(ValueError):
+            ops.cholesky_solve(t[None], t[None], precision=prec)
+        with pytest.raises(ValueError):
+            ops.multi_gamma_solve(t, t, torch.ones(1, dtype=t.dtype, device=cuda),
+                                  precision=prec)
+    assert _x2_counts() == before
+
+
+@pytest.mark.cuda
+def test_native_keyword_is_the_default_bits(cuda):
+    a = torch.stack([_spd_block(7, 300, cuda)])
+    assert torch.equal(ops.blocked_cholesky(a, precision="native"), ops.blocked_cholesky(a))
+    lp = a[0, :, :64].contiguous()
+    assert torch.equal(ops.panel_update(a[0], lp, lp, precision="native"),
+                       ops.panel_update(a[0], lp, lp))
+
+
+def _launch_calls(fn) -> int:
+    """The CUDA kernel launch calls the host makes in one synchronised call
+    of ``fn`` (after a warm-up call), as torch.profiler records them. The
+    host side, not the device's: on an H100 the device side lost the first
+    kernels of a session now and then, padded or not."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    return sum(1 for e in prof.events() if e.device_type != DeviceType.CUDA
+               and e.name.startswith("cudaLaunchKernel"))
+
+
+@pytest.mark.cuda
+def test_x2_cuda_launches_match_the_native_schedule(cuda):
+    """The split instances run the native schedule: the same CUDA launches
+    a call, at d = 1536 and at the sweep's main-path shape."""
+    d, c = 1536, 16
+    a = _spd_block(d, d, cuda)[None]
+    l = ref.blocked_cholesky_ref(a)
+    b = torch.ones((1, d, c), device=cuda)
+    assert _launch_calls(lambda: ops.blocked_cholesky(a, precision=X2)) == B.cuda_launches(d)
+    assert _launch_calls(lambda: ops.cholesky_solve(l, b, precision=X2)) == \
+        B.solve_cuda_launches(d)
+    for d, n_g in ((1536, 4), (2304, 16)):
+        a = _spd_block(d, d, cuda)
+        q, gammas = torch.ones((d, c), device=cuda), torch.linspace(0.1, 1.0, n_g, device=cuda)
+        assert _launch_calls(lambda: ops.multi_gamma_solve(a, q, gammas, precision=X2)) == \
+            B.sweep_cuda_launches(d)

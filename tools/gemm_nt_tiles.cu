@@ -130,8 +130,8 @@ int main() {
                                               p.ldc, p.m, p.n, p.k, nullptr);
        }},
       tile_variant<FfmaTile<16, 16, 8, 8, 8>, float>("128x128k8"),
-      tile_variant<F32Mid, float>("128x64k16"),
-      tile_variant<F32Narrow, float>("96x64k16"),
+      tile_variant<F32Mid<false>, float>("128x64k16"),
+      tile_variant<F32Narrow<false>, float>("96x64k16"),
       tile_variant<FfmaTile<16, 16, 4, 4, 16>, float>("64x64k16"),
       tile_variant<FfmaTile<16, 8, 4, 4, 16>, float>("64x32k16"),
       tile_variant<FfmaTile<24, 16, 4, 4, 8>, float>("96x64k8"),
