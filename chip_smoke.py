@@ -232,11 +232,9 @@ without the repository around it. Phases, each fatal on failure:
      tokens/s, peak memory and 40 flash launches a step; (e)
      ``examples/torch_train_100m.py``'s ``main`` at its defaults, its
      asserts holding; its own JSON line ``{"training": ...}``;
- 17. the dry run: (a) ``python -m repro_torch.launch.dryrun --mesh one
-     --variant flash`` over every arch and input shape, an arch a process,
-     all at once: every record ``ok`` but the documented skip (seamless at
-     long_500k), a line each with the predicted peak against the card's
-     memory and the roofline's dominant term; (b) the dry run's per-step
+ 17. the dry run (its grid of every arch and shape on one card left the
+     smoke for phase 19: ``python -m repro_torch.launch.dryrun`` and
+     tests/test_torch_dryrun.py keep it): (b) the dry run's per-step
      function (a meta walk) against the card at minicpm_2b's analytic
      step of the slice's batch (64 × 32, ``use_kernel=True``) and
      gemma3_12b's prefill at 4 × 2048 and one decode step against a
@@ -248,7 +246,21 @@ without the repository around it. Phases, each fatal on failure:
      roofline share and an MFU of at most 1; (c)
      ``examples/torch_serve_demo.py`` and ``torch_federated_niid.py`` on
      the card, their flash launches counted; its own JSON line
-     ``{"dryrun": ...}``.
+     ``{"dryrun": ...}``;
+ 19. the partitioned steps (``launch.partitioned``): four ranks
+     (``core.distributed.run_ranks``) on this one card as a (2, 2)
+     ('data', 'model') mesh, their collectives staged through the host on
+     gloo, run full-width granite_moe_3b_a800m (32 layers, f32) as
+     DTensors under the sharding rules: the analytic train step on 4 × 512
+     tokens, a prefill of 4 × 512 and 8 greedy decode steps, flash and
+     Gram kernels on each rank's shards; then this process runs the same
+     steps on the card on one rank: the Gram within 1e-4 of its largest
+     entry and the count exact, every logit within 1e-3 of its row's
+     largest |logit|, the same tokens, and the prefill's MoE slots equal;
+     each rank's collectives (counted as they run, and by
+     ``CommDebugMode``) equal, op for op, rank 0's steps walked on a fake
+     process group of the same mesh; flash and Gram launches, peak bytes
+     and wall per rank; its own JSON line ``{"partitioned": ...}``.
 
 Each path's launches are counted from zero just before it runs. It then
 prints the kernels' JSON line (ten kernels; the five with a split
@@ -4293,10 +4305,6 @@ def training_phase(K, ref, get_config, D, T, L, ST, train, FLConfig, optim):
 
 # --- the dry run: its grid, its prediction against the card, two examples --------
 
-# (a) every arch × input shape on the port's mesh of one card, the flash
-# variant; the one documented skip; each architecture a process of its own
-DRYRUN_SKIP = {("seamless_m4t_medium", "long_500k")}
-DRYRUN_GRID_TIMEOUT_S = 120
 # (b) two full-width f32 steps the smoke already runs, predicted by the
 # dry run's per-step function and measured on the card: (what, arch,
 # InputShape fields, kind)
@@ -4305,66 +4313,6 @@ DRYRUN_STEPS = [("minicpm_2b analytic step", "minicpm_2b", ("slice_batch", 32, 6
                 ("gemma3_12b decode step", "gemma3_12b", ("serve_decode", 2048, 4, "decode"))]
 DRYRUN_PEAK_REL = 0.10      # predicted peak within 10% of the card's
 DRYRUN_TIMED = 5            # a step's time: the median of 5 synchronised runs
-
-
-def dryrun_grid(root: Path, list_archs, M) -> dict:
-    """``python -m repro_torch.launch.dryrun --mesh one --variant flash`` for
-    every arch and shape, the archs in parallel processes; every record
-    ``ok`` but the documented skip. One line a combination: the predicted
-    peak against the card's memory, and the roofline's dominant term."""
-    out = root / "results" / "torch_dryrun"
-    env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    t0 = time.perf_counter()
-    procs = {}
-    try:
-        for arch in list_archs():
-            procs[arch] = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                 "--shape", "all", "--mesh", "one", "--variant", "flash", "--out", str(out)],
-                cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        logs = {}
-        for arch, proc in procs.items():
-            left = max(1.0, DRYRUN_GRID_TIMEOUT_S - (time.perf_counter() - t0))
-            try:
-                logs[arch] = proc.communicate(timeout=left)[0]
-            except subprocess.TimeoutExpired:
-                fail(f"dry run of {arch} took more than {DRYRUN_GRID_TIMEOUT_S} s")
-            if proc.returncode != 0:
-                fail(f"dry run of {arch} exited {proc.returncode}:\n{logs[arch][-3000:]}")
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    wall = time.perf_counter() - t0
-    hbm = torch.cuda.get_device_properties(0).total_memory
-    log(f"dry run: the card's memory {hbm} bytes ({hbm / 2**30:.2f} GiB); "
-        f"launch.mesh.HBM_BYTES {M.HBM_BYTES}" + ("" if hbm == M.HBM_BYTES else " (differs)"))
-    grid, fits = {}, 0
-    for arch in list_archs():
-        for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
-            rec = json.loads((out / f"{arch}__{shape}__one__flash.json").read_text())
-            if (arch, shape) in DRYRUN_SKIP:
-                if rec["ok"] or "skipped" not in rec:
-                    fail(f"dry run {arch} {shape}: expected the documented skip, got {rec}")
-                log(f"dry run: {arch} {shape}: skipped ({rec['skipped']})")
-                grid[f"{arch}/{shape}"] = "skipped"
-                continue
-            if not rec["ok"]:
-                fail(f"dry run {arch} {shape} failed: {rec.get('error')}")
-            mem, roof = rec["memory"], rec["roofline"]
-            peak = mem["peak_bytes_per_device"]
-            fits += peak <= hbm
-            grid[f"{arch}/{shape}"] = dict(
-                peak_gib=peak / 2**30, fits=peak <= hbm, dominant=roof["dominant"],
-                compute_ms=1e3 * roof["compute_s"], memory_ms=1e3 * roof["memory_s"],
-                flops=rec["flops_global"], bytes=rec["bytes_global"], walk_s=rec["walk_s"])
-            log(f"dry run: {arch} {shape}: peak {peak / 2**30:.2f} GiB of {hbm / 2**30:.2f} "
-                f"GiB ({'fits' if peak <= hbm else 'does not fit'}); compute "
-                f"{1e3 * roof['compute_s']:.2f} ms, memory {1e3 * roof['memory_s']:.2f} ms "
-                f"→ {roof['dominant']}; walk {rec['walk_s']} s")
-    log(f"dry run grid: {len(grid)} combinations in {wall:.1f} s ({fits} fit one card)")
-    return dict(wall_s=wall, hbm_bytes=hbm, fits=fits, combinations=grid)
 
 
 def _timed_step(fn, args, n):
@@ -4499,16 +4447,17 @@ def dryrun_example_check(K, root, zoo_calls, get_config):
     return total, out
 
 
-def dryrun_phase(K, root, get_config, list_archs, InputShape):
-    """Phase 17: (a) the grid, (b) the prediction of two full-width steps
-    against the card, (c) two examples on the card."""
+def dryrun_phase(K, root, get_config, InputShape):
+    """Phase 17: (b) the prediction of three full-width steps against the
+    card, (c) two examples on the card ((a), the grid, left the smoke for
+    phase 19)."""
     from repro_torch.launch import cost_analysis as CA
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import mesh as M
     from repro_torch.models import transformer as T
 
     t0 = time.perf_counter()
-    out = dict(grid=dryrun_grid(root, list_archs, M))
+    out = {}
     total, steps, params, loaded = {}, [], None, None
     for what, arch, fields in DRYRUN_STEPS:
         cfg = get_config(arch)
@@ -4533,6 +4482,165 @@ def dryrun_phase(K, root, get_config, list_archs, InputShape):
     out["wall_s"] = time.perf_counter() - t0
     log(f"dry run phase: {out['wall_s']:.1f} s")
     return total, out
+
+
+# --- phase 19: the partitioned steps on four ranks of this card ----------------
+
+PART_PLAN = dict(arch="granite_moe_3b_a800m", batch=4, seq=512, decode=8)
+PART_MESH = ((2, 2), ("data", "model"))
+PART_TIMEOUT_S = 420
+PART_GRAM_REL = 1e-4        # the Gram's largest |Δ| over its largest entry
+PART_LOGIT_REL = 1e-3       # a logit's |Δ| over its row's largest |logit|
+# a token the ranks send to another expert than the one-rank router's own
+# top-k must be a near-tie there: its k-th and (k+1)-th probabilities
+# (about 1/40 each) at most this far apart
+PART_TIE = 1e-4
+
+
+def partitioned_phase(K):
+    """Phase 19: four ranks on this card as a (2, 2) mesh run full-width
+    granite's partitioned analytic step, prefill and greedy decode steps
+    (``launch.partitioned.run_steps``); rank 0's steps are walked on a fake
+    process group of the same mesh meanwhile; then this process runs the
+    steps on one rank, each MoE call routed by the ranks' expert choices.
+    Fails unless the ranks equal the one-rank steps (the Gram to
+    ``PART_GRAM_REL``, the count exact, logits to ``PART_LOGIT_REL`` of a
+    row's largest, the tokens and every MoE call's slots equal), every
+    choice the one-rank router would make otherwise is a near-tie (top-k
+    margin at most ``PART_TIE``), each rank's collectives equal the walk's
+    op for op, and every rank launched the flash and Gram kernels."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core.distributed import collective_backend, run_isolated, run_ranks
+    from repro_torch.launch import partitioned as PT
+
+    plan = PT.Plan(**PART_PLAN)
+    shape, axes = PART_MESH
+    world = math.prod(shape)
+    backend = collective_backend(world, "cuda")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        walk = pool.submit(run_isolated, PT.predict, [plan], shape, axes, "cuda",
+                           timeout=PART_TIMEOUT_S)
+        ranks = run_ranks(PT.rank_main, shape, axes, device="cuda", backend=backend,
+                          args=(plan, "cuda", None, None, True), timeout=PART_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        pred = walk.result()[0]
+    walk_s = time.perf_counter() - t0
+    cfg = plan.config()
+    k = cfg.moe.top_k
+    # the ranks' routing, joined: every step's MoE calls' slots and choices
+    joined = {name: [(PT.assemble([rec["steps"][name]["routing"][i][0] for rec in ranks], shape),
+                      PT.assemble([rec["steps"][name]["routing"][i][1] for rec in ranks], shape))
+                     for i in range(len(ranks[0]["steps"][name]["routing"]))]
+              for name in ranks[0]["steps"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero(K)
+    t1 = time.perf_counter()
+    # one rank, routed by the ranks' expert choices (teacher forcing)
+    one = PT.one_rank_steps(plan, device="cuda",
+                            choices={n: [c for _, c in calls] for n, calls in joined.items()})
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    launches = _read(K)
+    launches["flash_attention_cuda"] = K.FA.flash_attention.cuda_launches
+
+    # the same results; every difference is gathered before the phase fails
+    problems = []
+    ties, tie_max, calls = 0, 0.0, 0
+    for name, ranks_calls in joined.items():
+        mine = one["routing"][name]
+        if len(mine) != len(ranks_calls) or len(mine) != cfg.num_layers:
+            problems.append(f"{name}: {len(ranks_calls)} MoE calls on the ranks, "
+                            f"{len(mine)} on one rank, want {cfg.num_layers}")
+            continue
+        for i, ((r_slot, r_top), (slot, _top, probs, own)) in enumerate(zip(ranks_calls, mine)):
+            calls += 1
+            if not torch.equal(r_slot, slot):
+                problems.append(f"{name} MoE call {i}: slots differ under the same choices")
+            flipped = (r_top.sort(-1).values != own.sort(-1).values).any(-1)
+            if flipped.any():
+                top = probs[flipped].sort(-1, descending=True).values
+                margins = top[:, k - 1] - top[:, k]
+                ties += int(flipped.sum())
+                tie_max = max(tie_max, float(margins.max()))
+    if tie_max > PART_TIE:
+        problems.append(f"{ties} token(s) routed to other experts than one rank's own top-{k}, "
+                        f"the widest at a margin of {tie_max:.3e} (> {PART_TIE:g})")
+    log(f"partitioned: routing over {calls} MoE calls: slots equal under the ranks' choices; "
+        f"{ties} (token, layer) choice(s) the one-rank router breaks the other way, each a "
+        f"near-tie (top-{k} margin at most {tie_max:.3e})")
+    g1 = one["state"]["gram"].double()
+    rows = []
+    for r, rec in enumerate(ranks):
+        st = rec["state"]
+        gram_rel = float((st["gram"].double() - g1).abs().max() / g1.abs().max())
+        logit_rel = [float(((a.double() - b.double()).abs().amax(-1)
+                            / b.double().abs().amax(-1)).max())
+                     for a, b in zip(rec["logits"], one["logits"])]
+        tokens_equal = all(bool(torch.equal(a, b)) for a, b in zip(rec["tokens"],
+                                                                   one["tokens"]))
+        rows.append(dict(rank=r, gram_rel=gram_rel, count=float(st["count"]),
+                         logit_rel=max(logit_rel), logit_rel_by_step=logit_rel,
+                         tokens_equal=tokens_equal, peak_bytes=rec["peak_bytes"],
+                         flash_launches=sum(v["flash_launches"] for v in rec["steps"].values()),
+                         gram_launches=sum(v["gram_launches"] for v in rec["steps"].values()),
+                         step_s={n: v["seconds"] for n, v in rec["steps"].items()}))
+        if gram_rel > PART_GRAM_REL:
+            problems.append(f"rank {r}'s Gram off by {gram_rel:.3e} of its largest entry")
+        if not float(st["count"]) == float(one["state"]["count"]) == plan.batch:
+            problems.append(f"rank {r}'s count {float(st['count'])}")
+        if max(logit_rel) > PART_LOGIT_REL:
+            problems.append(f"rank {r}'s logits off by "
+                            + ", ".join(f"{e:.3e}" for e in logit_rel)
+                            + " of a row's largest (prefill, then each decode step)")
+        if not tokens_equal:
+            problems.append(f"rank {r}'s greedy tokens differ from one rank's")
+        if not (rows[-1]["flash_launches"] and rows[-1]["gram_launches"]):
+            problems.append(f"rank {r} launched flash {rows[-1]['flash_launches']}, "
+                            f"Gram {rows[-1]['gram_launches']} times")
+        for name, step in rec["steps"].items():
+            got = [tuple(x) for x in step["collectives"]]
+            want = [tuple(x) for x in pred["steps"][name]["collectives"]]
+            if got != want:
+                first = next(i for i in range(max(len(got), len(want)))
+                             if got[i:i + 1] != want[i:i + 1])
+                problems.append(f"rank {r}'s {name} issued {len(got)} collectives, the walk "
+                                f"predicts {len(want)}; at {first}: {got[first:first + 1]} "
+                                f"against {want[first:first + 1]}")
+            if step["comm_debug"] != len(got):
+                problems.append(f"rank {r}'s {name}: CommDebugMode counts "
+                                f"{step['comm_debug']} collectives, the walk's counter "
+                                f"{len(got)}")
+    for row in rows:
+        log(f"partitioned: rank {row['rank']}: Gram {row['gram_rel']:.3e}, logits "
+            + ", ".join(f"{e:.3e}" for e in row["logit_rel_by_step"])
+            + f"; flash {row['flash_launches']} / Gram {row['gram_launches']} launches, "
+            f"peak {row['peak_bytes']} B, steps "
+            + ", ".join(f"{n} {v:.2f} s" for n, v in row["step_s"].items()))
+    if problems:
+        fail("partitioned: " + " | ".join(problems))
+    wall = time.perf_counter() - t0
+    coll = {name: dict(count=len(v["collectives"]),
+                       bytes={k: sum(x[3] for x in v["collectives"] if x[0] == k)
+                              for k in sorted({x[0] for x in v["collectives"]})})
+            for name, v in pred["steps"].items()}
+    log(f"partitioned: collectives a rank (walk = ranks, op for op): "
+        + "; ".join(f"{k} {v['count']} {v['bytes']}" for k, v in coll.items()))
+    log(f"partitioned phase ({backend}, {world} ranks on one card): ranks {ranks_s:.1f} s, "
+        f"walk done at {walk_s:.1f} s, one rank {one_s:.1f} s, wall {wall:.1f} s")
+    for r in rows:
+        for name in ("flash_attention", "gram_update"):
+            launches[name] += r["flash_launches" if name == "flash_attention"
+                                else "gram_launches"]
+    return launches, dict(plan=PART_PLAN, mesh=list(shape), backend=backend, ranks=rows,
+                          collectives=coll, wall_s=wall, ranks_s=ranks_s, one_rank_s=one_s,
+                          near_ties=dict(choices=ties, widest_margin=tie_max, calls=calls),
+                          walk={k: dict(flops=v["cost"]["flops"],
+                                        bytes=v["cost"]["bytes_accessed"],
+                                        peak=v["cost"]["peak_bytes"])
+                                for k, v in pred["steps"].items()})
 
 
 def _leaves(tree):
@@ -4562,7 +4670,7 @@ def main() -> None:
     PEAK_BYTES_S, PEAK_FLOPS = mesh.HBM_BW, mesh.PEAK_FLOPS
     from repro_torch.config import FLConfig, InputShape
     from repro_torch.core import engine
-    from repro_torch.configs.registry import get_config, list_archs
+    from repro_torch.configs.registry import get_config
     from repro_torch.data import synthetic as D
     from repro_torch.core import distributed, streaming
     from repro_torch import checkpoint
@@ -4637,8 +4745,10 @@ def main() -> None:
     paths.append(training_launches)
     rows["flash_attention"].append(lm_row)
     dryrun_launches, dryrun = dryrun_phase(K, Path(__file__).resolve().parent, get_config,
-                                           list_archs, InputShape)
+                                           InputShape)
     paths.append(dryrun_launches)
+    partitioned_launches, partitioned = partitioned_phase(K)
+    paths.append(partitioned_launches)
     launches = {name: sum(p[name] for p in paths) for name in K.ALL}
     if not all(launches.values()):
         fail(f"a kernel of the path was never launched: {launches}")
@@ -4675,6 +4785,7 @@ def main() -> None:
     log(json.dumps({"zoo": zoo}))
     log(json.dumps({"training": training}))
     log(json.dumps({"dryrun": dryrun}))
+    log(json.dumps({"partitioned": partitioned}))
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,15 @@ Under a policy, ``constrain`` redistributes a ``DTensor`` on a
 carries no layout to constrain. ``mesh`` is either a
 ``launch.mesh.Mesh`` (the production meshes, which name axes and sizes and
 hold no process group) or a ``torch.distributed.DeviceMesh``.
+
+Where DTensor has no sharding rule for a piece of the model (the attention
+kernel, the MoE expert FFN, the Gram fold), :func:`local_region` runs it
+on each rank's local shards, the counterpart of the reference's
+``shard_map``: its inputs are redistributed to the placements it names,
+the function sees plain local tensors, and its outputs are wrapped back
+with the placements it names. While a region runs,
+:func:`current_region` names it and its replication factor, for the cost
+walk (``launch.cost_analysis``).
 """
 
 from __future__ import annotations
@@ -21,12 +30,16 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
+import sys
 from typing import Optional, Sequence
 
 import torch
 
 _POLICY: contextvars.ContextVar[Optional[dict]] = contextvars.ContextVar(
     "activation_policy", default=None)
+_REGION: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
+    "local_region", default=None)
+_UNCOUNTED: contextvars.ContextVar[bool] = contextvars.ContextVar("uncounted", default=False)
 
 Spec = tuple  # one entry per tensor dim: a tuple of mesh axis names, or None
 
@@ -42,6 +55,10 @@ def axis_sizes(mesh) -> dict:
 @contextlib.contextmanager
 def activation_policy(mesh, batch_axes: Sequence[str], model_axes: Sequence[str], *,
                       flash_surrogate: bool = False):
+    """Install the policy for the steps run inside. On a ``DeviceMesh`` (a
+    partitioned step) plain tensors that the model makes inside (positions,
+    masks) meet ``DTensor``s as replicated ones
+    (``implicit_replication``): they are the same on every rank."""
     token = _POLICY.set({
         "mesh": mesh,
         "sizes": axis_sizes(mesh),
@@ -50,7 +67,13 @@ def activation_policy(mesh, batch_axes: Sequence[str], model_axes: Sequence[str]
         "flash_surrogate": flash_surrogate,
     })
     try:
-        yield
+        if getattr(mesh, "mesh_dim_names", None) is not None:
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            with implicit_replication():
+                yield
+        else:
+            yield
     finally:
         _POLICY.reset(token)
 
@@ -115,6 +138,16 @@ def constrain(x: torch.Tensor, dims: Sequence[Optional[str]]) -> torch.Tensor:
     return x.redistribute(x.device_mesh, to_placements(spec, x.device_mesh))
 
 
+def divides(n: int, label: str) -> bool:
+    """The active policy's axes of ``label`` divide ``n`` (False with no
+    policy, or when they are one device)."""
+    pol = _POLICY.get()
+    if pol is None:
+        return False
+    total = math.prod(pol["sizes"][a] for a in pol[label])
+    return total > 1 and n % total == 0
+
+
 def constrain_bsd(x: torch.Tensor) -> torch.Tensor:
     """(B, S, D) activations: batch over the federation axes."""
     return constrain(x, ("batch", None, None))
@@ -123,3 +156,70 @@ def constrain_bsd(x: torch.Tensor) -> torch.Tensor:
 def constrain_heads(x: torch.Tensor) -> torch.Tensor:
     """(B, H, S, hd): batch, and heads over 'model' when the count divides."""
     return constrain(x, ("batch", "model", None, None))
+
+
+# ------------------------------------------------------------ local regions
+def device_mesh_of(*xs):
+    """The ``DeviceMesh`` of the first ``DTensor`` among ``xs``, else None.
+    No ``DTensor`` exists before its module is imported: a plain run never
+    imports it here."""
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is None:
+        return None
+    for x in xs:
+        if isinstance(x, dtensor.DTensor):
+            return x.device_mesh
+    return None
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Set-up work that is no part of a step (the shapes of an empty cache
+    on the meta device): the cost walk does not count the ops run inside."""
+    token = _UNCOUNTED.set(True)
+    try:
+        yield
+    finally:
+        _UNCOUNTED.reset(token)
+
+
+def counted() -> bool:
+    return not _UNCOUNTED.get()
+
+
+def current_region() -> Optional[tuple]:
+    """(name, replication factor) of the :func:`local_region` running now,
+    else None. The factor is the number of ranks that compute each shard:
+    the product of the mesh dims on which every input is replicated."""
+    return _REGION.get()
+
+
+def local_region(fn, device_mesh, in_placements: Sequence, out_placements, *,
+                 name: Optional[str] = None):
+    """``fn`` run on each rank's local shards of its ``DTensor`` arguments
+    (``torch.distributed.tensor.experimental.local_map``): each tensor
+    argument is redistributed to its entry of ``in_placements`` (a list of
+    placements, one per flattened argument; None for a non-tensor), ``fn``
+    gets the local tensors, and its outputs become ``DTensor``s with
+    ``out_placements`` (one list, or a tuple of lists for several). Every
+    collective inside ``fn`` is the caller's: the region adds none but the
+    redistribution of its inputs."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    repl = math.prod(
+        size for i, size in enumerate(device_mesh.shape)
+        if all(p is None or isinstance(p[i], Replicate) for p in in_placements))
+    label = (name or getattr(fn, "__name__", "region"), repl)
+
+    def inner(*args):
+        token = _REGION.set(label)
+        try:
+            return fn(*args)
+        finally:
+            _REGION.reset(token)
+
+    return local_map(inner, out_placements=out_placements,
+                     in_placements=tuple(None if p is None else tuple(p)
+                                         for p in in_placements),
+                     device_mesh=device_mesh, redistribute_inputs=True)

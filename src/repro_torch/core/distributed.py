@@ -20,8 +20,25 @@ thread a shard, each under its own device, with ``gather`` and ``psum``
 meeting on a barrier. Shards may share a device, so eight shards run on one
 card and really exchange their panels. All shards on one card enqueue on
 its current stream: the order in which work is enqueued is the order of the
-data, and a collective needs no event. Process groups across cards and
-hosts (``torch.distributed``) are not this module's.
+data, and a collective needs no event. ``ShardGroup`` stays in one process;
+over process groups it waits for a machine with more than one card.
+
+**Real ranks.** :func:`run_ranks` runs a function in one process per rank
+of a ``torch.distributed`` ``DeviceMesh`` (the partitioned model steps of
+``launch.partitioned``). The ranks meet through a ``FileStore`` in a
+temporary directory, so no port is taken and concurrent runs never
+collide. The collective path is fixed when the mesh is built, for all its
+collectives (:func:`collective_backend`): NCCL where each rank has a card
+of its own; gloo on the CPU; and, where ranks share a card, the card's
+memory itself (:func:`share_collectives`): each rank's buffer is mapped
+into the others by CUDA IPC, and a collective is a copy into the rank's
+buffer, a gloo barrier, and the result read from every member's buffer on
+the card. NCCL refuses two ranks on one GPU, and gloo's CUDA
+path is no answer: on an H100 with torch 2.11 its all_gather_into_tensor
+of CUDA tensors kills the rank (SIGSEGV), and its other collectives, or
+all of them staged through the host, move about 0.2 GB/s a rank
+(``tools/gloo_cuda_probe.py``), where a partitioned granite step
+all-gathers 6 GB a rank.
 
 **The tiled Gram.** :func:`make_tiled_federated_solve` takes one ``(r, d)``
 row tile of the global Gram a shard. With ``distributed_factor=True`` the
@@ -58,6 +75,10 @@ __all__ = [
     "federated_solve_no_ri",
     "make_federated_solve",
     "make_tiled_federated_solve",
+    "run_ranks",
+    "run_isolated",
+    "collective_backend",
+    "share_collectives",
 ]
 
 
@@ -434,3 +455,348 @@ def make_tiled_federated_solve(mesh: Sequence[DeviceLike], *,
 
     return solve
 
+
+
+# ------------------------------------------------------------------ real ranks
+SHARED = "shared"
+
+
+def collective_backend(world: int, device: DeviceLike) -> str:
+    """The collective path of a mesh of ``world`` ranks on ``device``'s type:
+    ``nccl`` when every rank has a card of its own, :data:`SHARED` (the
+    card's memory, shared) when ranks share a card, ``gloo`` on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return "nccl" if world <= torch.cuda.device_count() else SHARED
+    return "gloo"
+
+
+# the functional collectives a partitioned step issues (DTensor's and the
+# model's), and DTensor's shard-to-shard all-to-all
+_SHARED_OPS = ("all_reduce", "all_reduce_", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_to_all_single", "broadcast",
+               "shard_dim_alltoall")
+_SHARED_LIBS: list = []
+
+
+class _SharedGroup:
+    """One process group's buffers for ranks on one device: each member's
+    two buffers are mapped into every member (CUDA IPC on a card, shared
+    memory on the CPU), grown by all members together (every member runs
+    the same collectives at the same sizes). Exchanges alternate between
+    the two, so that one barrier an exchange keeps a member from writing
+    a buffer that another still reads: writing buffer b for exchange n + 2
+    follows exchange n + 1's barrier, which every member passes only once
+    its reads of exchange n (buffer b) are done."""
+
+    groups: dict = {}
+
+    def __init__(self, pg):
+        import torch.distributed as dist
+
+        self.pg = pg
+        self.rank = dist.get_rank(pg)
+        self.size = dist.get_world_size(pg)
+        self.nbytes = 0
+        self.turn = 0
+        self.mine: list = []
+        self.peers: list = []       # [member][buffer]
+
+    @classmethod
+    def of(cls, group_name) -> "_SharedGroup":
+        from torch.distributed.distributed_c10d import _resolve_process_group
+
+        key = str(group_name)
+        if key not in cls.groups:
+            cls.groups[key] = cls(_resolve_process_group(key))
+        return cls.groups[key]
+
+    def _grow(self, nbytes: int, device) -> None:
+        import pickle
+        from multiprocessing.reduction import ForkingPickler
+
+        import torch.distributed as dist
+        import torch.multiprocessing  # noqa: F401 (registers the tensors' sharing)
+
+        self._sync(device)               # every member is done with the old ones
+        size = max(nbytes, 2 * self.nbytes, 1 << 20)
+        self.peers = []
+        self.mine = [torch.empty(size, dtype=torch.uint8, device=device) for _ in range(2)]
+        if device.type == "cpu":
+            for t in self.mine:
+                t.share_memory_()
+        # the buffers' handles, not their bytes: CUDA IPC handles, or file names
+        handles: list = [None] * self.size
+        dist.all_gather_object(handles, [bytes(ForkingPickler.dumps(t)) for t in self.mine],
+                               group=self.pg)
+        self.peers = [self.mine if i == self.rank else [pickle.loads(b) for b in h]
+                      for i, h in enumerate(handles)]
+        self.nbytes = size
+
+    def _sync(self, device) -> None:
+        import torch.distributed as dist
+
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        dist.barrier(group=self.pg)
+
+    def exchange(self, x: torch.Tensor, fn):
+        """``fn([each member's x, in group rank order])``, the members' x
+        read in place from their buffers; its result must not alias them."""
+        nb = x.numel() * x.element_size()
+        if nb > self.nbytes:
+            self._grow(nb, x.device)
+        b, self.turn = self.turn, 1 - self.turn
+        self.mine[b][:nb].copy_(x.detach().contiguous().reshape(-1).view(torch.uint8))
+        self._sync(x.device)             # every member's x is in its buffer b
+        return fn([p[b][:nb].view(x.dtype).view(x.shape) for p in self.peers])
+
+
+def _reduce(parts, op: str):
+    """The members' tensors reduced in group rank order (the same bits on
+    every member)."""
+    out = parts[0].clone()
+    for p in parts[1:]:
+        if op in ("sum", "avg"):
+            out.add_(p)
+        elif op == "max":
+            torch.maximum(out, p, out=out)
+        elif op == "min":
+            torch.minimum(out, p, out=out)
+        else:
+            raise ValueError(f"reduce op {op!r} has no shared-buffer path")
+    return out.div_(len(parts)) if op == "avg" else out
+
+
+def _shared_impls() -> dict:
+    def all_reduce(input, op, group_name):
+        return _SharedGroup.of(group_name).exchange(input, lambda ps: _reduce(ps, op.lower()))
+
+    def all_reduce_(input, op, group_name):
+        return input.copy_(all_reduce(input, op, group_name))
+
+    def all_gather_into_tensor(input, group_size, group_name):
+        return _SharedGroup.of(group_name).exchange(input, lambda ps: torch.cat(ps))
+
+    def reduce_scatter_tensor(input, op, group_size, group_name):
+        g = _SharedGroup.of(group_name)
+        return g.exchange(input, lambda ps: _reduce(
+            [p.chunk(g.size)[g.rank] for p in ps], op.lower()))
+
+    def all_to_all_single(input, output_split_sizes, input_split_sizes, group_name):
+        g = _SharedGroup.of(group_name)
+        if len(set(input_split_sizes or [0])) > 1 or len(set(output_split_sizes or [0])) > 1:
+            raise ValueError("uneven all-to-all has no shared-buffer path")
+        return g.exchange(input, lambda ps: torch.cat([p.chunk(g.size)[g.rank] for p in ps]))
+
+    def broadcast(input, src, group_name):
+        import torch.distributed as dist
+
+        g = _SharedGroup.of(group_name)
+        root = dist.get_group_rank(g.pg, src)
+        return g.exchange(input, lambda ps: ps[root].clone())
+
+    def shard_dim_alltoall(input, gather_dim, shard_dim, group_name):
+        g = _SharedGroup.of(group_name)
+        return g.exchange(input, lambda ps: torch.cat(ps, gather_dim).chunk(
+            g.size, shard_dim)[g.rank].contiguous())
+
+    return dict(locals())
+
+
+def share_collectives(device_type: str) -> None:
+    """Route every functional collective on ``device_type`` in this process
+    through buffers the ranks share (:class:`_SharedGroup`), for ranks on
+    one device (:data:`SHARED`): the kernel of each op of ``_SHARED_OPS``
+    for that device becomes a copy into this rank's buffer, a barrier, and
+    the op computed from every member's buffer in place. Made once, before
+    a mesh is built. On the CPU (buffers in shared memory) it
+    is the path's test; gloo carries only the barriers and the buffers'
+    handles."""
+    if _SHARED_LIBS:
+        return
+    if device_type == "cpu":
+        # a CPU buffer's handle is a file name, which pickles through gloo
+        torch.multiprocessing.set_sharing_strategy("file_system")
+    impls = _shared_impls()
+    for name in _SHARED_OPS:
+        ns = "_dtensor" if name == "shard_dim_alltoall" else "_c10d_functional"
+        if getattr(getattr(torch.ops, ns), name, None) is None:
+            continue
+        lib = torch.library.Library(ns, "IMPL")
+        lib.impl(name, impls[name], device_type.upper())
+        _SHARED_LIBS.append(lib)
+
+
+def _rank_main(rank: int, world: int, store_path: str, out_dir: str, fn: Callable,
+               mesh_shape: tuple, axis_names: tuple, device: str, backend: str,
+               args: tuple) -> None:
+    import faulthandler
+    import os
+    import traceback
+
+    import torch.distributed as dist
+
+    faulthandler.enable()  # a rank that dies by a signal leaves its stack on stderr
+    result_path = os.path.join(out_dir, f"rank{rank}.pt")
+
+    def failed():
+        # written before the group goes down: the ranks that then lose their
+        # peers write theirs later, and the parent raises the first
+        if not os.path.exists(result_path):
+            torch.save({"ok": False, "error": traceback.format_exc()}, result_path)
+
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        else:  # ranks that share the host's cores take one each
+            torch.set_num_threads(1)
+        if backend == SHARED:
+            share_collectives(dev.type)
+        dist.init_process_group("gloo" if backend == SHARED else backend,
+                                store=dist.FileStore(store_path, world),
+                                rank=rank, world_size=world)
+        try:
+            from repro_torch.launch.mesh import make_device_mesh
+
+            device_mesh = make_device_mesh(mesh_shape, axis_names, device=dev.type)
+            out = fn(rank, device_mesh, *args)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            dist.barrier()
+        except BaseException:
+            failed()
+            raise
+        finally:
+            dist.destroy_process_group()
+        torch.save({"ok": True, "result": out}, result_path)
+    except BaseException:  # the parent raises it with this rank's name
+        failed()
+        raise SystemExit(1)
+
+
+def run_ranks(fn: Callable, mesh_shape: Sequence[int], axis_names: Sequence[str], *,
+              device: DeviceLike = None, backend: Optional[str] = None,
+              args: tuple = (), timeout: float = 600.0) -> list:
+    """``fn(rank, device_mesh, *args)`` in one spawned process per rank of a
+    ``DeviceMesh`` of ``mesh_shape`` named ``axis_names`` → the ranks'
+    results, by rank (each moved to the CPU by ``torch.save``; tensors in
+    it must be plain). ``fn`` must be importable by name (a module-level
+    function). Ranks on CUDA (the default device) take card
+    ``rank % device_count``; ``backend`` defaults to
+    :func:`collective_backend`'s. The ranks are joined within ``timeout``
+    seconds: a rank that fails raises here with its traceback (every other
+    rank killed), and ranks that overrun (a hung rank and those that wait
+    for it) are killed and raise ``TimeoutError``."""
+    import math
+    import multiprocessing
+    import multiprocessing.connection
+    import os
+    import tempfile
+    import time
+
+    dev = resolve_device(device)
+    world = math.prod(mesh_shape)
+    backend = backend or collective_backend(world, dev)
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="afl-ranks-") as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_rank_main, daemon=True,
+                             args=(r, world, store, tmp, fn, tuple(mesh_shape),
+                                   tuple(axis_names), str(dev), backend, tuple(args)))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        try:
+            pending = dict(enumerate(procs))
+            while pending:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    # a hung rank holds the others at a collective
+                    raise TimeoutError(f"ranks {sorted(pending)} of {world} overran "
+                                       f"{timeout} s")
+                multiprocessing.connection.wait([p.sentinel for p in pending.values()],
+                                                timeout=left)
+                for r, p in list(pending.items()):
+                    if p.exitcode is None:
+                        continue
+                    del pending[r]
+                    if p.exitcode != 0:
+                        _raise_first_failure(tmp, procs, world)
+            return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                               weights_only=False)["result"] for r in range(world)]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+            for p in procs:
+                p.join()
+
+
+def _isolated_main(out_path: str, fn: Callable, args: tuple) -> None:
+    import traceback
+
+    try:
+        torch.save({"ok": True, "result": fn(*args)}, out_path)
+    except BaseException:
+        torch.save({"ok": False, "error": traceback.format_exc()}, out_path)
+        raise SystemExit(1)
+
+
+def run_isolated(fn: Callable, *args, timeout: float = 600.0) -> Any:
+    """``fn(*args)`` in a spawned process of its own → its result (through
+    ``torch.save``): for work that leaves state in its process, such as the
+    fake process group of ``launch.mesh.fake_device_mesh``. Raises with the
+    process's traceback if it fails, ``TimeoutError`` (the process
+    killed) if it overruns ``timeout`` seconds."""
+    import multiprocessing
+    import os
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="afl-isolated-") as tmp:
+        path = os.path.join(tmp, "out.pt")
+        p = ctx.Process(target=_isolated_main, args=(path, fn, args), daemon=True)
+        p.start()
+        p.join(timeout)
+        if p.is_alive():
+            p.kill()
+            p.join()
+            raise TimeoutError(f"{getattr(fn, '__name__', fn)} overran {timeout} s")
+        rec = torch.load(path, weights_only=False) if os.path.exists(path) else None
+        if p.exitcode != 0 or rec is None or not rec["ok"]:
+            raise RuntimeError(f"{getattr(fn, '__name__', fn)} failed:\n"
+                               + (rec["error"] if rec else f"exit code {p.exitcode}"))
+        return rec["result"]
+
+
+def _raise_first_failure(tmp: str, procs: list, world: int) -> None:
+    """Raise the failure of the rank that failed first: a rank's failure
+    makes the ranks it shares a collective with fail too, a moment later."""
+    import os
+    import time
+
+    time.sleep(1.0)
+    failed = []
+    for r, p in enumerate(procs):
+        if p.exitcode not in (None, 0):
+            path = os.path.join(tmp, f"rank{r}.pt")
+            failed.append((os.path.getmtime(path) if os.path.exists(path) else float("inf"),
+                           r, p.exitcode))
+    _, r, code = min(failed)
+    err = _rank_error(tmp, r) or f"exit code {code}"
+    others = sorted(x[1] for x in failed if x[1] != r)
+    raise RuntimeError(f"rank {r} of {world} failed:\n{err}"
+                       + (f"\n(then ranks {others})" if others else ""))
+
+
+def _rank_error(tmp: str, rank: int) -> Optional[str]:
+    import os
+
+    path = os.path.join(tmp, f"rank{rank}.pt")
+    if not os.path.exists(path):
+        return None
+    rec = torch.load(path, weights_only=False)
+    return None if rec["ok"] else rec["error"]

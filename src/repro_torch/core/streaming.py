@@ -19,6 +19,14 @@ device. The Gram update is the AFL compute hot spot beyond the backbone:
 through the hand-written Gram kernel (``kernels.ops.gram_update``), and on
 a CPU tensor through its plain version. ``solve`` never takes the kernels,
 as the reference's does not: it is ``torch.linalg`` on the state's device.
+
+On a partitioned step the embeddings are a ``DTensor`` whose rows are
+split over the federation axes ('pod', 'data'): each rank folds its own
+rows (the Gram kernel on the card with ``use_kernel``) in one
+``act.local_region``, and ONE all-reduce over the federation axes of the
+packed (XᵀX, XᵀY, count) adds the ranks' statistics: the AA law as the
+round's single collective. The state stays replicated
+(``launch.sharding.state_specs``).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import NamedTuple, Union
 
 import torch
 
+from repro_torch.core import act
 from repro_torch.core.engine import AnalyticEngine, SuffStats
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -105,8 +114,53 @@ def update_state(
     targets: (N, C) one-hot (or soft) labels.
     Both are moved to the state's device and dtype.
     """
+    if act.device_mesh_of(embeddings, targets) is not None:
+        return _sharded_update(state, embeddings, targets, use_kernel)
     eng = _state_engine(state, use_kernel)
     return from_stats(eng.update(to_stats(state, 0.0), embeddings, targets))
+
+
+def _sharded_update(state: AnalyticState, embeddings, targets,
+                    use_kernel: bool) -> AnalyticState:
+    """:func:`update_state` of ``DTensor`` embeddings and targets into a
+    replicated state (plain tensors or replicated ``DTensor``s): one
+    ``act.local_region`` in which each rank folds its rows of the batch
+    (split over the federation axes, replicated over 'model') and the
+    packed ``[XᵀX, XᵀY, n]`` of ``d² + d·C + 1`` values takes one
+    all-reduce over the federation axes."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = act.device_mesh_of(embeddings, targets)
+    names = list(mesh.mesh_dim_names)
+    fed = tuple(a for a in ("pod", "data") if a in names)
+    rows = act.to_placements((fed, None), mesh)
+    local_state = tuple(t.to_local() if isinstance(t, DTensor) else t for t in state)
+    d, c = local_state[1].shape
+    eng = _state_engine(AnalyticState(*local_state), use_kernel)
+
+    def fold(x, y):
+        g, q, n = eng.backend.gram_update(x, y)
+        packed = torch.cat([g.reshape(-1), q.reshape(-1),
+                            n.reshape(1).to(g.dtype)])
+        if fed:
+            group = (mesh, names.index(fed[0])) if len(fed) == 1 else mesh[fed]._flatten()
+            packed = funcol.all_reduce(packed, "sum", group)
+            if isinstance(packed, funcol.AsyncCollectiveTensor):
+                packed = packed.wait()
+        return packed
+
+    repl = [Replicate()] * len(names)
+    total = act.local_region(fold, mesh, [rows, rows], repl, name="gram_fold")(
+        embeddings, targets).to_local()
+    new = AnalyticState(
+        gram=local_state[0] + total[: d * d].reshape(d, d),
+        moment=local_state[1] + total[d * d: d * d + d * c].reshape(d, c),
+        count=local_state[2] + total[-1].to(local_state[2].dtype))
+    if isinstance(state.gram, DTensor):
+        new = AnalyticState(*(DTensor.from_local(t, mesh, repl, run_check=False)
+                              for t in new))
+    return new
 
 
 def merge_states(a: AnalyticState, b: AnalyticState) -> AnalyticState:

@@ -16,6 +16,7 @@ import dataclasses
 import hashlib
 import os
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -30,6 +31,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-split-compile=0", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # a solve-side kernel's entry point for each scalar type: afl_<kernel>_<suffix>
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def reject_dtensor(kernel: str, *tensors) -> None:
+    """Raise ``TypeError`` when a ``DTensor`` reaches a kernel's wrapper: a
+    kernel reads one device's memory, and a ``DTensor`` is a shard of a
+    tensor spread over ranks. The model's ``local_map`` regions
+    (``core.act.local_region``) hand the wrappers each rank's local
+    tensor."""
+    dtensor = sys.modules.get("torch.distributed.tensor")  # none exists before
+    if dtensor is not None and any(isinstance(t, dtensor.DTensor) for t in tensors):
+        raise TypeError(f"{kernel} takes plain tensors, got a DTensor: run it on each "
+                        "rank's local shard (core.act.local_region)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -116,6 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     graph. ``models.layers.sdpa`` takes ``FlashSDPA`` there, which calls
     this on detached inputs.
     """
+    _build.reject_dtensor("flash_attention", q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention kernel has no backward and an input requires grad: "

@@ -86,6 +86,7 @@ def gram_update(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.T
     current stream (two kernels where :func:`split_rows` splits N);
     ``gram_update.launches`` counts the calls.
     """
+    _build.reject_dtensor("gram_update", x, y)
     if not (x.is_cuda and y.is_cuda) or x.device != y.device:
         raise ValueError(
             f"gram kernel needs both inputs on one CUDA device, got "

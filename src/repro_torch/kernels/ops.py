@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels.build import reject_dtensor
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import ref
 from repro_torch.kernels.solve import (  # noqa: F401  (re-exported)
@@ -21,7 +22,9 @@ from repro_torch.kernels.solve import (  # noqa: F401  (re-exported)
 
 
 def gram_update(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused (XᵀX, XᵀY) in f32: the CUDA kernel on the card, else plain."""
+    """Fused (XᵀX, XᵀY) in f32: the CUDA kernel on the card, else plain.
+    A ``DTensor`` raises ``TypeError``."""
+    reject_dtensor("gram_update", x, y)
     if x.is_cuda:
         return _gram.gram_update(x, y)
     return ref.gram_ref(x, y)
@@ -55,7 +58,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None, q_offset: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """Causal / GQA / sliding-window attention, its logits optionally
-    softcapped: the CUDA kernel on the card, else the plain ``ref.mha_ref``."""
+    softcapped: the CUDA kernel on the card, else the plain ``ref.mha_ref``.
+    A ``DTensor`` raises ``TypeError``."""
+    reject_dtensor("flash_attention", q, k, v)
     kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset, softcap=softcap)
     if q.is_cuda:
         return _fa.flash_attention(q, k, v, **kw)

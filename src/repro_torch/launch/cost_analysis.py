@@ -2,12 +2,12 @@
 
 The port of ``repro.launch.hlo_analysis``. PyTorch has no HLO text to
 re-walk, so the step itself is run once on the meta device (shapes and
-dtypes, no storage, no arithmetic) under ``FlopCounterMode`` and a
-dispatch mode that sees every aten op:
+dtypes, no storage, no arithmetic) under a dispatch mode that sees every
+aten op:
 
   flops             the matmul family (``mm``, ``bmm``, ``addmm``,
-                    ``baddbmm``, convolutions) as ``FlopCounterMode``
-                    counts it: 2 · out_elems · contracted_elems, the
+                    ``baddbmm``, convolutions) by the formulas of
+                    ``torch.utils.flop_counter``: 2 · out_elems · contracted_elems, the
                     reference's ``dot`` / ``convolution`` count;
                     elementwise flops are ignored, standard for MFU.
   bytes             Σ (operand + result) bytes of every aten op that moves
@@ -25,8 +25,26 @@ dispatch mode that sees every aten op:
   peak_aval_bytes   the largest single intermediate (the reference's
                     ``peak_aval_bytes``).
 
-Every count is for one device holding the whole step (the port's mesh of
-one H100); a mesh's per-device share is the dry run's.
+  collectives       every ``_c10d_functional`` op the step issues (a
+                    partitioned step's DTensor redistributions and the
+                    model's explicit all-reduces), by the reference's kinds
+                    (``all-reduce``, ``all-gather``, ``reduce-scatter``,
+                    ``all-to-all``, ``collective-permute``), with the bytes
+                    each device moves as the reference's HLO walk counts
+                    them: the result for an all-gather, all-reduce or
+                    permute, the operand for a reduce-scatter or
+                    all-to-all, each element at most ``width_cap`` bytes
+                    (2 for a bf16 model: the reference's cap).
+
+A plain step's counts are those of one device holding the whole step. On
+``DTensor``s (a partitioned step, on real ranks or on the fake process
+group of ``launch.mesh.fake_device_mesh``) the walk steps aside at each
+``DTensor`` op, as ``CommDebugMode`` does, and counts the local ops and
+collectives that DTensor issues for this rank: every count is this
+rank's. ``Cost.replicated`` names the flops that ranks repeat: for each
+``DTensor`` op, its local flops times the chips less the op's flops on the
+global shapes, and for each ``core.act.local_region``, its local flops
+times the chips times (1 − 1/r), r the ranks that share its inputs.
 
 The port's eager loops run every trip where the reference multiplies a
 scan body by its trip count. Where a step's cost is affine in its sequence
@@ -39,14 +57,17 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 import weakref
 from fractions import Fraction
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
+
+from repro_torch.core import act
 
 aten = torch.ops.aten
 
@@ -61,6 +82,24 @@ _SCATTER = {aten.index_put_.default, aten.index_put.default, aten.scatter_.src,
             aten.index_add_.default, aten.index_add.default}
 
 
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_c10d = torch.ops._c10d_functional
+# functional collective → (the reference's kind, counts its result (else operand))
+_COLLECTIVE = {
+    _c10d.all_reduce.default: ("all-reduce", True),
+    _c10d.all_reduce_.default: ("all-reduce", True),
+    _c10d.all_gather_into_tensor.default: ("all-gather", True),
+    _c10d.reduce_scatter_tensor.default: ("reduce-scatter", False),
+    _c10d.all_to_all_single.default: ("all-to-all", False),
+    _c10d.broadcast.default: ("collective-permute", True),
+}
+if hasattr(torch.ops._dtensor, "shard_dim_alltoall"):
+    # DTensor's shard-to-shard move on a non-CPU mesh (one all-to-all)
+    _COLLECTIVE[torch.ops._dtensor.shard_dim_alltoall.default] = ("all-to-all", False)
+_NO_BYTES = {_c10d.wait_tensor.default}
+
+
 @dataclasses.dataclass
 class Cost:
     flops: int = 0
@@ -70,6 +109,17 @@ class Cost:
     peak_aval_bytes: int = 0
     peak_aval_shape: str = ""
     ops: int = 0
+    collective_bytes: dict = dataclasses.field(
+        default_factory=lambda: {c: 0 for c in COLLECTIVES})
+    collective_count: int = 0
+    # (kind, process group name, elements, bytes, the core.act.local_region
+    # it was issued in or "") of each collective, in order
+    collective_log: list = dataclasses.field(default_factory=list)
+    replicated: dict = dataclasses.field(default_factory=dict)  # name → flops
+
+    @property
+    def collective_total(self) -> int:
+        return sum(self.collective_bytes.values())
 
     @property
     def temp_bytes(self) -> int:
@@ -94,16 +144,67 @@ def _nbytes(t: torch.Tensor) -> int:
     return min(t.numel() * t.element_size(), t.untyped_storage().nbytes())
 
 
-class _Walk(TorchDispatchMode):
-    """Bytes moved and storages live over the ops on ``device``."""
+def _flops(func, args, kwargs, out) -> int:
+    count = flop_registry.get(func._overloadpacket)
+    return 0 if count is None else int(count(*args, **kwargs, out_val=out))
 
-    def __init__(self, device: torch.device, static: set):
+
+def _propagating() -> bool:
+    """DTensor is working out an op's output on fake tensors (its sharding
+    propagation): no op of the step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    return any(isinstance(m, FakeTensorMode) for m in _get_current_dispatch_mode_stack())
+
+
+def _is_dtensor(types) -> bool:
+    """One of ``types`` is ``DTensor`` (none exists before its module is
+    imported)."""
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    return dtensor is not None and any(issubclass(t, dtensor.DTensor) for t in types)
+
+
+class _Walk(TorchDispatchMode):
+    """Flops, bytes moved, storages live and collectives over the ops on
+    ``device``; ``chips`` ranks for the replicated flops."""
+
+    def __init__(self, device: torch.device, static: set, width_cap: int = 0,
+                 chips: int = 1):
         super().__init__()
         self.device = device
         self.static = static            # argument storages: held by the caller
         self.live: dict = {}            # storage id → nbytes
         self.live_bytes = 0
         self.cost = Cost()
+        self.width_cap = width_cap
+        self.chips = chips
+        self.op = None                  # the DTensor op whose local ops run now
+        self.local: dict = {}           # name → (local flops, replication)
+        self.glob: dict = {}            # DTensor op name → global flops
+
+    def _collective(self, func, args, out) -> None:
+        kind, of_result = _COLLECTIVE[func]
+        t = out if of_result else args[0]
+        width = t.element_size()
+        if self.width_cap and width > self.width_cap:
+            width = self.width_cap
+        c = self.cost
+        c.collective_bytes[kind] += t.numel() * width
+        c.collective_count += 1
+        region = act.current_region()
+        c.collective_log.append((kind, str(args[-1]), t.numel(), t.numel() * width,
+                                 region[0] if region else ""))
+
+    def replicated(self) -> dict:
+        out = {}
+        for name, (f, r) in self.local.items():
+            if name in self.glob:
+                extra = self.chips * f - self.glob[name]
+            else:
+                extra = int(self.chips * f * (1 - Fraction(1, r)))
+            if extra > 0:
+                out[name] = extra
+        return out
 
     def _ours(self, t) -> bool:
         return isinstance(t, torch.Tensor) and _on(t, self.device)
@@ -113,10 +214,31 @@ class _Walk(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if not act.counted() or _propagating():
+            return func(*args, **kwargs)
+        if _is_dtensor(types):
+            # let DTensor run and count the local ops it issues; note the
+            # op's flops on the global shapes
+            self.op = func._overloadpacket.__name__
+            g = _flops(func, args, kwargs, None)
+            if g:
+                self.glob[self.op] = self.glob.get(self.op, 0) + g
+            return NotImplemented
         out = func(*args, **kwargs)
         c = self.cost
         c.ops += 1
-        if _is_view(func):
+        f = _flops(func, args, kwargs, out)
+        if f:
+            c.flops += f
+            region = act.current_region()
+            name, r = region if region is not None else (self.op or "local", 1)
+            if region is not None:
+                name = f"region:{name}"
+            prev = self.local.get(name, (0, r))[0]
+            self.local[name] = (prev + f, r)
+        if func in _COLLECTIVE:
+            self._collective(func, args, out)
+        if _is_view(func) or func in _NO_BYTES:
             return out
         outs = [t for t in tree_leaves(out) if self._ours(t)]
         ins = [t for t in tree_leaves((args, kwargs)) if self._ours(t)]
@@ -181,35 +303,92 @@ def _check_storage_lifetime() -> None:
                            "object to the storage: the walk cannot see frees")
 
 
-def walk(fn: Callable, *args, device="meta") -> tuple[Cost, Any]:
+def _locals(tree) -> list:
+    """The tensors of ``tree``, each ``DTensor`` as its local tensor."""
+    out = []
+    for t in tree_leaves(tree):
+        if _is_dtensor((type(t),)):
+            t = t.to_local()
+        if isinstance(t, torch.Tensor):
+            out.append(t)
+    return out
+
+
+def walk(fn: Callable, *args, device="meta", width_cap: int = 0,
+         chips: int = 1) -> tuple[Cost, Any]:
     """Run ``fn(*args)`` once, counting its ops on ``device`` → (cost,
     result). The arguments' storages are static bytes, held across the
-    step; the result's stay live at its end."""
+    step; the result's stay live at its end. ``DTensor`` arguments count
+    by their local tensors. ``width_cap`` caps a collective's element
+    width (bytes), ``chips`` is the rank count of a partitioned step."""
     _check_storage_lifetime()
     dev = torch.device(device)
-    static = {t.untyped_storage()._cdata for t in tree_leaves(args)
-              if isinstance(t, torch.Tensor) and _on(t, dev)}
-    mode = _Walk(dev, static)
-    mode.cost.static_bytes = storage_bytes(args, dev)
+    local_args = _locals(args)
+    static = {t.untyped_storage()._cdata for t in local_args if _on(t, dev)}
+    mode = _Walk(dev, static, width_cap, chips)
+    mode.cost.static_bytes = storage_bytes(local_args, dev)
     mode.cost.peak_bytes = mode.cost.static_bytes
-    with FlopCounterMode(display=False) as fc, mode:
+    with mode:
         out = fn(*args)
-    mode.cost.flops = int(fc.get_total_flops())
+    mode.cost.replicated = mode.replicated()
     return mode.cost, out
 
 
-def affine_walk(make: Callable[[int], tuple], s_full: int, s_small=(8, 16)) -> Cost:
+def count_collectives(fn: Callable, *args) -> tuple[Cost, Any]:
+    """Run ``fn(*args)`` counting only its collectives (kinds, bytes, the
+    ordered log), on any device: the real ranks' count that the fake
+    process group's walk predicts."""
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.walk = _Walk(torch.device("meta"), set())
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if _is_dtensor(types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            if func in _COLLECTIVE and not _propagating():
+                self.walk._collective(func, args, out)
+            return out
+
+    mode = Count()
+    with mode:
+        out = fn(*args)
+    return mode.walk.cost, out
+
+
+def affine_walk(make: Callable[[int], tuple], s_full: int, s_small=(8, 16),
+                s_check: Optional[int] = None, **kw) -> Cost:
     """The cost at sequence length ``s_full`` of a step whose every count is
-    affine in S: ``make(s)`` → (fn, args) at length ``s``, walked at the
-    two lengths of ``s_small`` and the line through them read at
-    ``s_full``."""
+    affine in S: ``make(s)`` → (fn, args) at length ``s``, walked (``kw``
+    as :func:`walk`'s) at the two lengths of ``s_small`` and the line
+    through them read at ``s_full``; collective bytes and replicated flops
+    by name too (their count and log are the second walk's). With
+    ``s_check`` a third walk there must fall on the line (flops, bytes,
+    collective bytes, each within 1e-3), else ``ValueError``: a
+    partitioned step's shardings can change with S."""
     s1, s2 = s_small
     fn, args = make(s1)
-    c1, _ = walk(fn, *args)
+    c1, _ = walk(fn, *args, **kw)
     fn, args = make(s2)
-    c2, _ = walk(fn, *args)
+    c2, _ = walk(fn, *args, **kw)
+
+    def line(a, b, at=s_full):
+        return int(a + Fraction(b - a, s2 - s1) * (at - s1))
+
+    if s_check is not None:
+        fn, args = make(s_check)
+        c3, _ = walk(fn, *args, **kw)
+        for f in ("flops", "bytes_accessed", "collective_total"):
+            want, got = line(getattr(c1, f), getattr(c2, f), s_check), getattr(c3, f)
+            if abs(got - want) > 1e-3 * max(abs(got), 1):
+                raise ValueError(f"the walk is not affine in S: {f} at S = {s_check} is "
+                                 f"{got}, the line through S = {s1}, {s2} gives {want}")
     out = dataclasses.replace(c2)
     for f in _AFFINE:
-        a, b = getattr(c1, f), getattr(c2, f)
-        setattr(out, f, int(a + Fraction(b - a, s2 - s1) * (s_full - s1)))
+        setattr(out, f, line(getattr(c1, f), getattr(c2, f)))
+    out.collective_bytes = {k: line(c1.collective_bytes[k], v)
+                            for k, v in c2.collective_bytes.items()}
+    out.replicated = {k: line(c1.replicated.get(k, 0), v) for k, v in c2.replicated.items()}
     return out

@@ -24,10 +24,14 @@ Meshes (``--mesh``):
   one     the port's deployment, one H100 (``mesh.make_host_mesh``); no
           collectives
   single  (16, 16), multi (2, 16, 16): the reference's production meshes.
-          Static bytes per device come from ``launch.sharding``'s rules,
-          flops, bytes and temporaries are the global walk's divided by the
-          chips, and collective bytes are not counted (null): the port has
-          no partitioner to count them with.
+          The step runs as a partitioned step: its params, batch, state or
+          cache are DTensors under ``launch.sharding``'s rules on a fake
+          process group at the mesh's sizes (``mesh.fake_device_mesh``),
+          and the walk follows rank 0's local ops, so flops, bytes,
+          temporaries and collectives (bytes by kind, their count and
+          total, each element at most 2 bytes for a bf16 model, as the
+          reference caps them) are one device's. The flash variant adds
+          ``attention_flops / chips``, as the reference does.
 
 Variants (``--variant``, default "baseline"):
   baseline    attention through the plain ``sdpa_plain`` (its logits and
@@ -46,7 +50,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
+import subprocess
+import sys
 import time
 from typing import Any, Optional
 
@@ -72,7 +79,9 @@ LONG_SKIP = {"seamless_m4t_medium"}
 # the families whose step loops over tokens in Python: walked at two short
 # lengths and extended (cost_analysis.affine_walk)
 PER_TOKEN = {"xlstm"}
-NO_PARTITIONER = "no partitioner; waits for Queue 1 item 6b"
+# a partitioned affine walk's lengths: two for the line, a third on it (S up
+# to 32 takes other DTensor strategies than longer ones)
+PER_TOKEN_SMALL = (64, 128, 192)
 MESHES = ("one", "single", "multi")
 
 
@@ -183,30 +192,68 @@ def _static_specs(cfg, shape, static: dict, mesh) -> dict:
     return {k: rules[k](v) for k, v in static.items()}
 
 
+def distribute_step(cfg: ModelConfig, shape: InputShape, args: tuple, device_mesh) -> tuple:
+    """A step's arguments (``build_step``'s) as DTensors on ``device_mesh``
+    under ``launch.sharding``'s rules: params, then the batch, the state or
+    the cache and token by the step's kind; plain ints stay."""
+    params = SH.distribute(args[0], SH.param_shardings(args[0], device_mesh), device_mesh)
+    batch_of = lambda t: SH.distribute(  # noqa: E731
+        t, SH.batch_shardings(cfg, t, device_mesh), device_mesh)
+    if shape.kind == "train":
+        second = args[1]
+        if isinstance(second, streaming.AnalyticState):
+            second = SH.distribute(second, SH.state_shardings(device_mesh), device_mesh)
+        else:  # gradfl's head: replicated
+            second = SH.distribute(second, act.to_placements((), device_mesh), device_mesh)
+        return params, second, batch_of(args[2])
+    if shape.kind == "prefill":
+        return params, batch_of(args[1])
+    cache = SH.distribute(args[1], SH.cache_shardings(cfg, args[1], shape, device_mesh),
+                          device_mesh)
+    token = batch_of({"token": args[2]})["token"]
+    return params, cache, token, args[3]
+
+
 def step_cost(cfg: ModelConfig, shape: InputShape, variant: str = "flash",
               mesh=None, *, use_kernel: bool = True) -> dict:
     """Walk one step of ``cfg`` at ``shape`` on meta tensors under ``mesh``'s
-    policy (the host mesh by default) → {"cost": Cost of the whole step,
-    "attn_flops": the kernel's flops (flash variant, else 0), "static":
-    per-device bytes by name under the mesh's rules}. The cost's flops
-    include ``attn_flops``."""
+    policy (the host mesh by default) → {"cost": Cost of the step on one
+    device, "attn_flops": the kernel's global flops (flash variant, else
+    0), "static": per-device bytes by name under the mesh's rules}. On a
+    mesh of more than one chip the step is partitioned, its arguments
+    DTensors on a fake process group at the mesh's sizes, and the cost is
+    rank 0's, collectives included. The cost's flops include
+    ``attn_flops / chips``."""
     mesh = mesh or M.make_host_mesh()
+    chips = M.num_chips(mesh)
     fn, args, static = build_step(cfg, shape, variant, use_kernel=use_kernel)
     specs = _static_specs(cfg, shape, static, mesh)
     static_bytes = {k: SH.sharded_bytes(v, specs[k], mesh) for k, v in static.items()}
-    with act.activation_policy(mesh, M.batch_axes(mesh), M.model_axes(mesh),
+    cap = 2 if cfg.param_dtype == torch.bfloat16 else 0
+    place = lambda a: a  # noqa: E731
+    policy_mesh = mesh
+    if chips > 1:
+        policy_mesh = M.fake_device_mesh(mesh)
+        place = lambda a: distribute_step(cfg, shape, a, policy_mesh)  # noqa: E731
+    with act.activation_policy(policy_mesh, M.batch_axes(mesh), M.model_axes(mesh),
                                flash_surrogate=variant.startswith("flash")):
         if cfg.arch_type in PER_TOKEN and shape.kind != "decode":
             def make(s):
                 f, a, _ = build_step(cfg, dataclasses.replace(shape, seq_len=s), variant,
                                      use_kernel=use_kernel)
-                return f, a
+                return f, place(a)
             del fn, args, static
-            cost = CA.affine_walk(make, shape.seq_len)
+            if chips > 1:
+                # DTensor's strategies can change with S: a third length
+                # must fall on the line
+                cost = CA.affine_walk(make, shape.seq_len, PER_TOKEN_SMALL[:2],
+                                      PER_TOKEN_SMALL[2], width_cap=cap, chips=chips)
+            else:
+                cost = CA.affine_walk(make, shape.seq_len, width_cap=cap, chips=chips)
         else:
-            cost = CA.walk(fn, *args)[0]
+            cost = CA.walk(fn, *place(args), width_cap=cap, chips=chips)[0]
     attn = attention_flops(cfg, shape) if variant.startswith("flash") else 0.0
-    cost.flops += int(attn)
+    cost.flops += int(attn / chips)
     return {"cost": cost, "attn_flops": attn, "static": static_bytes}
 
 
@@ -229,21 +276,22 @@ def run_one(arch: str, shape_name: str, mesh_name: str, variant: str) -> dict:
         return rec
     cost = out["cost"]
     static = out["static"]
-    collective = 0.0 if chips == 1 else None
-    temp = cost.temp_bytes // chips
+    temp = cost.temp_bytes
     peak = sum(static.values()) + temp
+    coll = dict(cost.collective_bytes, count=cost.collective_count,
+                total=cost.collective_total)
     rec.update(
         ok=True,
         chips=chips,
         walk_s=round(time.perf_counter() - t0, 2),
         walk_ops=cost.ops,
-        flops_per_device=cost.flops / chips,
-        bytes_per_device=cost.bytes_accessed / chips,
+        flops_per_device=cost.flops,
+        bytes_per_device=cost.bytes_accessed,
         attn_flops_global=out["attn_flops"],
-        flops_global=cost.flops,
-        bytes_global=cost.bytes_accessed,
-        collectives=({"total": 0.0} if collective is not None
-                     else {"total": None, "reason": NO_PARTITIONER}),
+        flops_global=cost.flops * chips,
+        bytes_global=cost.bytes_accessed * chips,
+        replicated_flops=cost.replicated,
+        collectives=coll,
         memory=dict(
             static_bytes_per_device=static,
             temp_bytes_per_device=temp,
@@ -253,8 +301,8 @@ def run_one(arch: str, shape_name: str, mesh_name: str, variant: str) -> dict:
             hbm_bytes=M.HBM_BYTES,
             fits=peak <= M.HBM_BYTES,
         ),
-        roofline=M.Roofline(flops=cost.flops, hbm_bytes=cost.bytes_accessed,
-                            collective_bytes=collective, chips=chips,
+        roofline=M.Roofline(flops=cost.flops * chips, hbm_bytes=cost.bytes_accessed * chips,
+                            collective_bytes=cost.collective_total * chips, chips=chips,
                             dtype=cfg.param_dtype).as_dict(),
     )
     return rec
@@ -268,6 +316,9 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", default="one", choices=[*MESHES, "all"])
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--out", default="results/torch_dryrun")
+    ap.add_argument("--here", action="store_true",
+                    help="walk a pod mesh in this process (its fake process group "
+                         "stays up until the process ends)")
     args = ap.parse_args(argv)
 
     archs = list_archs() if args.arch == "all" else [args.arch]
@@ -277,9 +328,25 @@ def main(argv=None) -> None:
     outdir.mkdir(parents=True, exist_ok=True)
 
     n_fail = 0
+    here = [m for m in meshes if m == "one" or args.here]
+    for mesh_name in meshes:
+        if mesh_name in here:
+            continue
+        # a pod mesh's fake process group in a process of its own
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", args.arch,
+               "--shape", args.shape, "--mesh", mesh_name, "--variant", args.variant,
+               "--out", str(outdir), "--here"]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                                  p for p in (str(pathlib.Path(__file__).parents[2]),
+                                              os.environ.get("PYTHONPATH")) if p)))
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode != 0:
+            n_fail += 1
+            print(f"[FAIL] mesh {mesh_name}: {proc.stderr[-2000:]}", flush=True)
     for arch in archs:
         for shape_name in shapes:
-            for mesh_name in meshes:
+            for mesh_name in here:
                 tag = f"{arch}__{shape_name}__{mesh_name}"
                 if args.variant != "baseline":
                     tag += f"__{args.variant}"

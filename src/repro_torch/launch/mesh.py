@@ -5,7 +5,11 @@ names and sizes, with no process group: the dry run resolves sharding
 specs and per-device bytes from it, as the reference resolves them from an
 abstract mesh. A ``torch.distributed.DeviceMesh`` with the same axis names
 serves where tensors are really placed (``core.act``,
-``launch.sharding.to_placements``).
+``launch.sharding``): :func:`make_device_mesh` builds one over the live
+process group (real ranks), :func:`fake_device_mesh` one over a fake
+process group at a ``Mesh``'s sizes, in which this process plays rank 0 of
+every device and each collective returns at once: the dry run walks rank
+0's local step on it and counts the collectives that step issues.
 
 Meshes:
   host (``make_host_mesh``): the port's deployment, one H100 as (1, 1)
@@ -67,25 +71,76 @@ def make_host_mesh() -> Mesh:
     return Mesh((1, 1), ("data", "model"))
 
 
+def make_device_mesh(shape: tuple, axes: tuple, device="cuda"):
+    """A ``DeviceMesh`` of ``shape`` with axis names ``axes`` over the live
+    process group (``torch.distributed`` initialised, world size
+    ``prod(shape)``), ranks laid out row-major as ``jax.make_mesh`` lays out
+    devices. ``device`` is the device type of the ranks' tensors."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(torch.device(device).type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def fake_device_mesh(mesh: Mesh, device_type: str = "cuda"):
+    """A ``DeviceMesh`` at ``mesh``'s sizes over a fake process group, this
+    process rank 0 of it. Its collectives move nothing and return at once, so a step run on it with
+    meta tensors has rank 0's local shapes and issues rank 0's
+    collectives. ``device_type`` is that of the ranks it stands for: DTensor
+    moves a shard from one dim to another by an all-to-all on a CUDA mesh
+    and by an all-gather on a CPU one. Building it touches no device.
+
+    A process holds one fake mesh: asked for the same one again, this
+    returns it; asked for another, it raises."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    key = (tuple(mesh.sizes), tuple(mesh.axis_names), device_type)
+    if key in _FAKE:
+        return _FAKE[key]
+    if dist.is_initialized():
+        # DTensor caches plans by mesh, and a new group under an equal
+        # mesh would meet the old group's plans
+        raise RuntimeError("this process already has a process group: walk each "
+                           "mesh in a process of its own (launch.dryrun does)")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(mesh.sizes))
+    _FAKE[key] = DeviceMesh(device_type,
+                            torch.arange(math.prod(mesh.sizes)).reshape(mesh.sizes),
+                            mesh_dim_names=tuple(mesh.axis_names))
+    return _FAKE[key]
+
+
+_FAKE: dict = {}
+
+
+def _names(mesh) -> tuple:
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names) if names is not None else tuple(mesh.shape)
+
+
 def batch_axes(mesh) -> tuple[str, ...]:
     """Axes that shard the batch / act as AFL federation axes."""
-    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+    return tuple(a for a in ("pod", "data") if a in _names(mesh))
 
 
 def model_axes(mesh) -> tuple[str, ...]:
-    return tuple(a for a in ("model",) if a in mesh.shape)
+    return tuple(a for a in ("model",) if a in _names(mesh))
 
 
 def num_chips(mesh) -> int:
-    return math.prod(mesh.shape.values())
+    sizes = mesh.shape
+    return math.prod(sizes.values() if isinstance(sizes, dict) else sizes)
 
 
 @dataclasses.dataclass(frozen=True)
 class Roofline:
     """Three-term roofline of one step on ``chips`` H100s, the compute term
-    at ``dtype``'s peak. ``collective_bytes`` None: no term (a mesh whose
-    collectives were not counted), and ``dominant`` is read from the other
-    two."""
+    at ``dtype``'s peak. ``collective_bytes`` is the sum over devices of
+    the bytes each device's collectives move (the dry run's per-device
+    count times the chips), each device's share at ``NVLINK_BW``; None: no
+    term, and ``dominant`` is read from the other two."""
 
     flops: float
     hbm_bytes: float

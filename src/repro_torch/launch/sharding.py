@@ -18,6 +18,11 @@ included).
 Logical axes:
   fsdp  = ('pod', 'data')  — weight d_model dim, batch dim
   tp    = ('model',)       — heads / ff / vocab dim
+
+On a ``torch.distributed`` ``DeviceMesh`` the ``*_shardings`` functions
+give each spec as DTensor placements (the counterparts of the reference's
+``NamedSharding`` trees), and :func:`distribute` places a tree of tensors
+by them, each rank keeping only its own slice of each leaf.
 """
 
 from __future__ import annotations
@@ -200,3 +205,107 @@ def sharded_bytes(tree: Any, specs: Any, mesh) -> int:
         if isinstance(leaf, torch.Tensor):
             total += math.prod(shard_shape(leaf.shape, spec, mesh)) * leaf.element_size()
     return total
+
+
+# ---------------------------------------------------- DTensor placements
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        e is None or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def _placements(specs, device_mesh):
+    """A spec tree as DTensor placements (a list a leaf) on ``device_mesh``."""
+    if _is_spec(specs):
+        return to_placements(specs, device_mesh)
+    if isinstance(specs, dict):
+        return {k: _placements(v, device_mesh) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_placements(v, device_mesh) for v in specs]
+    items = [_placements(v, device_mesh) for v in specs]
+    return type(specs)(*items) if hasattr(specs, "_fields") else tuple(items)
+
+
+def param_shardings(params: Any, device_mesh) -> Any:
+    return _placements(param_specs(params, device_mesh), device_mesh)
+
+
+def batch_shardings(cfg: ModelConfig, specs: dict, device_mesh) -> dict:
+    return _placements(batch_specs(cfg, specs, device_mesh), device_mesh)
+
+
+def state_shardings(device_mesh) -> AnalyticState:
+    return _placements(state_specs(device_mesh), device_mesh)
+
+
+def cache_shardings(cfg: ModelConfig, cache: Any, shape: InputShape, device_mesh) -> Any:
+    return _placements(cache_specs(cfg, cache, shape, device_mesh), device_mesh)
+
+
+def local_shape(shape: Sequence[int], placements, device_mesh) -> tuple:
+    """One rank's block of a tensor of ``shape`` under ``placements``."""
+    out = list(shape)
+    for mdim, p in enumerate(placements):
+        if p.is_shard():
+            out[p.dim] //= device_mesh.size(mdim)
+    return tuple(out)
+
+
+def local_slice(leaf: torch.Tensor, placements, device_mesh) -> torch.Tensor:
+    """This rank's block of ``leaf`` under ``placements``: a view. A dim
+    split over several mesh dims is cut by the first of them first, as
+    DTensor and ``PartitionSpec`` cut it."""
+    coord = device_mesh.get_coordinate()
+    out = leaf
+    for mdim, p in enumerate(placements):
+        if p.is_shard():
+            n = out.shape[p.dim] // device_mesh.size(mdim)
+            out = out.narrow(p.dim, coord[mdim] * n, n)
+    return out
+
+
+def distribute(tree: Any, shardings: Any, device_mesh) -> Any:
+    """``tree`` as DTensors on ``device_mesh`` under ``shardings`` (a tree of
+    placements, the ``*_shardings`` functions'): each leaf's local slice
+    (:func:`local_slice`) is copied out and wrapped, with no collective;
+    the caller's full leaf can be freed at once. Every rank must hold the
+    same full leaves (drawn from one seed on its own device,
+    :func:`distributed_params`)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(leaf, placements):
+        local = local_slice(leaf, placements, device_mesh).clone(
+            memory_format=torch.contiguous_format)
+        return DTensor.from_local(local, device_mesh, placements, run_check=False,
+                                  shape=leaf.shape, stride=leaf.stride())
+
+    def walk(t, sh):
+        if isinstance(t, dict):
+            return {k: walk(v, sh[k]) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, sh[i]) for i, v in enumerate(t)]
+        if isinstance(t, tuple):
+            items = [walk(v, sh[i]) for i, v in enumerate(t)]
+            return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
+        return one(t, sh)
+
+    return walk(tree, shardings)
+
+
+def distributed_params(cfg: ModelConfig, device_mesh, *, seed: int = 0, device=None):
+    """``models.transformer.init_params(cfg, seed, device)`` as DTensors
+    under :func:`param_shardings`, drawn layer by layer: each rank draws
+    every leaf from the seed on its own device, as one device would, and
+    keeps its own slice of each layer as soon as the layer is drawn, so no
+    rank ever holds more of the full model than one layer."""
+    from repro_torch.models import transformer as T
+
+    shardings = param_shardings(T.init_params(cfg, device="meta"), device_mesh)
+
+    def place(path, subtree):
+        sh = shardings
+        for k in path:
+            sh = sh[k]
+        return distribute(subtree, sh, device_mesh)
+
+    return T.init_params(cfg, seed=seed, device=device, place=place)

@@ -103,6 +103,10 @@ def init_attention(gen, dims: AttnDims, dtype, device):
 
 
 def _heads(x, n, hd):
+    """(B, S, n·hd) → (B, S, n, hd) → (B, n, S, hd). Under a policy the
+    features are first constrained to split over 'model' only where the
+    head count divides it, so that the split falls between heads."""
+    x = act.constrain(x, ("batch", None, "model" if act.divides(n, "model") else None))
     b, s, _ = x.shape
     return x.reshape(b, s, n, hd).transpose(1, 2)
 
@@ -145,7 +149,16 @@ def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, softcap=0.0,
     variant) it returns the reference's stand-in for the kernel: an output
     of (B, Hq, Sq, D) built from one read of q, k and v and no logits, the
     kernel's boundary traffic; the dry run adds the kernel's flops.
+
+    On ``DTensor`` q, k, v (a partitioned step) each rank runs this on its
+    local shards (:func:`sharded_attention`), so the kernel sees one rank's
+    batch and heads.
     """
+    mesh = act.device_mesh_of(q, k, v)
+    if mesh is not None:
+        return sharded_attention(sdpa, q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, softcap=softcap, q_chunk=q_chunk,
+                                 kv_chunk=kv_chunk)
     if act.flash_surrogate_active():
         return _flash_surrogate(q, k, v)
     if not q.is_cuda:
@@ -156,6 +169,37 @@ def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, softcap=0.0,
         return FlashSDPA.apply(q, k, v, causal, win, int(q_offset), float(softcap))
     return ops.flash_attention(q, k, v, causal=causal, window=win, q_offset=q_offset,
                                softcap=softcap)
+
+
+def attention_spec(b: int, hq: int, hkv: int, device_mesh) -> tuple:
+    """The spec of q, k, v and the output in an attention region: batch over
+    the federation axes where they divide it, heads over 'model' where it
+    divides both head counts (then query head ``h``'s kv head ``h //
+    group`` lies on the same rank), else replicated (the reference's
+    ``act`` guard)."""
+    sizes = act.axis_sizes(device_mesh)
+    fed = tuple(a for a in ("pod", "data") if a in sizes)
+    tp = tuple(a for a in ("model",) if a in sizes)
+    nf = math.prod(sizes[a] for a in fed)
+    nt = math.prod(sizes[a] for a in tp)
+    bat = fed if nf > 1 and b % nf == 0 else None
+    heads = tp if nt > 1 and hq % nt == 0 and hkv % nt == 0 else None
+    return (bat, heads, None, None)
+
+
+def sharded_attention(attend, q, k, v, **kw):
+    """``attend(q, k, v, **kw)`` (``sdpa`` or ``sdpa_plain``) on each rank's
+    local shards of ``DTensor`` q, k, v, placed by :func:`attention_spec`,
+    in one ``act.local_region``: the flash kernel (or its plain version)
+    on the rank's batch and heads, and no collective but the inputs'
+    redistribution."""
+    mesh = act.device_mesh_of(q, k, v)
+    pl = act.to_placements(attention_spec(q.shape[0], q.shape[1], k.shape[1], mesh), mesh)
+
+    def local(ql, kl, vl):
+        return attend(ql, kl, vl, **kw)
+
+    return act.local_region(local, mesh, [pl, pl, pl], pl, name="attention")(q, k, v)
 
 
 def _flash_surrogate(q, k, v):
@@ -212,8 +256,13 @@ def sdpa_plain(q, k, v, *, causal=True, window=None, q_offset=0, softcap=0.0,
     :func:`sdpa`'s arguments. Products in f32 (f64 for f64 inputs), masked
     logits ``-1e30``; up to ``Sq·Skv = 2²²`` the logits are materialized,
     past that an online softmax walks ``q_chunk × kv_chunk`` blocks, so
-    prefill-length logits never exist at once.
+    prefill-length logits never exist at once. ``DTensor`` inputs run on
+    each rank's shards, as :func:`sdpa`'s do.
     """
+    if act.device_mesh_of(q, k, v) is not None:
+        return sharded_attention(sdpa_plain, q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, softcap=softcap, q_chunk=q_chunk,
+                                 kv_chunk=kv_chunk)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv

@@ -8,19 +8,30 @@ its group; a choice past its expert's capacity is dropped (its weight 0,
 its slot the overflow bin). Expert weights lie on a leading E dim,
 ``(E, d_in, d_out)``, and the expert products are batched matmuls over E.
 
-The reference's explicit-collective FFN (``_ffn_shard_map``) runs only on
-a multi-device mesh, which one card never has: it waits for the port's
-sharding rules (ROADMAP Queue 1, item 6b).
+On a partitioned step (``DTensor`` activations on a ``DeviceMesh``, an
+activation policy with ``tp > 1`` active) the expert FFN is the
+reference's explicit-collective one, :func:`_ffn_shard_map`: one
+``act.local_region`` in which token groups are split over the federation
+axes and the expert weights over their d_ff dim along 'model', dispatch,
+FFN and combine run on each rank's partial (f-shard) outputs, and ONE
+all-reduce over 'model' of the rank's (ng/fsdp, g, d) tokens finishes the
+layer. ``REPRO_MOE_FFN=dense`` forces the other path, as in the
+reference; on ``DTensor``s that path is the same region with the tokens
+replicated over the federation axes (each rank dispatches every group),
+the schedule a partitioner takes when the groups do not divide them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.config import MoEConfig
+from repro_torch.core import act
 from repro_torch.models import layers as L
 
 
@@ -82,11 +93,87 @@ def _gather_combine(out_e, slot, weight):
 
 def _ffn_dense(p, groups, slot, weight, e, cap, activation):
     """The expert FFN on one device: dispatch, two batched products over E,
-    combine."""
+    combine. On ``DTensor``s: :func:`_ffn_region` with every group on
+    every rank."""
+    if act.device_mesh_of(groups) is not None:
+        return _ffn_region(p, groups, slot, weight, e, cap, activation, split_tokens=False)
     h_in = _scatter_dispatch(groups, slot, e, cap)
     hidden = _expert_hidden(p, h_in, activation)
     out_e = torch.einsum("necf,efd->necd", hidden, p["w_down"])
     return _gather_combine(out_e, slot, weight)
+
+
+def _axes(mesh=None):
+    """(federation axes, model axes, their sizes) of the active policy, or
+    with none active of ``mesh`` by its axis names."""
+    pol = act._POLICY.get()
+    if pol is not None:
+        fed, tp, sizes = pol["batch"], pol["model"], pol["sizes"]
+    else:
+        sizes = act.axis_sizes(mesh)
+        fed = tuple(a for a in ("pod", "data") if a in sizes)
+        tp = tuple(a for a in ("model",) if a in sizes)
+    return fed, tp, (math.prod(sizes[a] for a in fed), math.prod(sizes[a] for a in tp))
+
+
+def _shard_map_ok(ng: int, d_ff: int) -> bool:
+    """Use the explicit-collective FFN when a policy is active and the
+    group / feature dims divide the federation / model axes, as the
+    reference decides. ``REPRO_MOE_FFN=dense`` forces the other path (the
+    reference's perf A/B)."""
+    if os.environ.get("REPRO_MOE_FFN") == "dense":
+        return False
+    if act._POLICY.get() is None:
+        return False
+    _, _, (fsdp, tp) = _axes()
+    return tp > 1 and ng % max(fsdp, 1) == 0 and d_ff % tp == 0
+
+
+def _ffn_shard_map(p, groups, slot, weight, e, cap, activation):
+    """Expert FFN with an explicit collective schedule (the reference's
+    ``_ffn_shard_map``): token groups stay split over the federation axes,
+    expert weights enter d_ff-split over 'model', dispatch / FFN / combine
+    are local, the combine runs on the *partial* (f-shard) expert outputs
+    (linearity lets it commute with the f-reduction), and ONE all-reduce
+    in token space (ng/fsdp · g · d a rank) finishes the layer."""
+    return _ffn_region(p, groups, slot, weight, e, cap, activation, split_tokens=True)
+
+
+def _ffn_region(p, groups, slot, weight, e, cap, activation, *, split_tokens: bool):
+    """The expert FFN as one ``act.local_region`` on ``DTensor`` groups:
+    groups, slots and weights split on ng over the federation axes
+    (``split_tokens``) or replicated; ``w_up`` / ``w_gate`` (E, d, f) split
+    on f and ``w_down`` (E, f, d) on its f dim over 'model' where the
+    model axes divide f, then the rank's combined tokens all-reduced over
+    'model' (a functional collective, which the cost walk counts), else
+    replicated weights and no collective."""
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = act.device_mesh_of(groups)
+    fed, tp, (_, ntp) = _axes(mesh)
+    f_split = ntp > 1 and p["w_up"].shape[-1] % ntp == 0
+    ftp = tp if f_split else None
+    tok = act.to_placements((fed if split_tokens else None,), mesh)
+    names = [k for k in ("w_up", "w_gate", "w_down") if k in p]
+    wspec = {"w_up": (None, None, ftp), "w_gate": (None, None, ftp),
+             "w_down": (None, ftp, None)}
+    in_pl = [tok, tok, tok] + [act.to_placements(wspec[k], mesh) for k in names]
+    dims = [list(mesh.mesh_dim_names).index(a) for a in tp]
+
+    def ffn(groups_l, slot_l, weight_l, *ws):
+        w = dict(zip(names, ws))
+        h_in = _scatter_dispatch(groups_l, slot_l, e, cap)
+        hidden = _expert_hidden(w, h_in, activation)
+        out_partial = torch.einsum("necf,efd->necd", hidden, w["w_down"])
+        out_l = _gather_combine(out_partial, slot_l, weight_l)
+        if f_split:
+            out_l = funcol.all_reduce(out_l, "sum", (mesh, dims[0]))
+            if isinstance(out_l, funcol.AsyncCollectiveTensor):
+                out_l = out_l.wait()
+        return out_l
+
+    return act.local_region(ffn, mesh, in_pl, tok, name="moe_ffn")(
+        groups, slot, weight, *(p[k] for k in names))
 
 
 @dataclasses.dataclass
@@ -117,17 +204,25 @@ def route(p, groups, moe: MoEConfig) -> Routing:
     over the group's tokens in order and each token's choices largest
     first; equal probabilities go to the lower expert first, as
     ``lax.top_k`` orders them."""
-    ng, g, _ = groups.shape
-    e, k = moe.num_experts, moe.top_k
     probs = torch.softmax((groups @ p["router"]).to(torch.float32), -1)   # (ng, g, E)
-    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_i = top_p[..., :k], top_i[..., :k]
+    top_i = torch.sort(probs, dim=-1, descending=True, stable=True)[1][..., :moe.top_k]
+    return assign(probs, top_i, moe)
+
+
+def assign(probs, top_i, moe: MoEConfig) -> Routing:
+    """The routing of the choices ``top_i`` (ng, g, k) under the router's
+    ``probs`` (ng, g, E): their renormalised probabilities, each (token,
+    choice)'s slot in its expert's queue of ``cap`` places, and the
+    dropped ones' weight 0 and slot the overflow bin."""
+    ng, g, e = probs.shape
+    k = top_i.shape[-1]
+    top_p = probs.gather(-1, top_i)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
     # Python's round (half to even), as the reference computes it
     cap = int(max(1, round(g * k / e * moe.capacity_factor)))
-    assign = F.one_hot(top_i, e).to(torch.float32)                       # (ng, g, k, E)
-    pos = torch.cumsum(assign.reshape(ng, g * k, e), dim=1).reshape(ng, g, k, e)
-    pos_sel = (pos * assign - 1.0).amax(-1)                              # own-expert place
+    one = F.one_hot(top_i, e).to(torch.float32)                          # (ng, g, k, E)
+    pos = torch.cumsum(one.reshape(ng, g * k, e), dim=1).reshape(ng, g, k, e)
+    pos_sel = (pos * one - 1.0).amax(-1)                                 # own-expert place
     keep = (pos_sel >= 0) & (pos_sel < cap)
     slot = torch.where(keep, top_i * cap + pos_sel.to(torch.int64), e * cap)
     weight = torch.where(keep, top_p, 0.0)
@@ -140,12 +235,16 @@ def moe_apply(p, x, moe: MoEConfig, activation):
     e, k = moe.num_experts, moe.top_k
     groups, t = _groups(x, moe)
     r = route(p, groups, moe)
-    out = _ffn_dense(p, groups, r.slot, r.weight, e, r.cap, activation)
+    ng = groups.shape[0]
+    if _shard_map_ok(ng, p["w_up"].shape[-1]) and act.device_mesh_of(groups) is not None:
+        out = _ffn_shard_map(p, groups, r.slot, r.weight, e, r.cap, activation)
+    else:
+        out = _ffn_dense(p, groups, r.slot, r.weight, e, r.cap, activation)
     out = out.reshape(-1, d)[:t].reshape(b, s, d).to(x.dtype)
 
     # load-balance aux (Switch-style): E * Σ_e f_e · P_e
-    assign = F.one_hot(r.top_i, e).to(torch.float32)
-    frac_tokens = assign.sum(2).mean(dim=(0, 1)) / k
+    chosen = F.one_hot(r.top_i, e).to(torch.float32)
+    frac_tokens = chosen.sum(2).mean(dim=(0, 1)) / k
     frac_probs = r.probs.mean(dim=(0, 1))
     aux = e * (frac_tokens * frac_probs).sum()
     return out, aux

@@ -40,7 +40,8 @@ enc_feats (B, S_enc, D), the encoder's input frames.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import contextvars
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -223,6 +224,38 @@ def _kv_zeros(cfg, lead, batch, max_seq, dtype, device):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _place_cache(cfg, make, batch: int, max_seq: int, device, device_mesh):
+    """``make(batch, max_seq, device)``, a fresh cache; on ``device_mesh``
+    as ``DTensor``s under the decode-cache rules
+    (``launch.sharding.cache_specs``: batch over the federation axes, the
+    last dim over 'model'), each rank making only its own slice of each
+    leaf: the leaves' shapes come from a meta build the cost walk does not
+    count, their fill (every cache leaf is one value: zero slots and start
+    states) from a one-slot build on the CPU."""
+    if device_mesh is None:
+        return make(batch, max_seq, device)
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.config import InputShape
+    from repro_torch.launch import sharding as SH
+
+    with act.uncounted():
+        template = make(batch, max_seq, "meta")
+    fill = make(1, 1, "cpu")
+    shardings = SH.cache_shardings(cfg, template,
+                                   InputShape("cache", max_seq, batch, "decode"), device_mesh)
+
+    def one(t, f, placements):
+        if isinstance(t, dict):
+            return {k: one(t[k], f[k], placements[k]) for k in t}
+        local = torch.full(SH.local_shape(t.shape, placements, device_mesh),
+                           f.reshape(-1)[0].item(), dtype=t.dtype, device=device)
+        return DTensor.from_local(local, device_mesh, placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    return one(template, fill, shardings)
+
+
 def _fits(s: int, max_seq: int) -> None:
     if s > max_seq:
         raise ValueError(f"prompt of {s} tokens does not fit a cache of {max_seq}")
@@ -275,18 +308,25 @@ def stacked_layout(cfg: ModelConfig) -> Dict[str, tuple]:
     return out
 
 
-def _layer_lists(lead: tuple, make):
-    """``make()`` in nested lists of ``lead``'s dims."""
+# init_params' ``place``: applied to each layer as soon as it is drawn
+_PLACE: contextvars.ContextVar[Optional[Callable]] = contextvars.ContextVar(
+    "init_place", default=None)
+
+
+def _layer_lists(lead: tuple, make, path: tuple = ()):
+    """``make()`` in nested lists of ``lead``'s dims, each layer through
+    ``init_params``' ``place`` when one is given."""
     if len(lead) == 1:
-        return [make() for _ in range(lead[0])]
-    return [_layer_lists(lead[1:], make) for _ in range(lead[0])]
+        place = _PLACE.get() or (lambda _path, layer: layer)
+        return [place(path + (i,), make()) for i in range(lead[0])]
+    return [_layer_lists(lead[1:], make, path + (i,)) for i in range(lead[0])]
 
 
 def _init_stacks(p: Params, cfg: ModelConfig, makers) -> Params:
     """``p`` with the layer lists of ``stacked_layout``, each layer from its
     tree's maker."""
     for name, lead in stacked_layout(cfg).items():
-        p[name] = _layer_lists(lead, makers[name])
+        p[name] = _layer_lists(lead, makers[name], (name,))
     return p
 
 
@@ -315,7 +355,8 @@ def _dense_prefill(params, cfg, x, positions, max_seq):
     b, s, _ = x.shape
     _fits(s, max_seq)
     window, theta = layer_meta(cfg, cfg.num_layers)
-    cache = _dense_cache(cfg, b, max_seq, x.dtype, x.device)
+    cache = _place_cache(cfg, lambda n, m, dev: _dense_cache(cfg, n, m, x.dtype, dev), b,
+                         max_seq, x.device, act.device_mesh_of(x))
     for i, (lp, w, th) in enumerate(zip(params["layers"], window, theta)):
         x, (k, v) = _block_fwd(lp, cfg, x, positions, int(w), float(th))
         cache["k"][i, :, :, :s] = k
@@ -532,7 +573,9 @@ def _encdec_prefill(params, cfg, batch, max_seq):
     x, positions = _decoder_input(params, batch)
     b, s, _ = x.shape
     _fits(s, max_seq)
-    cache = _encdec_cache(cfg, b, max_seq, x.dtype, x.device, memory.shape[1])
+    mem_len = memory.shape[1]
+    cache = _place_cache(cfg, lambda n, m, dev: _encdec_cache(cfg, n, m, x.dtype, dev, mem_len),
+                         b, max_seq, x.device, act.device_mesh_of(x))
     for i, lp in enumerate(params["layers"]):
         mk, mv = _memory_kv(lp, cfg, memory)
         x, (k, v) = _block_fwd(lp, cfg, x, positions, 0, cfg.rope_theta, memory_kv=(mk, mv))
@@ -565,11 +608,18 @@ def _family(cfg: ModelConfig) -> str:
     return cfg.arch_type
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                place: Optional[Callable] = None) -> Params:
     """Random parameters drawn on ``device`` (CUDA unless named) from a
     ``torch.Generator`` seeded with ``seed``. They are not the reference's
     ``jax.random`` draws; ``models.convert.params_from_jax`` carries those
     over when both packages must run on the same weights.
+
+    ``place(path, subtree)``, when given, takes each stacked layer as soon
+    as it is drawn (``path`` its list name and indices) and, once every
+    draw is done, each other top-level entry (``path`` its key), and its
+    result takes their place: ``launch.sharding.distributed_params`` keeps
+    only a rank's slices with it. The draws are the same either way.
 
     ``device="meta"`` gives the same tree of shapes and dtypes with no
     storage and no draw (the counterpart of ``jax.eval_shape(init_params)``,
@@ -581,7 +631,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-    return init(gen, cfg, dev)
+    if place is None:
+        return init(gen, cfg, dev)
+    token = _PLACE.set(place)
+    try:
+        p = init(gen, cfg, dev)
+    finally:
+        _PLACE.reset(token)
+    return {k: v if k in STACKED else place((k,), v) for k, v in p.items()}
 
 
 def forward(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
@@ -629,11 +686,16 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_seq: int):
     if fam == "encdec":
         return _encdec_prefill(params, cfg, batch, max_seq)
     x, positions = embed_inputs(params, cfg, batch)
+    mesh, b = act.device_mesh_of(x), x.shape[0]
     if fam == "hybrid":
-        cache = _hybrid_cache(cfg, x.shape[0], max_seq, cfg.param_dtype, x.device)
+        cache = _place_cache(
+            cfg, lambda n, m, dev: _hybrid_cache(cfg, n, m, cfg.param_dtype, dev), b,
+            max_seq, x.device, mesh)
         return _hybrid_step(params, cfg, x, positions, cache, None)
     if fam == "xlstm":
-        return _xlstm_run(params, cfg, x, states=_xlstm_cache(cfg, x.shape[0], x.device))
+        states = _place_cache(cfg, lambda n, _m, dev: _xlstm_cache(cfg, n, dev), b, max_seq,
+                              x.device, mesh)
+        return _xlstm_run(params, cfg, x, states=states)
     return _dense_prefill(params, cfg, x, positions, max_seq)
 
 

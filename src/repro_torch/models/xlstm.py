@@ -20,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import act
 from repro_torch.models import layers as L
 
 UP_FACTOR = 2
@@ -57,6 +58,13 @@ def _mlstm_step(state, q, k, v, i_raw, f_raw):
     return (c_mat, n_vec, m_new), h
 
 
+def _gates(x):
+    """A projection about to be cut into its gates (B, S, G·H·dh): under a
+    policy its features are first replicated, since a split over 'model'
+    does not fall between the G gates."""
+    return act.constrain(x, ("batch", None, None))
+
+
 def mlstm_apply(p, x, num_heads, *, init_state=None, return_state=False):
     """x: (B, S, D) → (B, S, D)."""
     b, s, d_model = x.shape
@@ -64,7 +72,7 @@ def mlstm_apply(p, x, num_heads, *, init_state=None, return_state=False):
     f32 = torch.float32
     up = x @ p["up"]
     x_in, gate = up[..., :d_inner], up[..., d_inner:]
-    qkv = (x_in @ p["qkv"]).to(f32).reshape(b, s, 3, num_heads, dh)
+    qkv = _gates(x_in @ p["qkv"]).to(f32).reshape(b, s, 3, num_heads, dh)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1] / math.sqrt(dh), qkv[:, :, 2]   # (B,S,H,dh)
     if_g = (x_in @ p["if_proj"]).to(f32).reshape(b, s, 2, num_heads)
     i_raw, f_raw = if_g[:, :, 0], if_g[:, :, 1]                           # (B,S,H)
@@ -137,7 +145,7 @@ def slstm_apply(p, x, num_heads, *, init_state=None, return_state=False):
     f32 = torch.float32
     up = x @ p["up"]
     x_in, gate = up[..., :d_inner], up[..., d_inner:]
-    wx = (x_in @ p["wx"]).to(f32).reshape(b, s, 4, num_heads, dh)
+    wx = _gates(x_in @ p["wx"]).to(f32).reshape(b, s, 4, num_heads, dh)
     if init_state is None:
         zeros = torch.zeros((b, num_heads, dh), dtype=f32, device=x.device)
         state = (zeros, zeros, zeros,

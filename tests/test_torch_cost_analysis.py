@@ -8,7 +8,11 @@ test names why and checks the difference to the flop. ``attention_flops``
 and ``resolve_config`` are held to the reference's, read from its source:
 importing ``repro.launch.dryrun`` would set ``XLA_FLAGS``. The walk's bytes
 and live-storage accounting are checked on small functions, and the
-affine extension of the per-token families against full walks.
+affine extension of the per-token families against full walks. On a
+fake process group (a process of its own), small DTensor programs: rank
+0's flops, the collectives by kind and bytes (all-reduce, all-gather, and
+on a CUDA mesh DTensor's all-to-all), the width cap, and the flops ranks
+repeat.
 """
 
 import ast
@@ -205,3 +209,73 @@ def test_step_cost_static_bytes_are_the_tensors():
             want["batch"] = B * 4
         assert out["static"] == want, kind
         assert out["attn_flops"] == DR.attention_flops(cfg, shape) > 0
+
+
+# --------------------------------------------- collectives of a partitioned step
+def _dtensor_walks(device_type: str) -> dict:
+    """In a process of its own: small DTensor programs on a fake (2, 2)
+    ('data', 'model') mesh of ``device_type``, walked and counted."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as SH
+
+    dm = M.fake_device_mesh(M.Mesh((2, 2), ("data", "model")), device_type)
+    x = SH.distribute(torch.empty(8, 64, device="meta"), [Shard(0), Shard(1)], dm)
+    w = SH.distribute(torch.empty(64, 32, device="meta"), [Replicate(), Shard(0)], dm)
+
+    def row_parallel(x, w):          # a Partial over 'model', then replicated
+        return (x @ w).redistribute(dm, [Shard(0), Replicate()])
+
+    def move(x):                     # the 'model' split from dim 1 to dim 0
+        return x.redistribute(dm, [Replicate(), Shard(0)])
+
+    y = SH.distribute(torch.empty(8, 64, device="meta"), [Replicate(), Shard(1)], dm)
+
+    def replicated(w):               # every rank the whole product
+        r = w.redistribute(dm, [Replicate(), Replicate()])
+        return r.T @ r
+
+    out = {}
+    for name, fn, args in (("row_parallel", row_parallel, (x, w)), ("move", move, (y,)),
+                           ("replicated", replicated, (w,))):
+        cost, _ = CA.walk(fn, *args, chips=4)
+        capped, _ = CA.walk(fn, *args, width_cap=2, chips=4)
+        counted, _ = CA.count_collectives(fn, *args)
+        out[name] = dict(flops=cost.flops, replicated=cost.replicated,
+                         bytes=cost.collective_bytes, count=cost.collective_count,
+                         capped=capped.collective_bytes,
+                         log=[x[0] for x in cost.collective_log],
+                         counted=[x[0] for x in counted.collective_log],
+                         static=cost.static_bytes)
+    return out
+
+
+@pytest.mark.parametrize("device_type", ["cpu", "cuda"])
+def test_walk_counts_dtensor_collectives(device_type):
+    """The walk counts rank 0's local ops of DTensor programs: its share of
+    a product's flops, the collectives DTensor issues by the reference's
+    kinds (an all-gather and an all-reduce count their result, an all-to-all
+    its operand, each element at most ``width_cap`` bytes), the flops ranks
+    repeat by op, and ``count_collectives`` sees the same collectives."""
+    from repro_torch.core.distributed import run_isolated
+
+    r = run_isolated(_dtensor_walks, device_type, timeout=300)
+    rp = r["row_parallel"]
+    # rank 0: x (4, 32) @ w (32, 32), then its (4, 32) partial all-reduced
+    assert rp["flops"] == 2 * 4 * 32 * 32 and rp["log"] == ["all-reduce"]
+    assert rp["bytes"]["all-reduce"] == 4 * 32 * 4 and rp["capped"]["all-reduce"] == 4 * 32 * 2
+    assert rp["count"] == 1 and rp["counted"] == rp["log"]
+    assert rp["replicated"] == {}
+    assert rp["static"] == (4 * 32 + 32 * 32) * 4
+    mv = r["move"]
+    if device_type == "cuda":    # one all-to-all of rank 0's (8, 32) block
+        assert mv["log"] == ["all-to-all"] and mv["bytes"]["all-to-all"] == 8 * 32 * 4
+    else:                        # a CPU mesh: an all-gather (8, 64) and a chunk
+        assert mv["log"] == ["all-gather"] and mv["bytes"]["all-gather"] == 8 * 64 * 4
+    assert mv["counted"] == mv["log"] and mv["flops"] == 0
+    rep = r["replicated"]
+    # every rank computes the whole (32, 32) product: 3 of 4 repeat it
+    assert rep["flops"] == 2 * 32 * 64 * 32
+    assert rep["replicated"] == {"mm": 3 * 2 * 32 * 64 * 32}
+    assert rep["log"] == ["all-gather"] * len(rep["log"]) and rep["log"]

@@ -1871,3 +1871,60 @@ def test_x2_cuda_launches_match_the_native_schedule(cuda):
         q, gammas = torch.ones((d, c), device=cuda), torch.linspace(0.1, 1.0, n_g, device=cuda)
         assert _launch_calls(lambda: ops.multi_gamma_solve(a, q, gammas, precision=X2)) == \
             B.sweep_cuda_launches(d)
+
+
+# ------------------------------------------------ the partitioned steps on the card
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A (1, 1) ('data', 'model') DeviceMesh over NCCL in this process."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield make_device_mesh((1, 1), ("data", "model"), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_partitioned_steps_launch_the_kernels_on_a_nccl_mesh(nccl_mesh):
+    """Reduced granite's partitioned train step, prefill and decode steps on
+    a (1, 1) NCCL mesh: the ``local_map`` regions launch the flash and Gram
+    kernels (their wrappers' counts move) and give the plain steps' state,
+    logits and tokens."""
+    from repro_torch.launch import partitioned as PT
+
+    plan = PT.Plan("granite_moe_3b_a800m", reduced=dict(num_classes=8), batch=4, seq=32,
+                   decode=3)
+    out = PT.run_steps(nccl_mesh, plan, device="cuda")
+    one = PT.one_rank_steps(plan, device="cuda")
+    steps = out["steps"]
+    assert steps["train"]["gram_launches"] == 1
+    assert all(v["flash_launches"] == plan.config().num_layers for v in steps.values())
+    g = one["state"]["gram"]
+    assert float((out["state"]["gram"] - g).abs().max() / g.abs().max()) < 1e-4
+    assert float(out["state"]["count"]) == plan.batch
+    for a, b in zip(out["logits"], one["logits"]):
+        assert float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max()) < 1e-3
+    assert all(torch.equal(a, b) for a, b in zip(out["tokens"], one["tokens"]))
+
+
+@pytest.mark.cuda
+def test_dtensor_to_a_kernel_wrapper_raises(nccl_mesh):
+    """A DTensor that reaches a kernel's wrapper raises TypeError before any
+    pointer is read: the kernels take each rank's local tensor."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    q = distribute_tensor(torch.zeros(1, 2, 8, 64, device="cuda"), nccl_mesh,
+                          [Replicate(), Replicate()])
+    x = distribute_tensor(torch.zeros(64, 128, device="cuda"), nccl_mesh,
+                          [Replicate(), Replicate()])
+    for call in (lambda: FA.flash_attention(q, q, q), lambda: ops.flash_attention(q, q, q),
+                 lambda: G.gram_update(x, x), lambda: ops.gram_update(x, x)):
+        with pytest.raises(TypeError, match="DTensor"):
+            with torch.no_grad():
+                call()

@@ -5,9 +5,15 @@
 meta device against a CPU draw (the same tree of shapes and dtypes); and
 ``python -m repro_torch.launch.dryrun``'s ``main`` on the CPU: an ``ok``
 record for one arch of each family, the pod meshes' records, and the
-documented skip (seamless at long_500k).
+documented skip (seamless at long_500k). On the pod meshes each step is
+partitioned (DTensors on a fake process group, rank 0's walk): the
+collectives are counted by kind, the AA law is one all-reduce over the
+federation axes, each MoE layer one all-reduce over 'model', the static
+bytes are the rules' ``sharded_bytes``, and the chips' flops less the
+named replicated terms are the one-device walk's.
 """
 
+import dataclasses
 import json
 
 import jax.numpy as jnp
@@ -19,7 +25,7 @@ from repro.config import INPUT_SHAPES as R_SHAPES
 from repro.configs.registry import get_config as r_get_config
 from repro.launch import inputs as rinputs
 
-from repro_torch.config import INPUT_SHAPES
+from repro_torch.config import INPUT_SHAPES, InputShape
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.launch import dryrun as DR
 from repro_torch.launch import inputs
@@ -85,21 +91,27 @@ def test_cli_writes_ok_record(arch, tmp_path, capsys):
 
 
 def test_cli_pod_meshes_and_skip(tmp_path, capsys):
-    """On the pod meshes the static bytes follow the rules, flops divide by
-    the chips and the collective term is null with its reason; seamless at
-    long_500k is the documented skip."""
+    """On the pod meshes the step is partitioned: static bytes follow the
+    rules, the chips' flops less the replicated terms are the one-device
+    walk's, and the collectives are counted by kind with a roofline term;
+    seamless at long_500k is the documented skip."""
     DR.main(["--arch", "minicpm_2b", "--shape", "decode_32k", "--mesh", "all",
              "--variant", "flash", "--out", str(tmp_path)])
     recs = {m: json.loads((tmp_path / f"minicpm_2b__decode_32k__{m}__flash.json").read_text())
             for m in DR.MESHES}
     one = recs["one"]
+    assert one["collectives"]["total"] == 0 and one["collectives"]["count"] == 0
     for m, chips in (("single", 256), ("multi", 512)):
         r = recs[m]
         assert r["ok"] and r["chips"] == chips
-        assert r["flops_global"] == one["flops_global"]
-        assert r["flops_per_device"] == one["flops_global"] / chips
-        assert r["collectives"] == {"total": None, "reason": DR.NO_PARTITIONER}
-        assert r["roofline"]["collective_s"] is None
+        assert r["flops_global"] == r["flops_per_device"] * chips
+        np.testing.assert_allclose(
+            r["flops_global"] - sum(r["replicated_flops"].values()), one["flops_global"],
+            rtol=1e-9)
+        coll = r["collectives"]
+        assert "reason" not in coll and coll["count"] > 0
+        assert coll["total"] == sum(coll[k] for k in COLLECTIVE_KINDS) > 0
+        np.testing.assert_allclose(r["roofline"]["collective_s"], coll["total"] / M.NVLINK_BW)
         static = r["memory"]["static_bytes_per_device"]
         assert static["params"] < one["memory"]["static_bytes_per_device"]["params"]
         assert static["cache"] == one["memory"]["static_bytes_per_device"]["cache"] // chips
@@ -108,3 +120,75 @@ def test_cli_pod_meshes_and_skip(tmp_path, capsys):
     skip = json.loads((tmp_path / "seamless_m4t_medium__long_500k__one__flash.json").read_text())
     assert not skip["ok"] and "inapplicable" in skip["skipped"]
     assert "[skip]" in capsys.readouterr().out
+
+
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+SMALL_TRAIN = InputShape("train_small", 256, 64, "train")
+
+
+def _pod_walks(mesh_name: str) -> list:
+    """In a process of its own (one fake process group): the train step of
+    minicpm, granite and grok1, reduced and at full width, walked on the
+    pod mesh and on one device → what the test checks."""
+    from repro_torch.launch import partitioned as PT
+
+    mesh = M.make_production_mesh(multi_pod=mesh_name == "multi")
+    out = []
+    for arch in ("minicpm_2b", "granite_moe_3b_a800m", "grok1_314b"):
+        for reduced in (True, False):
+            cfg = get_config(arch)
+            cfg = (cfg.reduced(dtype="bfloat16") if reduced
+                   else dataclasses.replace(cfg, dtype="bfloat16"))
+            pod = DR.step_cost(cfg, SMALL_TRAIN, "flash", mesh)
+            one = DR.step_cost(cfg, SMALL_TRAIN, "flash", M.make_host_mesh())
+            groups = PT.axis_groups(M.fake_device_mesh(mesh))
+            c = pod["cost"]
+            out.append(dict(
+                arch=arch, reduced=reduced, layers=cfg.num_layers, d=cfg.d_model,
+                classes=cfg.num_classes, moe=cfg.moe is not None,
+                flops=c.flops, replicated=c.replicated, global_flops=one["cost"].flops,
+                static_walk=c.static_bytes, static_rules=sum(pod["static"].values()),
+                bytes=c.collective_bytes, total=c.collective_total,
+                count=c.collective_count,
+                log=[(k, "+".join(groups.get(g, (g,))), n, b, r)
+                     for k, g, n, b, r in c.collective_log]))
+    return out
+
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+def test_pod_mesh_steps_are_partitioned(mesh_name):
+    from repro_torch.core.distributed import run_isolated
+
+    mesh = M.make_production_mesh(multi_pod=mesh_name == "multi")
+    chips = M.num_chips(mesh)
+    fed = "+".join(M.batch_axes(mesh))
+    fsdp = chips // 16
+    recs = run_isolated(_pod_walks, mesh_name, timeout=600)
+    assert len(recs) == 6
+    for r in recs:
+        what = f"{r['arch']} reduced={r['reduced']} on {mesh_name}"
+        # collectives by kind, non-null
+        assert r["count"] == len(r["log"]) > 0, what
+        assert r["total"] == sum(r["bytes"].values()) > 0, what
+        for kind in r["bytes"]:
+            assert r["bytes"][kind] == sum(x[3] for x in r["log"] if x[0] == kind), what
+        # the AA law: one all-reduce over the federation axes, the step's
+        # last (f32 counted at the bf16 model's 2 bytes, the reference's cap)
+        d, c = r["d"], r["classes"]
+        fold = [x for x in r["log"] if x[4] == "gram_fold"]
+        assert fold == [("all-reduce", fed, d * d + d * c + 1, 2 * (d * d + d * c + 1),
+                         "gram_fold")], what
+        assert r["log"][-1] == fold[0], what
+        # each MoE layer: its rank's tokens over 'model', once (bf16, 2 bytes)
+        moe = [x for x in r["log"] if x[4] == "moe_ffn"]
+        tokens = SMALL_TRAIN.global_batch * SMALL_TRAIN.seq_len // fsdp
+        want = [("all-reduce", "model", tokens * d, 2 * tokens * d, "moe_ffn")]
+        assert moe == (want * r["layers"] if r["moe"] else []), what
+        # static residency: the rules' sharded bytes
+        assert r["static_walk"] == r["static_rules"], what
+        # the chips' flops: the global walk's plus the named replicated terms
+        assert r["flops"] * chips >= r["global_flops"], what
+        assert all(v > 0 for v in r["replicated"].values()), what
+        np.testing.assert_allclose(r["flops"] * chips - sum(r["replicated"].values()),
+                                   r["global_flops"], rtol=1e-9, err_msg=what)
