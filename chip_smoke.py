@@ -249,18 +249,32 @@ without the repository around it. Phases, each fatal on failure:
      ``{"dryrun": ...}``;
  19. the partitioned steps (``launch.partitioned``): four ranks
      (``core.distributed.run_ranks``) on this one card as a (2, 2)
-     ('data', 'model') mesh, their collectives staged through the host on
-     gloo, run full-width granite_moe_3b_a800m (32 layers, f32) as
-     DTensors under the sharding rules: the analytic train step on 4 × 512
-     tokens, a prefill of 4 × 512 and 8 greedy decode steps, flash and
-     Gram kernels on each rank's shards; then this process runs the same
-     steps on the card on one rank: the Gram within 1e-4 of its largest
-     entry and the count exact, every logit within 1e-3 of its row's
-     largest |logit|, the same tokens, and the prefill's MoE slots equal;
-     each rank's collectives (counted as they run, and by
-     ``CommDebugMode``) equal, op for op, rank 0's steps walked on a fake
-     process group of the same mesh; flash and Gram launches, peak bytes
-     and wall per rank; its own JSON line ``{"partitioned": ...}``.
+     ('data', 'model') mesh, their collectives through buffers each rank
+     maps by CUDA IPC (``core.distributed.share_collectives``; NCCL
+     refuses two ranks on one card), run full-width granite_moe_3b_a800m
+     (32 layers, f32) as DTensors under the sharding rules: the analytic
+     train step on 4 × 512 tokens, a prefill of 4 × 512 and 4 greedy
+     decode steps, flash and Gram kernels on each rank's shards; then this
+     process runs the same steps on the card on one rank, each MoE call
+     routed by the ranks' expert choices: the Gram within 1e-4 of its
+     largest entry and the count exact, every logit within 1e-3 of its
+     row's largest |logit|, the same tokens, and the MoE slots equal; each
+     rank's collectives (counted as they run, and by ``CommDebugMode``)
+     equal, op for op, rank 0's steps walked on a fake process group of
+     the same mesh. Then three more families the same way (one spawn of
+     the ranks runs all four models in turn), in f32 at full
+     width: xlstm_350m whole (24 layers; train step on 4 × 128, a prefill
+     of 4 × 128, 4 decode steps; its Gram and logits held to 1.8e-3 and
+     4e-3, twice what its ranks read, since its random weights amplify a
+     GEMM's rounding alone to about 1e-3), zamba2_7b with its depth cut to 15 of 81
+     layers (two groups of five Mamba2 layers and the shared block, then a
+     tail of three) and seamless_m4t_medium whole (12 + 12 layers), each
+     on 4 × 512 with 4 decode steps; each recurrence on its rank's batch
+     and head shard (its carries' local shapes checked on every rank), the
+     walk counting the per-token loops by trip count, and 4 × rank 0's
+     walked flops within 1% of one device's (no rank repeats another's
+     work); flash and Gram launches, peak bytes, wall and collectives per
+     rank and family; its own JSON line ``{"partitioned": ...}``.
 
 Each path's launches are counted from zero just before it runs. It then
 prints the kernels' JSON line (ten kernels; the five with a split
@@ -4486,7 +4500,8 @@ def dryrun_phase(K, root, get_config, InputShape):
 
 # --- phase 19: the partitioned steps on four ranks of this card ----------------
 
-PART_PLAN = dict(arch="granite_moe_3b_a800m", batch=4, seq=512, decode=8)
+# granite decodes 4 steps, which leaves the phase's time to the families
+PART_PLAN = dict(arch="granite_moe_3b_a800m", batch=4, seq=512, decode=4)
 PART_MESH = ((2, 2), ("data", "model"))
 PART_TIMEOUT_S = 420
 PART_GRAM_REL = 1e-4        # the Gram's largest |Δ| over its largest entry
@@ -4495,6 +4510,26 @@ PART_LOGIT_REL = 1e-3       # a logit's |Δ| over its row's largest |logit|
 # top-k must be a near-tie there: its k-th and (k+1)-th probabilities
 # (about 1/40 each) at most this far apart
 PART_TIE = 1e-4
+# the families after granite, at full width in f32 on the same mesh:
+# xlstm_350m whole (24 layers, mLSTM and sLSTM), zamba2_7b's depth cut to
+# 15 of 81 layers (two groups of five Mamba2 layers and the shared block,
+# then a tail of three), seamless_m4t_medium whole (12 + 12 layers)
+PART_FAMILIES = [
+    dict(arch="xlstm_350m", batch=4, seq=128, decode=4),
+    dict(arch="zamba2_7b", batch=4, seq=512, decode=4, layers=15),
+    dict(arch="seamless_m4t_medium", batch=4, seq=512, decode=4),
+]
+# no rank may repeat another's work: 4 × rank 0's walked flops over the
+# one-device walk's, the train and prefill steps
+PART_REPEAT = 1.01
+# a family's (Gram, logit) bars where they are not PART_GRAM_REL /
+# PART_LOGIT_REL. Full-width xLSTM with random weights moves by about 1e-3
+# with its GEMMs' shapes alone: on an H100, one rank on each half of a
+# 4 × 256 batch against one rank on the whole (no mesh) differs by 7.462e-4
+# of the Gram's largest entry and 1.335e-3 of a row's largest logit, and
+# its ranks by 7.459e-4 and 1.816e-3. At 4 × 128 its ranks read 8.605e-4
+# and 1.989e-3 (at 4 × 256 the same bits in four runs); the bars are twice those
+PART_FAMILY_REL = {"xlstm_350m": (1.8e-3, 4.0e-3)}
 
 
 def partitioned_phase(K):
@@ -4508,25 +4543,31 @@ def partitioned_phase(K):
     row's largest, the tokens and every MoE call's slots equal), every
     choice the one-rank router would make otherwise is a near-tie (top-k
     margin at most ``PART_TIE``), each rank's collectives equal the walk's
-    op for op, and every rank launched the flash and Gram kernels."""
+    op for op, and every rank launched the flash and Gram kernels. Then
+    the families of ``PART_FAMILIES`` on the same mesh, each held the same
+    way (:func:`family_partitioned`); the phase fails on any miss."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.core.distributed import collective_backend, run_isolated, run_ranks
     from repro_torch.launch import partitioned as PT
 
     plan = PT.Plan(**PART_PLAN)
+    plans = [plan] + [PT.Plan(**spec) for spec in PART_FAMILIES]
     shape, axes = PART_MESH
     world = math.prod(shape)
     backend = collective_backend(world, "cuda")
     t0 = time.perf_counter()
+    # one spawn of the ranks runs every model in turn; rank 0's steps of
+    # each are walked meanwhile, each also on one device
     with ThreadPoolExecutor(1) as pool:
-        walk = pool.submit(run_isolated, PT.predict, [plan], shape, axes, "cuda",
+        walk = pool.submit(run_isolated, PT.predict, plans, shape, axes, "cuda", whole=True,
                            timeout=PART_TIMEOUT_S)
-        ranks = run_ranks(PT.rank_main, shape, axes, device="cuda", backend=backend,
-                          args=(plan, "cuda", None, None, True), timeout=PART_TIMEOUT_S)
+        all_ranks = run_ranks(PT.plans_main, shape, axes, device="cuda", backend=backend,
+                              args=(plans, "cuda", (plan.arch,)), timeout=PART_TIMEOUT_S)
         ranks_s = time.perf_counter() - t0
-        pred = walk.result()[0]
+        preds = walk.result()
     walk_s = time.perf_counter() - t0
+    ranks, pred = [r[0] for r in all_ranks], preds[0]
     cfg = plan.config()
     k = cfg.moe.top_k
     # the ranks' routing, joined: every step's MoE calls' slots and choices
@@ -4628,19 +4669,174 @@ def partitioned_phase(K):
             for name, v in pred["steps"].items()}
     log(f"partitioned: collectives a rank (walk = ranks, op for op): "
         + "; ".join(f"{k} {v['count']} {v['bytes']}" for k, v in coll.items()))
-    log(f"partitioned phase ({backend}, {world} ranks on one card): ranks {ranks_s:.1f} s, "
-        f"walk done at {walk_s:.1f} s, one rank {one_s:.1f} s, wall {wall:.1f} s")
+    log(f"partitioned ({backend}, {world} ranks on one card, one spawn for "
+        f"{len(plans)} models): ranks {ranks_s:.1f} s, walk done at {walk_s:.1f} s; "
+        f"granite one rank {one_s:.1f} s, checked at {wall:.1f} s")
     for r in rows:
         for name in ("flash_attention", "gram_update"):
             launches[name] += r["flash_launches" if name == "flash_attention"
                                 else "gram_launches"]
+    del one, ranks, joined
+    for r in all_ranks:
+        r[0] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    families, problems = {}, []
+    for i, spec in enumerate(PART_FAMILIES, 1):
+        more, families[spec["arch"]], missed = family_partitioned(
+            K, spec, [r[i] for r in all_ranks], preds[i])
+        problems += missed
+        for name, n in more.items():
+            launches[name] = launches.get(name, 0) + n
+    if problems:
+        fail("partitioned: " + " | ".join(problems))
+    log(f"partitioned phase: ranks {ranks_s:.1f} s (steps a rank: granite "
+        f"{max(sum(r['step_s'].values()) for r in rows):.1f} s, "
+        + ", ".join(f"{k} {v['rank_s']:.1f} s" for k, v in families.items())
+        + f"), wall {time.perf_counter() - t0:.1f} s")
     return launches, dict(plan=PART_PLAN, mesh=list(shape), backend=backend, ranks=rows,
                           collectives=coll, wall_s=wall, ranks_s=ranks_s, one_rank_s=one_s,
                           near_ties=dict(choices=ties, widest_margin=tie_max, calls=calls),
                           walk={k: dict(flops=v["cost"]["flops"],
                                         bytes=v["cost"]["bytes_accessed"],
                                         peak=v["cost"]["peak_bytes"])
-                                for k, v in pred["steps"].items()})
+                                for k, v in pred["steps"].items()},
+                          families=families, phase_wall_s=time.perf_counter() - t0)
+
+
+def _local_scans(cfg, batch: int, mesh: tuple) -> dict:
+    """The carry shapes of each recurrence on a rank: the batch over 'data',
+    the heads over 'model' (both divide at the phase's shapes)."""
+    b, tp = batch // mesh[0], mesh[1]
+    if cfg.arch_type == "xlstm":
+        heads, dh = cfg.num_heads // tp, 2 * cfg.d_model // cfg.num_heads
+        return {"mlstm": ((b, heads, dh, dh), (b, heads, dh), (b, heads)),
+                "slstm": ((b, heads, dh),) * 3 + ((b, heads),)}
+    if cfg.arch_type == "hybrid":
+        nh = cfg.ssm.num_heads
+        return {"ssd": ((b, nh // tp, cfg.ssm.d_state, cfg.ssm.expand * cfg.d_model // nh),)}
+    return {}
+
+
+def family_partitioned(K, spec: dict, ranks: list, pred: dict):
+    """One family of ``PART_FAMILIES`` on four ranks of this card: its
+    partitioned train step, prefill and greedy decode steps against the
+    same steps on one rank (the Gram to ``PART_GRAM_REL``, logits to
+    ``PART_LOGIT_REL`` of a row's largest, or to the family's own bars of
+    ``PART_FAMILY_REL``; the count exact, the same tokens), each rank's
+    collectives against rank 0's steps walked on a
+    fake process group (op for op, the recurrences by trip count), each
+    rank's recurrent carries at its local shapes, the flash kernel (where
+    the family attends) and the Gram kernel launched on every rank, and
+    4 × rank 0's walked flops within ``PART_REPEAT`` of one device's.
+    ``ranks`` are the ranks' records of the family's steps, ``pred`` rank
+    0's walk of them. Returns (the launches, the family's record, its
+    problems)."""
+    from repro_torch.launch import partitioned as PT
+
+    plan = PT.Plan(**spec)
+    shape, _ = PART_MESH
+    cfg = plan.config()
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero(K)
+    t1 = time.perf_counter()
+    one = PT.one_rank_steps(plan, device="cuda")
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    launches = _read(K)
+    launches["flash_attention_cuda"] = K.FA.flash_attention.cuda_launches
+    del one["routing"]
+    g1 = one["state"]["gram"].double()
+    gram_bar, logit_bar = PART_FAMILY_REL.get(spec["arch"], (PART_GRAM_REL, PART_LOGIT_REL))
+
+    what = spec["arch"]
+    attends = cfg.arch_type != "xlstm"
+    want_scans = _local_scans(cfg, plan.batch, shape)
+    repeat = PT.repeated_work(pred, math.prod(shape))
+    problems, rows = [], []
+    for r, rec in enumerate(ranks):
+        st = rec["state"]
+        gram_rel = float((st["gram"].double() - g1).abs().max() / g1.abs().max())
+        logit_rel = [float(((a.double() - b.double()).abs().amax(-1)
+                            / b.double().abs().amax(-1)).max())
+                     for a, b in zip(rec["logits"], one["logits"])]
+        tokens_equal = all(bool(torch.equal(a, b)) for a, b in zip(rec["tokens"],
+                                                                   one["tokens"]))
+        flash = sum(v["flash_launches"] for v in rec["steps"].values())
+        gram = sum(v["gram_launches"] for v in rec["steps"].values())
+        rows.append(dict(rank=r, gram_rel=gram_rel, count=float(st["count"]),
+                         logit_rel=max(logit_rel), tokens_equal=tokens_equal,
+                         peak_bytes=rec["peak_bytes"], flash_launches=flash,
+                         gram_launches=gram,
+                         step_s={n: v["seconds"] for n, v in rec["steps"].items()}))
+        if gram_rel > gram_bar:
+            problems.append(f"{what}: rank {r}'s Gram off by {gram_rel:.3e} of its largest "
+                            f"(bar {gram_bar:.3e})")
+        if not float(st["count"]) == float(one["state"]["count"]) == plan.batch:
+            problems.append(f"{what}: rank {r}'s count {float(st['count'])}")
+        if max(logit_rel) > logit_bar:
+            problems.append(f"{what}: rank {r}'s logits off by "
+                            + ", ".join(f"{e:.3e}" for e in logit_rel)
+                            + f" of a row's largest (prefill, then each decode step; bar "
+                            f"{logit_bar:.3e})")
+        if not tokens_equal:
+            problems.append(f"{what}: rank {r}'s greedy tokens differ from one rank's")
+        if not gram or (attends and not flash) or (not attends and flash):
+            problems.append(f"{what}: rank {r} launched flash {flash}, Gram {gram} times")
+        for name in ("train", "prefill"):
+            # every scan's (name, carry shapes): a layer at other shapes differs
+            got = set(rec["steps"][name]["scans"])
+            if got != set(want_scans.items()):
+                problems.append(f"{what}: rank {r}'s {name} carries {sorted(got)}, want "
+                                f"{want_scans}")
+        for name, step in rec["steps"].items():
+            got = [tuple(x) for x in step["collectives"]]
+            want = [tuple(x) for x in pred["steps"][name]["collectives"]]
+            if got != want:
+                first = next(i for i in range(max(len(got), len(want)))
+                             if got[i:i + 1] != want[i:i + 1])
+                problems.append(f"{what}: rank {r}'s {name} issued {len(got)} collectives, "
+                                f"the walk predicts {len(want)}; at {first}: "
+                                f"{got[first:first + 1]} against {want[first:first + 1]}")
+            if step["comm_debug"] != len(got):
+                problems.append(f"{what}: rank {r}'s {name}: CommDebugMode counts "
+                                f"{step['comm_debug']} collectives, the walk's counter "
+                                f"{len(got)}")
+    for name in ("train", "prefill"):
+        if repeat[name] > PART_REPEAT:
+            problems.append(f"{what}: {name} repeats work: 4 × rank 0's flops are "
+                            f"{repeat[name]:.4f} × one device's")
+    for name in ("flash_attention", "gram_update"):
+        launches[name] += sum(row["flash_launches" if name == "flash_attention"
+                                  else "gram_launches"] for row in rows)
+    checks_s = time.perf_counter() - t0
+    coll = {name: dict(count=len(v["collectives"]),
+                       bytes={k: sum(x[3] for x in v["collectives"] if x[0] == k)
+                              for k in sorted({x[0] for x in v["collectives"]})})
+            for name, v in pred["steps"].items()}
+    wall_rank = max(sum(row["step_s"].values()) for row in rows)
+    log(f"partitioned {what} ({cfg.num_layers} layers, {plan.batch} × {plan.seq}): "
+        f"steps {wall_rank:.2f} s a rank at most, one rank {one_s:.1f} s, checks "
+        f"{checks_s:.1f} s; Gram "
+        + ", ".join(f"{row['gram_rel']:.3e}" for row in rows) + "; logits "
+        + ", ".join(f"{row['logit_rel']:.3e}" for row in rows)
+        + f" (bars {gram_bar:.3e}, {logit_bar:.3e})"
+        + f"; peak " + ", ".join(str(row["peak_bytes"]) for row in rows) + " B a rank; "
+        f"flash {rows[0]['flash_launches']} / Gram {rows[0]['gram_launches']} a rank; "
+        f"carries {want_scans}; 4 × rank 0 / one device flops "
+        + ", ".join(f"{k} {v:.4f}" for k, v in repeat.items()))
+    log(f"partitioned {what}: collectives a rank (walk = ranks, op for op): "
+        + "; ".join(f"{k} {v['count']} {v['bytes']}" for k, v in coll.items()))
+    return launches, dict(plan=spec, ranks=rows, collectives=coll, rank_s=wall_rank,
+                          checks_s=checks_s, one_rank_s=one_s, repeated_work=repeat,
+                          bars=dict(gram=gram_bar, logits=logit_bar),
+                          carries={k: [list(x) for x in v] for k, v in want_scans.items()},
+                          walk={k: dict(flops=v["cost"]["flops"],
+                                        bytes=v["cost"]["bytes_accessed"],
+                                        peak=v["cost"]["peak_bytes"])
+                                for k, v in pred["steps"].items()}), problems
 
 
 def _leaves(tree):
@@ -4698,7 +4894,15 @@ def main() -> None:
         "panel_update": P.panel_update, "blocked_cholesky": B.blocked_cholesky,
         "cholesky_solve": B.cholesky_solve, "multi_gamma_solve": B.multi_gamma_solve,
         "chol_rank_update": R.chol_rank_update, "flash_attention": FA.flash_attention})
+    marks = [t_start]
+
+    def lap(what: str) -> None:
+        """Log the wall since the last lap: where the smoke's time limit goes."""
+        marks.append(time.perf_counter())
+        log(f"wall: {what} {marks[-1] - marks[-2]:.1f} s (total {marks[-1] - t_start:.1f} s)")
+
     header(K, build)
+    lap("build")
     rows = {"gram_update": kernel_phase(G, ref)}
     rows.update(panel_phase(P, ref))
     rows.update(blocked_phase(K, ref))
@@ -4706,13 +4910,16 @@ def main() -> None:
         rows[name].extend(more)
     for name, more in sharded_kernel_phase(P, ref, S, api).items():
         rows[name].extend(more)
+    lap("kernel phases 1-5")
     rows["flash_attention"] = attention_phase(FA, ref)
+    lap("attention")
     products = [streamed_products(S, P, dt) for dt in (torch.float32, torch.float64)]
     profiles = factor_profiles(S)
     streamed = streamed_phase(S, P)
     x2_launches, x2_rows = precision_phase(K, ref, S)
     for name, more in x2_rows.items():
         rows[name].extend(more)
+    lap("streamed and f32_x2")
     small_check(get_config, D, T, train, FLConfig)
     slice_launches, server, x_te, y_te, sl = slice_phase(K, get_config, D, T, train,
                                                          FLConfig, api)
@@ -4724,31 +4931,40 @@ def main() -> None:
     f64_launches, f64_times = f64_engine_phase(K, S, engine, api, server, x_te, y_te,
                                                FLConfig(gamma=1.0))
     paths.append(f64_launches)
+    lap("slice and device engine")
     paper_launches, pr = paper_round_phase(K, sl, train, afl, partition, streaming, ST,
                                            api, D, FLConfig)
     paths.append(paper_launches)
+    lap("paper round")
     paths.append(federation_phase(K, sl, pr, train, afl, api, service, mux, replication,
                                   checkpoint, FLConfig))
+    lap("federation")
     paths.append(sharded_phase(K, S, distributed, sl, pr, afl, api, service, FLConfig))
+    lap("sharded")
     del server, sl, pr
     gc.collect()
     torch.cuda.empty_cache()
     serve_launches, served = serve_phase(K, get_config, T, L, serve_mod, ST, ref)
     paths.append(serve_launches)
+    lap("serve")
     zoo_launches, zoo = zoo_phase(K, get_config, T, serve_mod, M, D, train, afl, api,
                                   FLConfig)
     paths.append(zoo_launches)
+    lap("zoo")
     gc.collect()
     torch.cuda.empty_cache()
     training_launches, lm_row, training = training_phase(K, ref, get_config, D, T, L, ST,
                                                          train, FLConfig, optim)
     paths.append(training_launches)
     rows["flash_attention"].append(lm_row)
+    lap("training")
     dryrun_launches, dryrun = dryrun_phase(K, Path(__file__).resolve().parent, get_config,
                                            InputShape)
     paths.append(dryrun_launches)
+    lap("dry run")
     partitioned_launches, partitioned = partitioned_phase(K)
     paths.append(partitioned_launches)
+    lap("partitioned")
     launches = {name: sum(p[name] for p in paths) for name in K.ALL}
     if not all(launches.values()):
         fail(f"a kernel of the path was never launched: {launches}")

@@ -31,7 +31,7 @@ import contextlib
 import contextvars
 import math
 import sys
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -40,6 +40,10 @@ _POLICY: contextvars.ContextVar[Optional[dict]] = contextvars.ContextVar(
 _REGION: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
     "local_region", default=None)
 _UNCOUNTED: contextvars.ContextVar[bool] = contextvars.ContextVar("uncounted", default=False)
+# the cost walk's runner of a scan's trips (launch.cost_analysis), and a
+# recorder of each scan's carry shapes (launch.partitioned)
+_SCAN: contextvars.ContextVar[Optional[Callable]] = contextvars.ContextVar("scan", default=None)
+_SCANS: contextvars.ContextVar[Optional[list]] = contextvars.ContextVar("scans", default=None)
 
 Spec = tuple  # one entry per tensor dim: a tuple of mesh axis names, or None
 
@@ -223,3 +227,102 @@ def local_region(fn, device_mesh, in_placements: Sequence, out_placements, *,
                      in_placements=tuple(None if p is None else tuple(p)
                                          for p in in_placements),
                      device_mesh=device_mesh, redistribute_inputs=True)
+
+
+def fed_model_axes(device_mesh) -> tuple[tuple, tuple]:
+    """(federation axes, model axes) of ``device_mesh`` by its axis names."""
+    sizes = axis_sizes(device_mesh)
+    return (tuple(a for a in ("pod", "data") if a in sizes),
+            tuple(a for a in ("model",) if a in sizes))
+
+
+def axes_dividing(axes: tuple, n: int, sizes: dict) -> Optional[tuple]:
+    """``axes`` where their product divides ``n`` and exceeds 1, else None."""
+    total = math.prod(sizes[a] for a in axes)
+    return axes if axes and total > 1 and n % total == 0 else None
+
+
+def heads_region(fn, args: Sequence, in_dims: Sequence[tuple], out_dims: Sequence[tuple],
+                 *, heads: int, name: str):
+    """``fn(*args)`` on each rank's shard of a recurrence: each tensor of
+    ``args`` and of ``fn``'s flat outputs has its (batch dim, heads dim)
+    at its entry of ``in_dims`` / ``out_dims`` (a batch dim None: no batch,
+    as a per-head weight); the batch is split over the federation axes
+    where they divide it, the ``heads`` over 'model' where it divides them
+    (else replicated, the reference's guard). One :func:`local_region`:
+    its inputs' redistribution is its only collective, and ``fn`` sees plain
+    local tensors (a state it makes, at the local shape). ``args`` may hold
+    None (no state yet). With no ``DTensor`` among ``args``, ``fn(*args)``
+    as it is."""
+    mesh = device_mesh_of(*args)
+    if mesh is None:
+        return fn(*args)
+    sizes = axis_sizes(mesh)
+    fed, tp = fed_model_axes(mesh)
+    b = next(a.shape[bd] for a, (bd, _) in zip(args, in_dims)
+             if a is not None and bd is not None)
+    bat, hd = axes_dividing(fed, b, sizes), axes_dividing(tp, heads, sizes)
+
+    def placements(dims):
+        bd, hdim = dims
+        spec = [None] * (max(bd or 0, hdim) + 1)
+        if bd is not None:
+            spec[bd] = bat
+        spec[hdim] = hd
+        return to_placements(tuple(spec), mesh)
+
+    present = [i for i, a in enumerate(args) if a is not None]
+
+    def local(*xs):
+        full = [None] * len(args)
+        for i, x in zip(present, xs):
+            full[i] = x
+        return fn(*full)
+
+    return local_region(local, mesh, [placements(in_dims[i]) for i in present],
+                        tuple(placements(d) for d in out_dims), name=name)(
+        *(args[i] for i in present))
+
+
+def scan(body: Callable, carry, n: int, dim: int = 0, *, name: str = "scan"):
+    """The reference's ``lax.scan`` as a loop: ``carry, y = body(t, carry)``
+    for t in range(n) → (the last carry, the ys stacked on ``dim``). Every
+    trip does the same work on the same shapes (a per-token or per-chunk
+    recurrence). Under the cost walk (``launch.cost_analysis.walk``) the
+    walk runs the trips: the first ones, and the rest counted as the last
+    one repeated, as the reference's HLO analysis multiplies a while body
+    by its trip count. Under :func:`record_scans` the carry's shapes are
+    noted by ``name`` (a carry is a tensor or a tuple of them)."""
+    rec = _SCANS.get()
+    if rec is not None:
+        leaves = carry if isinstance(carry, tuple) else (carry,)
+        rec.append((name, tuple(tuple(t.shape) for t in leaves)))
+    runner = _SCAN.get()
+    if runner is not None:
+        return runner(body, carry, n, dim)
+    ys = []
+    for t in range(n):
+        carry, y = body(t, carry)
+        ys.append(y)
+    return carry, torch.stack(ys, dim)
+
+
+@contextlib.contextmanager
+def scan_runner(runner: Callable):
+    """Run every :func:`scan` inside by ``runner(body, carry, n, dim)``."""
+    token = _SCAN.set(runner)
+    try:
+        yield
+    finally:
+        _SCAN.reset(token)
+
+
+@contextlib.contextmanager
+def record_scans(out: list):
+    """Append (name, carry shapes) of every :func:`scan` run inside to
+    ``out``: on a rank, its local shapes."""
+    token = _SCANS.set(out)
+    try:
+        yield
+    finally:
+        _SCANS.reset(token)

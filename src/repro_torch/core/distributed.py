@@ -745,16 +745,18 @@ def _isolated_main(out_path: str, fn: Callable, args: tuple) -> None:
         raise SystemExit(1)
 
 
-def run_isolated(fn: Callable, *args, timeout: float = 600.0) -> Any:
-    """``fn(*args)`` in a spawned process of its own → its result (through
-    ``torch.save``): for work that leaves state in its process, such as the
-    fake process group of ``launch.mesh.fake_device_mesh``. Raises with the
-    process's traceback if it fails, ``TimeoutError`` (the process
-    killed) if it overruns ``timeout`` seconds."""
+def run_isolated(fn: Callable, *args, timeout: float = 600.0, **kwargs) -> Any:
+    """``fn(*args, **kwargs)`` in a spawned process of its own → its result
+    (through ``torch.save``): for work that leaves state in its process,
+    such as the fake process group of ``launch.mesh.fake_device_mesh``.
+    Raises with the process's traceback if it fails, ``TimeoutError`` (the
+    process killed) if it overruns ``timeout`` seconds."""
     import multiprocessing
     import os
     import tempfile
 
+    if kwargs:
+        fn = functools.update_wrapper(functools.partial(fn, **kwargs), fn)
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="afl-isolated-") as tmp:
         path = os.path.join(tmp, "out.pt")

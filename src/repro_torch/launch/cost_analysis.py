@@ -46,11 +46,12 @@ rank's. ``Cost.replicated`` names the flops that ranks repeat: for each
 global shapes, and for each ``core.act.local_region``, its local flops
 times the chips times (1 − 1/r), r the ranks that share its inputs.
 
-The port's eager loops run every trip where the reference multiplies a
-scan body by its trip count. Where a step's cost is affine in its sequence
-length (the xLSTM family's per-token loops), :func:`affine_walk` walks two
-short lengths and extends the line; ``tests/test_torch_cost_analysis.py``
-holds the extension to full walks.
+The reference multiplies each while body by its trip count
+(``known_trip_count``). The port's recurrences (the xLSTM's per-token
+loops, the SSD's chunk carry) go through ``core.act.scan``: under the walk
+the first trips run and the rest are counted as the last one repeated, so
+a step is walked once at its full length in the time of a few trips;
+``tests/test_torch_cost_analysis.py`` holds it to a walk of every trip.
 """
 
 from __future__ import annotations
@@ -126,8 +127,13 @@ class Cost:
         return self.peak_bytes - self.static_bytes
 
 
-# the fields of ``Cost`` that a walk extends along a line in S
-_AFFINE = ("flops", "bytes_accessed", "static_bytes", "peak_bytes", "peak_aval_bytes", "ops")
+# the counts of ``Cost`` that a walk by trip count keeps exact
+EXACT = ("flops", "bytes_accessed", "static_bytes", "peak_bytes", "peak_aval_bytes", "ops",
+         "collective_bytes", "collective_count", "collective_log")
+# a scan's trips walked before the rest are counted as the last one's
+# repeat: the first may differ (its carry is the caller's), the two after
+# it must agree
+TRIPS = 3
 
 
 @functools.cache
@@ -169,8 +175,10 @@ class _Walk(TorchDispatchMode):
     ``device``; ``chips`` ranks for the replicated flops."""
 
     def __init__(self, device: torch.device, static: set, width_cap: int = 0,
-                 chips: int = 1):
+                 chips: int = 1, trips: Optional[int] = TRIPS):
         super().__init__()
+        self.trips = trips              # a scan's trips walked, None: every one
+        self.high = 0                   # the most live bytes since a scan's trip began
         self.device = device
         self.static = static            # argument storages: held by the caller
         self.live: dict = {}            # storage id → nbytes
@@ -268,7 +276,88 @@ class _Walk(TorchDispatchMode):
                 c.peak_aval_bytes = n
                 c.peak_aval_shape = f"{str(t.dtype).removeprefix('torch.')}{list(t.shape)}"
         c.peak_bytes = max(c.peak_bytes, c.static_bytes + self.live_bytes)
+        self.high = max(self.high, self.live_bytes)
         return out
+
+    # ------------------------------------------------------------- scans
+    def _mark(self) -> dict:
+        c = self.cost
+        self.high = self.live_bytes
+        return dict(flops=c.flops, bytes=c.bytes_accessed, ops=c.ops,
+                    count=c.collective_count, kinds=dict(c.collective_bytes),
+                    log=len(c.collective_log), local=dict(self.local), glob=dict(self.glob),
+                    live=self.live_bytes)
+
+    def _since(self, m: dict) -> dict:
+        """What ran since ``_mark`` gave ``m``: the counts added, the bytes
+        a trip leaves live and its most live above its start."""
+        c = self.cost
+        return dict(
+            flops=c.flops - m["flops"], bytes=c.bytes_accessed - m["bytes"], ops=c.ops - m["ops"],
+            count=c.collective_count - m["count"],
+            kinds={k: v - m["kinds"][k] for k, v in c.collective_bytes.items()},
+            log=list(c.collective_log[m["log"]:]),
+            local={k: (f - m["local"].get(k, (0, r))[0], r) for k, (f, r) in self.local.items()
+                   if f != m["local"].get(k, (0, r))[0]},
+            glob={k: f - m["glob"].get(k, 0) for k, f in self.glob.items()
+                  if f != m["glob"].get(k, 0)},
+            kept=self.live_bytes - m["live"], high=self.high - m["live"])
+
+    def _repeat(self, d: dict, k: int) -> int:
+        """Count ``k`` more trips like the one ``d`` describes; → the bytes
+        they leave live (their outputs), held as if they were."""
+        c = self.cost
+        c.flops += k * d["flops"]
+        c.bytes_accessed += k * d["bytes"]
+        c.ops += k * d["ops"]
+        c.collective_count += k * d["count"]
+        for kind, v in d["kinds"].items():
+            c.collective_bytes[kind] += k * v
+        c.collective_log.extend(d["log"] * k)
+        for name, (f, r) in d["local"].items():
+            self.local[name] = (self.local[name][0] + k * f, r)
+        for name, f in d["glob"].items():
+            self.glob[name] += k * f
+        # the trips start where the last one left off and each keeps ``kept``
+        top = self.live_bytes + max(0, (k - 1) * d["kept"]) + d["high"]
+        c.peak_bytes = max(c.peak_bytes, c.static_bytes + top)
+        self.high = max(self.high, top)
+        self.live_bytes += k * d["kept"]
+        return k * d["kept"]
+
+    def scan(self, body, carry, n: int, dim: int):
+        """``core.act.scan`` under the walk: the first ``trips`` trips run;
+        when more remain, the last two run must agree in every count, and
+        the rest are counted as the last one repeated: its flops, bytes,
+        ops and collectives (the log in order) times the trips left, the
+        bytes each leaves live (its output) held until the stack, and the
+        most live bytes at the last trip. The stack of every trip's output
+        is run (the last one's standing for those not run): a scan cut so
+        gives its result's shapes only, so its carry must be on the meta
+        device."""
+        run = n if self.trips is None else min(n, max(self.trips, 2))
+        if run < n and any(t.device.type != "meta" for t in _locals(carry)):
+            raise ValueError(f"a scan of {n} trips walked by its first {run} has a "
+                             "result right only in its shapes: walk it on meta tensors, "
+                             "or with trips=None")
+        ys, seen = [], []
+        for t in range(run):
+            m = self._mark()
+            carry, y = body(t, carry)
+            ys.append(y)
+            seen.append(self._since(m))
+        held = 0
+        if run < n:
+            if seen[-1] != seen[-2]:
+                diff = sorted(k for k in seen[-1] if seen[-1][k] != seen[-2][k])
+                raise ValueError(f"a scan's trips {run - 2} and {run - 1} differ in {diff}: "
+                                 "the walk cannot count the rest as their repeat")
+            held = self._repeat(seen[-1], n - run)
+            ys += [ys[-1]] * (n - run)
+        out = torch.stack(ys, dim)
+        del ys
+        self.live_bytes -= held
+        return carry, out
 
 
 def _on(t: torch.Tensor, dev: torch.device) -> bool:
@@ -315,20 +404,24 @@ def _locals(tree) -> list:
 
 
 def walk(fn: Callable, *args, device="meta", width_cap: int = 0,
-         chips: int = 1) -> tuple[Cost, Any]:
+         chips: int = 1, trips: Optional[int] = TRIPS) -> tuple[Cost, Any]:
     """Run ``fn(*args)`` once, counting its ops on ``device`` → (cost,
     result). The arguments' storages are static bytes, held across the
     step; the result's stay live at its end. ``DTensor`` arguments count
     by their local tensors. ``width_cap`` caps a collective's element
-    width (bytes), ``chips`` is the rank count of a partitioned step."""
+    width (bytes), ``chips`` is the rank count of a partitioned step.
+    Each ``core.act.scan`` runs its first ``trips`` trips and counts the
+    rest by its trip count (``_Walk.scan``; on meta tensors only, since
+    the result is then right only in its shapes); ``trips=None`` runs
+    every trip."""
     _check_storage_lifetime()
     dev = torch.device(device)
     local_args = _locals(args)
     static = {t.untyped_storage()._cdata for t in local_args if _on(t, dev)}
-    mode = _Walk(dev, static, width_cap, chips)
+    mode = _Walk(dev, static, width_cap, chips, trips)
     mode.cost.static_bytes = storage_bytes(local_args, dev)
     mode.cost.peak_bytes = mode.cost.static_bytes
-    with mode:
+    with mode, act.scan_runner(mode.scan):
         out = fn(*args)
     mode.cost.replicated = mode.replicated()
     return mode.cost, out
@@ -356,39 +449,3 @@ def count_collectives(fn: Callable, *args) -> tuple[Cost, Any]:
     with mode:
         out = fn(*args)
     return mode.walk.cost, out
-
-
-def affine_walk(make: Callable[[int], tuple], s_full: int, s_small=(8, 16),
-                s_check: Optional[int] = None, **kw) -> Cost:
-    """The cost at sequence length ``s_full`` of a step whose every count is
-    affine in S: ``make(s)`` → (fn, args) at length ``s``, walked (``kw``
-    as :func:`walk`'s) at the two lengths of ``s_small`` and the line
-    through them read at ``s_full``; collective bytes and replicated flops
-    by name too (their count and log are the second walk's). With
-    ``s_check`` a third walk there must fall on the line (flops, bytes,
-    collective bytes, each within 1e-3), else ``ValueError``: a
-    partitioned step's shardings can change with S."""
-    s1, s2 = s_small
-    fn, args = make(s1)
-    c1, _ = walk(fn, *args, **kw)
-    fn, args = make(s2)
-    c2, _ = walk(fn, *args, **kw)
-
-    def line(a, b, at=s_full):
-        return int(a + Fraction(b - a, s2 - s1) * (at - s1))
-
-    if s_check is not None:
-        fn, args = make(s_check)
-        c3, _ = walk(fn, *args, **kw)
-        for f in ("flops", "bytes_accessed", "collective_total"):
-            want, got = line(getattr(c1, f), getattr(c2, f), s_check), getattr(c3, f)
-            if abs(got - want) > 1e-3 * max(abs(got), 1):
-                raise ValueError(f"the walk is not affine in S: {f} at S = {s_check} is "
-                                 f"{got}, the line through S = {s1}, {s2} gives {want}")
-    out = dataclasses.replace(c2)
-    for f in _AFFINE:
-        setattr(out, f, line(getattr(c1, f), getattr(c2, f)))
-    out.collective_bytes = {k: line(c1.collective_bytes[k], v)
-                            for k, v in c2.collective_bytes.items()}
-    out.replicated = {k: line(c1.replicated.get(k, 0), v) for k, v in c2.replicated.items()}
-    return out

@@ -76,12 +76,6 @@ from repro_torch.models import transformer as T
 LONG_WINDOW = 4096
 LONG_NATIVE = {"zamba2_7b", "xlstm_350m"}
 LONG_SKIP = {"seamless_m4t_medium"}
-# the families whose step loops over tokens in Python: walked at two short
-# lengths and extended (cost_analysis.affine_walk)
-PER_TOKEN = {"xlstm"}
-# a partitioned affine walk's lengths: two for the line, a third on it (S up
-# to 32 takes other DTensor strategies than longer ones)
-PER_TOKEN_SMALL = (64, 128, 192)
 MESHES = ("one", "single", "multi")
 
 
@@ -237,21 +231,7 @@ def step_cost(cfg: ModelConfig, shape: InputShape, variant: str = "flash",
         place = lambda a: distribute_step(cfg, shape, a, policy_mesh)  # noqa: E731
     with act.activation_policy(policy_mesh, M.batch_axes(mesh), M.model_axes(mesh),
                                flash_surrogate=variant.startswith("flash")):
-        if cfg.arch_type in PER_TOKEN and shape.kind != "decode":
-            def make(s):
-                f, a, _ = build_step(cfg, dataclasses.replace(shape, seq_len=s), variant,
-                                     use_kernel=use_kernel)
-                return f, place(a)
-            del fn, args, static
-            if chips > 1:
-                # DTensor's strategies can change with S: a third length
-                # must fall on the line
-                cost = CA.affine_walk(make, shape.seq_len, PER_TOKEN_SMALL[:2],
-                                      PER_TOKEN_SMALL[2], width_cap=cap, chips=chips)
-            else:
-                cost = CA.affine_walk(make, shape.seq_len, width_cap=cap, chips=chips)
-        else:
-            cost = CA.walk(fn, *place(args), width_cap=cap, chips=chips)[0]
+        cost = CA.walk(fn, *place(args), width_cap=cap, chips=chips)[0]
     attn = attention_flops(cfg, shape) if variant.startswith("flash") else 0.0
     cost.flops += int(attn / chips)
     return {"cost": cost, "attn_flops": attn, "static": static_bytes}

@@ -78,8 +78,21 @@ def make_device_mesh(shape: tuple, axes: tuple, device="cuda"):
     devices. ``device`` is the device type of the ranks' tensors."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(torch.device(device).type, tuple(shape),
-                            mesh_dim_names=tuple(axes))
+    return _federated(init_device_mesh(torch.device(device).type, tuple(shape),
+                                       mesh_dim_names=tuple(axes)))
+
+
+def _federated(device_mesh):
+    """``device_mesh`` with its federation axes flattened into one dim when
+    there are several ('pod', 'data'): DTensor moves a tensor split over
+    both by one collective over the flattened dim once it exists, and by
+    one a dim before, so it is made with the mesh, not by the first step
+    that needs it (the Gram fold): every step, rank and walk then sees
+    the same mesh, whatever ran before it in the process."""
+    fed = batch_axes(device_mesh)
+    if len(fed) > 1:
+        device_mesh[fed]._flatten()
+    return device_mesh
 
 
 def fake_device_mesh(mesh: Mesh, device_type: str = "cuda"):
@@ -106,9 +119,9 @@ def fake_device_mesh(mesh: Mesh, device_type: str = "cuda"):
                            "mesh in a process of its own (launch.dryrun does)")
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=math.prod(mesh.sizes))
-    _FAKE[key] = DeviceMesh(device_type,
-                            torch.arange(math.prod(mesh.sizes)).reshape(mesh.sizes),
-                            mesh_dim_names=tuple(mesh.axis_names))
+    _FAKE[key] = _federated(DeviceMesh(
+        device_type, torch.arange(math.prod(mesh.sizes)).reshape(mesh.sizes),
+        mesh_dim_names=tuple(mesh.axis_names)))
     return _FAKE[key]
 
 

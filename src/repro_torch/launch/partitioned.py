@@ -61,10 +61,12 @@ class Plan:
     seq: int = 32
     decode: int = 4
     seed: int = 0
+    layers: Optional[int] = None     # a depth cut that keeps the widths
 
     def config(self) -> ModelConfig:
         cfg = get_config(self.arch)
-        return cfg if self.reduced is None else cfg.reduced(**self.reduced)
+        cfg = cfg if self.reduced is None else cfg.reduced(**self.reduced)
+        return cfg if self.layers is None else dataclasses.replace(cfg, num_layers=self.layers)
 
 
 def policy(device_mesh):
@@ -163,8 +165,9 @@ def run_steps(device_mesh, plan: Plan, *, device=None, params=None, data=None,
     CPU tensors, the train step's state, the prefill's last-token logits,
     every decode step's logits and the greedy tokens, and for each step
     its collectives (counted as they run; ``comm_debug`` their count by
-    ``CommDebugMode``), flash / Gram kernel launches and wall seconds, and
-    the peak device bytes.
+    ``CommDebugMode``), flash / Gram kernel launches, wall seconds and
+    ``scans``, the recurrences' carry shapes on this rank (``core.act.scan``:
+    name, shapes), and the peak device bytes.
 
     With ``routing`` every step's MoE routing is kept too, each call's
     slots and expert choices as (local block, placements, global shape)
@@ -192,9 +195,10 @@ def run_steps(device_mesh, plan: Plan, *, device=None, params=None, data=None,
     def count(name, fn, *args):
         launches = (_fa.flash_attention.launches, _gram.gram_update.launches)
         seen: list = []
+        scans: list = []
         t0 = time.perf_counter()
-        with policy(device_mesh), (_routing_spy(seen) if routing else
-                                   contextlib.nullcontext()):
+        with policy(device_mesh), act.record_scans(scans), (
+                _routing_spy(seen) if routing else contextlib.nullcontext()):
             if walk:
                 cost, res = CA.walk(fn, *args, device="meta", chips=chips)
             else:
@@ -206,7 +210,8 @@ def run_steps(device_mesh, plan: Plan, *, device=None, params=None, data=None,
             torch.cuda.synchronize(dev)
         rec = {"collectives": _log(cost, groups), "seconds": time.perf_counter() - t0,
                "flash_launches": _fa.flash_attention.launches - launches[0],
-               "gram_launches": _gram.gram_update.launches - launches[1]}
+               "gram_launches": _gram.gram_update.launches - launches[1],
+               "scans": sorted(set(scans))}
         if not walk:
             rec["comm_debug"] = comm.get_total_counts()
         if routing:
@@ -298,6 +303,34 @@ def one_rank_steps(plan: Plan, *, device=None, params=None, data=None,
             "routing": routes}
 
 
+def one_device_walk(plan: Plan) -> dict:
+    """:func:`run_steps`' steps of ``plan`` walked on one device (plain meta
+    tensors, no mesh) → {step name: its cost as a dict}: the work that a
+    partitioned run's ranks share out (chips × rank 0's flops over these
+    is the repeated work's ratio)."""
+    cfg = plan.config()
+    params = T.init_params(cfg, device="meta")
+    data = {k: torch.empty_like(v, device="meta") for k, v in _batch(cfg, plan).items()}
+    costs: dict = {}
+
+    def walk(name, fn, *args):
+        cost, res = CA.walk(fn, *args, device="meta")
+        costs[name] = dataclasses.asdict(cost)
+        return res
+
+    walk("train", ST.make_analytic_train_step(cfg, use_kernel=True), params,
+         streaming.init_state(cfg.d_model, cfg.num_classes, device="meta"), data)
+    prompt = {k: v for k, v in data.items() if k != "labels"}
+    logits, cache = walk("prefill", ST.make_prefill_step(cfg, plan.seq + plan.decode),
+                         params, prompt)
+    serve = ST.make_serve_step(cfg)
+    pos = prompt["tokens"].shape[1] + cfg.prefix_tokens
+    for i in range(plan.decode):
+        logits, cache = walk(f"decode{i}", serve, params, cache,
+                             logits.argmax(-1).to(torch.int32), pos + i)
+    return costs
+
+
 def rank_main(rank: int, device_mesh, plan: Plan, device: str, params_np=None,
               data=None, routing: bool = False) -> dict:
     """``core.distributed.run_ranks``' function: :func:`run_steps` on this
@@ -313,6 +346,22 @@ def rank_main(rank: int, device_mesh, plan: Plan, device: str, params_np=None,
         params = params_from_jax(params_np, plan.config(), device=dev)
     return run_steps(device_mesh, plan, device=dev, params=params, data=data,
                      routing=routing)
+
+
+def plans_main(rank: int, device_mesh, plans, device: str, routing=()) -> list:
+    """``core.distributed.run_ranks``' function for several models on one
+    set of ranks (one spawn): :func:`rank_main` of each of ``plans`` in
+    turn, the MoE routing kept for the archs named in ``routing``, the
+    device's cache emptied between models."""
+    import gc
+
+    out = []
+    for plan in plans:
+        out.append(rank_main(rank, device_mesh, plan, device, routing=plan.arch in routing))
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def moe_rank_main(rank: int, device_mesh, p_np: dict, x_np, moe, activation: str) -> dict:
@@ -333,13 +382,29 @@ def moe_rank_main(rank: int, device_mesh, p_np: dict, x_np, moe, activation: str
             "collectives": _log(cost, axis_groups(device_mesh))}
 
 
-def predict(plans, mesh_shape: tuple, axis_names: tuple, device_type: str) -> list:
+def predict(plans, mesh_shape: tuple, axis_names: tuple, device_type: str, *,
+            whole: bool = False) -> list:
     """Rank 0's steps of each of ``plans`` walked on a fake process group of
     the mesh (this process's one fake mesh; ``core.distributed.run_isolated``
     gives it a process) → :func:`run_steps`' records, each step's
-    collectives and cost."""
+    collectives and cost; with ``whole`` each record's "whole" holds the
+    steps walked on one device (:func:`one_device_walk`)."""
     dm = M.fake_device_mesh(M.Mesh(tuple(mesh_shape), tuple(axis_names)), device_type)
-    return [run_steps(dm, plan, walk=True) for plan in plans]
+    out = []
+    for plan in plans:
+        rec = run_steps(dm, plan, walk=True)
+        if whole:
+            rec["whole"] = one_device_walk(plan)
+        out.append(rec)
+    return out
+
+
+def repeated_work(rec: dict, chips: int) -> dict:
+    """{step: chips × rank 0's walked flops / the one-device walk's} of a
+    :func:`predict` record made with ``whole``: 1 when no rank repeats
+    another's work."""
+    return {name: chips * step["cost"]["flops"] / rec["whole"][name]["flops"]
+            for name, step in rec["steps"].items()}
 
 
 def main(argv=None) -> None:

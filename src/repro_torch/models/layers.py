@@ -178,12 +178,9 @@ def attention_spec(b: int, hq: int, hkv: int, device_mesh) -> tuple:
     group`` lies on the same rank), else replicated (the reference's
     ``act`` guard)."""
     sizes = act.axis_sizes(device_mesh)
-    fed = tuple(a for a in ("pod", "data") if a in sizes)
-    tp = tuple(a for a in ("model",) if a in sizes)
-    nf = math.prod(sizes[a] for a in fed)
-    nt = math.prod(sizes[a] for a in tp)
-    bat = fed if nf > 1 and b % nf == 0 else None
-    heads = tp if nt > 1 and hq % nt == 0 and hkv % nt == 0 else None
+    fed, tp = act.fed_model_axes(device_mesh)
+    bat = act.axes_dividing(fed, b, sizes)
+    heads = tp if act.axes_dividing(tp, math.gcd(hq, hkv), sizes) else None
     return (bat, heads, None, None)
 
 

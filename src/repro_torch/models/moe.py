@@ -111,8 +111,7 @@ def _axes(mesh=None):
         fed, tp, sizes = pol["batch"], pol["model"], pol["sizes"]
     else:
         sizes = act.axis_sizes(mesh)
-        fed = tuple(a for a in ("pod", "data") if a in sizes)
-        tp = tuple(a for a in ("model",) if a in sizes)
+        fed, tp = act.fed_model_axes(mesh)
     return fed, tp, (math.prod(sizes[a] for a in fed), math.prod(sizes[a] for a in tp))
 
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import SSMConfig
+from repro_torch.core import act
 from repro_torch.models import layers as L
 
 
@@ -74,23 +75,24 @@ def _causal_conv(xbc, conv_w, cache=None):
     return F.silu(out), new_cache
 
 
-def mamba_apply(p, x, cfg: SSMConfig, *, init_state=None, return_state=False):
-    """Full-sequence (prefill) chunked SSD. x: (B, S, D)."""
-    b, s, d_model = x.shape
-    d_inner, nh, dh, conv_dim = dims(d_model, cfg)
-    ds = cfg.d_state
-    z, xbc, dt_raw = _split_proj(x @ p["in_proj"], d_inner, ds, nh)
-    xbc, conv_cache = _causal_conv(xbc, p["conv_w"],
-                                   None if init_state is None else init_state["conv"])
+def _ssd(x_part, b_part, c_part, dt_raw, a_log, d_skip, dt_bias, chunk, h0=None):
+    """The chunked SSD of x (B, S, nh·dh), B and C (B, S, ds), dt_raw
+    (B, S, nh) from the state h0 (B, nh, ds, dh), zeros when None → (y
+    (B, S, nh, dh) f32 with the skip term, the last state), at whatever B
+    and nh it is given (a rank's shard)."""
+    b, s, _ = x_part.shape
+    nh = dt_raw.shape[-1]
+    dh = x_part.shape[-1] // nh
+    ds = b_part.shape[-1]
     f32 = torch.float32
-    xs = xbc[..., :d_inner].reshape(b, s, nh, dh).to(f32)
-    bmat = xbc[..., d_inner: d_inner + ds].to(f32)                      # (B,S,ds)
-    cmat = xbc[..., d_inner + ds:].to(f32)                              # (B,S,ds)
-    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"])                      # (B,S,nh)
-    neg_a = torch.exp(p["a_log"])                                       # (nh,)
+    xs = x_part.reshape(b, s, nh, dh).to(f32)
+    bmat = b_part.to(f32)                                               # (B,S,ds)
+    cmat = c_part.to(f32)                                               # (B,S,ds)
+    dt = F.softplus(dt_raw.to(f32) + dt_bias)                           # (B,S,nh)
+    neg_a = torch.exp(a_log)                                            # (nh,)
     log_g = -dt * neg_a                                                 # log decay ≤ 0
 
-    c = min(cfg.chunk, s)
+    c = min(chunk, s)
     nc = -(-s // c)
     pad = nc * c - s
     if pad:
@@ -113,7 +115,7 @@ def mamba_apply(p, x, cfg: SSMConfig, *, init_state=None, return_state=False):
     # (C_t·B_s) · decay first, one (B,nc,nh,t,s) tensor, then a batched
     # product over s with xw.
     decay = torch.exp(gcum[:, :, :, None] - gcum[:, :, None, :])       # (B,nc,t,s,nh)
-    causal = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    causal = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x_part.device))
     decay = torch.where(causal[None, None, :, :, None], decay, 0.0)
     scores = torch.einsum("bnte,bnse->bnts", c_c, b_c)                  # C_t·B_s
     m = (scores[..., None] * decay).permute(0, 1, 4, 2, 3)              # (B,nc,nh,t,s)
@@ -125,16 +127,51 @@ def mamba_apply(p, x, cfg: SSMConfig, *, init_state=None, return_state=False):
     chunk_states = torch.einsum("bnse,bnshd->bnhed", b_c, w_state[..., None] * xw)
 
     # inter-chunk carry: the state entering each chunk
-    h = (torch.zeros((b, nh, ds, dh), dtype=f32, device=x.device) if init_state is None
-         else init_state["ssd"].to(f32))
-    h_prevs = []
-    for n in range(nc):
-        h_prevs.append(h)
-        h = h * torch.exp(gtot[:, n])[..., None, None] + chunk_states[:, n]
-    h_prevs = torch.stack(h_prevs, dim=1)                               # (B,nc,nh,ds,dh)
+    h = (torch.zeros((b, nh, ds, dh), dtype=f32, device=x_part.device) if h0 is None
+         else h0.to(f32))
+
+    def carry(n, h):
+        return h * torch.exp(gtot[:, n])[..., None, None] + chunk_states[:, n], h
+
+    h, h_prevs = act.scan(carry, h, nc, 1, name="ssd")                 # (B,nc,nh,ds,dh)
     y_inter = torch.einsum("bnte,bnhed->bnthd", c_c, h_prevs) * torch.exp(gcum)[..., None]
     y = (y_intra + y_inter).reshape(b, nc * c, nh, dh)[:, :s]
-    y = y + xs.reshape(b, nc * c, nh, dh)[:, :s] * p["d_skip"][None, None, :, None]
+    y = y + xs.reshape(b, nc * c, nh, dh)[:, :s] * d_skip[None, None, :, None]
+    return y, h
+
+
+def _ssd_step(x_vec, b_vec, c_vec, dt_raw, a_log, d_skip, dt_bias, h0):
+    """One token of the SSD: x (B, nh·dh), B and C (B, ds), dt_raw (B, nh),
+    the state h0 (B, nh, ds, dh) → (y (B, nh, dh) f32, the new state)."""
+    b, nh = dt_raw.shape
+    f32 = torch.float32
+    xs = x_vec.reshape(b, nh, x_vec.shape[-1] // nh).to(f32)
+    bvec = b_vec.to(f32)
+    cvec = c_vec.to(f32)
+    dt = F.softplus(dt_raw.to(f32) + dt_bias)                           # (B,nh)
+    g = torch.exp(-dt * torch.exp(a_log))                               # decay
+    xw = xs * dt[..., None]
+    h = h0 * g[..., None, None] + bvec[:, None, :, None] * xw[:, :, None, :]
+    y = torch.einsum("be,bhed->bhd", cvec, h) + xs * d_skip[None, :, None]
+    return y, h
+
+
+def _vecs(p):
+    return p["a_log"], p["d_skip"], p["dt_bias"]
+
+
+def mamba_apply(p, x, cfg: SSMConfig, *, init_state=None, return_state=False):
+    """Full-sequence (prefill) chunked SSD. x: (B, S, D)."""
+    if act.device_mesh_of(x) is not None:
+        return _sharded(p, x, cfg, init_state, return_state, decode=False)
+    b, s, d_model = x.shape
+    d_inner, nh, dh, conv_dim = dims(d_model, cfg)
+    ds = cfg.d_state
+    z, xbc, dt_raw = _split_proj(x @ p["in_proj"], d_inner, ds, nh)
+    xbc, conv_cache = _causal_conv(xbc, p["conv_w"],
+                                   None if init_state is None else init_state["conv"])
+    y, h = _ssd(xbc[..., :d_inner], xbc[..., d_inner: d_inner + ds], xbc[..., d_inner + ds:],
+                dt_raw, *_vecs(p), cfg.chunk, None if init_state is None else init_state["ssd"])
     y = y.reshape(b, s, d_inner).to(x.dtype) * F.silu(z)
     out = y @ p["out_proj"]
     if return_state:
@@ -144,22 +181,81 @@ def mamba_apply(p, x, cfg: SSMConfig, *, init_state=None, return_state=False):
 
 def mamba_decode(p, x, state, cfg: SSMConfig):
     """Single-token step. x: (B, 1, D); state: {'conv','ssd'}."""
+    if act.device_mesh_of(x) is not None:
+        return _sharded(p, x, cfg, state, True, decode=True)
     b, _, d_model = x.shape
     d_inner, nh, dh, _ = dims(d_model, cfg)
     ds = cfg.d_state
-    f32 = torch.float32
     z, xbc, dt_raw = _split_proj(x @ p["in_proj"], d_inner, ds, nh)
     xbc, conv_cache = _causal_conv(xbc, p["conv_w"], state["conv"])
-    xs = xbc[:, 0, :d_inner].reshape(b, nh, dh).to(f32)
-    bvec = xbc[:, 0, d_inner: d_inner + ds].to(f32)
-    cvec = xbc[:, 0, d_inner + ds:].to(f32)
-    dt = F.softplus(dt_raw[:, 0].to(f32) + p["dt_bias"])               # (B,nh)
-    g = torch.exp(-dt * torch.exp(p["a_log"]))                          # decay
-    xw = xs * dt[..., None]
-    h = state["ssd"] * g[..., None, None] + bvec[:, None, :, None] * xw[:, :, None, :]
-    y = torch.einsum("be,bhed->bhd", cvec, h) + xs * p["d_skip"][None, :, None]
+    y, h = _ssd_step(xbc[:, 0, :d_inner], xbc[:, 0, d_inner: d_inner + ds],
+                     xbc[:, 0, d_inner + ds:], dt_raw[:, 0], *_vecs(p), state["ssd"])
     y = y.reshape(b, 1, d_inner).to(x.dtype) * F.silu(z)
     return y @ p["out_proj"], {"conv": conv_cache, "ssd": h}
+
+
+def _sharded(p, x, cfg: SSMConfig, state, return_state: bool, *, decode: bool):
+    """The mixer of ``DTensor`` x on each rank's shards, in one
+    ``act.local_region``: the batch over the federation axes; z, x, dt,
+    the conv's x channels, the SSD and its state over 'model' by heads
+    (where they divide nh); B and C projected and convolved split over
+    'model' by channel (where they divide 2·ds) and all-gathered before
+    the SSD, their one collective. ``in_proj`` is cut into those parts as
+    weights, so no rank gathers the whole projection. The state keeps the
+    cache's placements outside the region; out_proj (row parallel) after
+    it."""
+    from torch.distributed import _functional_collectives as funcol
+
+    # torch 2.13 renames all_gather_tensor (its old name warns)
+    _all_gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+    mesh = act.device_mesh_of(x)
+    b, s, d_model = x.shape
+    d_inner, nh, dh, conv_dim = dims(d_model, cfg)
+    ds = cfg.d_state
+    sizes = act.axis_sizes(mesh)
+    fed, tp = act.fed_model_axes(mesh)
+    bat, hd = act.axes_dividing(fed, b, sizes), act.axes_dividing(tp, nh, sizes)
+    bcs = act.axes_dividing(tp, 2 * ds, sizes)
+    # the cuts fall within a rank's columns once 'model' no longer splits
+    # them: one gather of the weight, not one a part
+    w, cw = act.constrain(p["in_proj"], ("batch", None)), p["conv_w"]
+    weights = (w[:, :d_inner], w[:, d_inner: 2 * d_inner], w[:, 2 * d_inner: 2 * d_inner + 2 * ds],
+               w[:, 2 * d_inner + 2 * ds:], cw[:, :d_inner], cw[:, d_inner:]) + _vecs(p)
+    args = (x,) + weights
+    specs = [(bat, None, None), (None, hd), (None, hd), (None, bcs), (None, hd), (None, hd),
+             (None, bcs), (hd,), (hd,), (hd,)]
+    if state is not None:
+        conv = act.constrain(state["conv"], ("batch", None, None))
+        args += (conv[..., :d_inner], conv[..., d_inner:], state["ssd"])
+        specs += [(bat, None, hd), (bat, None, bcs), (bat, hd)]
+    outs = [(bat, None, hd), (bat, None, hd), (bat, None, bcs), (bat, hd)]
+    group = (mesh, list(mesh.mesh_dim_names).index(tp[0])) if bcs else None
+
+    def local(x_l, w_z, w_x, w_bc, w_dt, cw_x, cw_bc, a_log, d_skip, dt_bias, *st):
+        conv_x0, conv_bc0, h0 = st or (None, None, None)
+        z = x_l @ w_z
+        xin, conv_x = _causal_conv(x_l @ w_x, cw_x, conv_x0)
+        bc, conv_bc = _causal_conv(x_l @ w_bc, cw_bc, conv_bc0)
+        if group is not None:
+            bc = _all_gather(bc, bc.dim() - 1, group)
+            if isinstance(bc, funcol.AsyncCollectiveTensor):
+                bc = bc.wait()
+        dt_raw = x_l @ w_dt
+        vecs = (a_log, d_skip, dt_bias)
+        if decode:
+            y, h = _ssd_step(xin[:, 0], bc[:, 0, :ds], bc[:, 0, ds:], dt_raw[:, 0], *vecs, h0)
+        else:
+            y, h = _ssd(xin, bc[..., :ds], bc[..., ds:], dt_raw, *vecs, cfg.chunk, h0)
+        y = y.reshape(xin.shape).to(x_l.dtype) * F.silu(z)
+        return y, conv_x, conv_bc, h
+
+    y, conv_x, conv_bc, h = act.local_region(
+        local, mesh, [act.to_placements(sp, mesh) for sp in specs],
+        tuple(act.to_placements(sp, mesh) for sp in outs), name="mamba")(*args)
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, {"conv": torch.cat([conv_x, conv_bc], dim=-1), "ssd": h}
+    return out
 
 
 def init_mamba_state(batch, d_model, cfg: SSMConfig, dtype=torch.float32, device=None):

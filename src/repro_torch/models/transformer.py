@@ -155,6 +155,7 @@ def _block_fwd(p, cfg: ModelConfig, x, positions, window, theta, *, causal=True,
         new_kv = (ck, cv)
     x = x + L.attn_out(p["attn"], attn)
     if memory_kv is not None:
+        x = act.constrain_bsd(x)
         hx = L.norm_apply(p["ln_x"], x, cfg.norm_eps, cfg.norm)
         qx, _, _ = L.qkv_project(p["xattn"], dims, hx, positions, None)
         mk, mv = memory_kv
@@ -510,7 +511,8 @@ def _xlstm_run(params, cfg, x, states=None):
         for li, lp in enumerate(gp):
             x = _xlstm_layer(X.mlstm_apply, lp, cfg, act.constrain_bsd(x),
                              at("mlstm_groups", gi, li))
-        x = _xlstm_layer(X.slstm_apply, params["slstm"][gi], cfg, x, at("slstm", gi))
+        x = _xlstm_layer(X.slstm_apply, params["slstm"][gi], cfg, act.constrain_bsd(x),
+                         at("slstm", gi))
     for li, lp in enumerate(params.get("mlstm_tail", [])):
         x = _xlstm_layer(X.mlstm_apply, lp, cfg, act.constrain_bsd(x), at("mlstm_tail", li))
     x = _final(params, cfg, x)
@@ -543,7 +545,7 @@ def _encode(params, cfg, enc_feats):
     positions = _positions(x.shape[0], x.shape[1], x.device)
     for lp in params["enc_layers"]:
         x, _ = _block_fwd(lp, cfg, x, positions, 0, cfg.rope_theta, causal=False)
-    return L.norm_apply(params["enc_norm"], x, cfg.norm_eps, cfg.norm)
+    return L.norm_apply(params["enc_norm"], act.constrain_bsd(x), cfg.norm_eps, cfg.norm)
 
 
 def _decoder_input(params, batch):

@@ -58,10 +58,30 @@ def _mlstm_step(state, q, k, v, i_raw, f_raw):
     return (c_mat, n_vec, m_new), h
 
 
+def _mlstm_scan(q, k, v, i_raw, f_raw, c=None, n=None, m=None):
+    """The mLSTM over the tokens of q, k, v (B, S, H, dh) and i_raw, f_raw
+    (B, S, H) from the state (c, n, m), zeros when None → (h (B, S, H,
+    dh), the last state), at whatever B and H it is given (a rank's
+    shard)."""
+    b, _, heads, dh = q.shape
+    if c is None:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        c, n, m = (torch.zeros((b, heads, dh, dh), **f32), torch.zeros((b, heads, dh), **f32),
+                   torch.full((b, heads), M_INIT, **f32))
+
+    def trip(t, state):
+        return _mlstm_step(state, q[:, t], k[:, t], v[:, t], i_raw[:, t], f_raw[:, t])
+
+    state, h = act.scan(trip, (c, n, m), q.shape[1], 1, name="mlstm")
+    return h, state
+
+
 def _gates(x):
-    """A projection about to be cut into its gates (B, S, G·H·dh): under a
+    """A projection about to be cut into its parts (B, S, G·F): under a
     policy its features are first replicated, since a split over 'model'
-    does not fall between the G gates."""
+    does not fall between the G parts, and its batch split over the
+    federation axes, where DTensor's product may have left it a partial
+    sum over them."""
     return act.constrain(x, ("batch", None, None))
 
 
@@ -70,24 +90,18 @@ def mlstm_apply(p, x, num_heads, *, init_state=None, return_state=False):
     b, s, d_model = x.shape
     d_inner, dh = _inner(d_model, num_heads)
     f32 = torch.float32
-    up = x @ p["up"]
+    up = _gates(x @ p["up"])
     x_in, gate = up[..., :d_inner], up[..., d_inner:]
     qkv = _gates(x_in @ p["qkv"]).to(f32).reshape(b, s, 3, num_heads, dh)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1] / math.sqrt(dh), qkv[:, :, 2]   # (B,S,H,dh)
     if_g = (x_in @ p["if_proj"]).to(f32).reshape(b, s, 2, num_heads)
     i_raw, f_raw = if_g[:, :, 0], if_g[:, :, 1]                           # (B,S,H)
 
-    if init_state is None:
-        state = (torch.zeros((b, num_heads, dh, dh), dtype=f32, device=x.device),
-                 torch.zeros((b, num_heads, dh), dtype=f32, device=x.device),
-                 torch.full((b, num_heads), M_INIT, dtype=f32, device=x.device))
-    else:
-        state = (init_state["c"], init_state["n"], init_state["m"])
-    hs = []
-    for t in range(s):
-        state, h = _mlstm_step(state, q[:, t], k[:, t], v[:, t], i_raw[:, t], f_raw[:, t])
-        hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(b, s, d_inner)
+    state = None if init_state is None else (init_state["c"], init_state["n"], init_state["m"])
+    h, state = act.heads_region(_mlstm_scan, (q, k, v, i_raw, f_raw) + (state or (None,) * 3),
+                                [(0, 2)] * 5 + [(0, 1)] * 3, [(0, 2)] + [(0, 1)] * 3,
+                                heads=num_heads, name="mlstm")
+    h = h.reshape(b, s, d_inner)
     out = (h.to(x.dtype) * F.silu(gate)) @ p["down"]
     if return_state:
         return out, {"c": state[0], "n": state[1], "m": state[2]}
@@ -139,25 +153,39 @@ def _slstm_step(r, state, wx_t):
     return (c, n, h_new, m_new), h_new
 
 
+def _slstm_scan(wx, r, c=None, n=None, h=None, m=None):
+    """The sLSTM over the tokens of wx (B, S, 4, H, dh), with the recurrent
+    kernel r (4, H, dh, dh), from the state (c, n, h, m), zeros when None →
+    (h (B, S, H, dh), the last state), at whatever B and H it is given: r
+    and the scalar gates (a mean over dh) are per head, so a head shard
+    needs no other."""
+    b, _, _, heads, dh = wx.shape
+    if c is None:
+        f32 = dict(dtype=torch.float32, device=wx.device)
+        zeros = torch.zeros((b, heads, dh), **f32)
+        c, n, h, m = zeros, zeros, zeros, torch.full((b, heads), M_INIT, **f32)
+    r = r.to(torch.float32)
+
+    def trip(t, state):
+        return _slstm_step(r, state, wx[:, t])
+
+    state, hs = act.scan(trip, (c, n, h, m), wx.shape[1], 1, name="slstm")
+    return hs, state
+
+
 def slstm_apply(p, x, num_heads, *, init_state=None, return_state=False):
     b, s, d_model = x.shape
     d_inner, dh = _inner(d_model, num_heads)
     f32 = torch.float32
-    up = x @ p["up"]
+    up = _gates(x @ p["up"])
     x_in, gate = up[..., :d_inner], up[..., d_inner:]
     wx = _gates(x_in @ p["wx"]).to(f32).reshape(b, s, 4, num_heads, dh)
-    if init_state is None:
-        zeros = torch.zeros((b, num_heads, dh), dtype=f32, device=x.device)
-        state = (zeros, zeros, zeros,
-                 torch.full((b, num_heads), M_INIT, dtype=f32, device=x.device))
-    else:
-        state = (init_state["c"], init_state["n"], init_state["h"], init_state["m"])
-    r = p["r"].to(f32)
-    hs = []
-    for t in range(s):
-        state, h = _slstm_step(r, state, wx[:, t])
-        hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(b, s, d_inner)
+    state = None if init_state is None else (init_state["c"], init_state["n"],
+                                             init_state["h"], init_state["m"])
+    h, state = act.heads_region(_slstm_scan, (wx, p["r"]) + (state or (None,) * 4),
+                                [(0, 3), (None, 1)] + [(0, 1)] * 4,
+                                [(0, 2)] + [(0, 1)] * 4, heads=num_heads, name="slstm")
+    h = h.reshape(b, s, d_inner)
     out = (h.to(x.dtype) * F.silu(gate)) @ p["down"]
     if return_state:
         return out, {"c": state[0], "n": state[1], "h": state[2], "m": state[3]}

@@ -7,8 +7,8 @@ prefill and decode steps of one arch per family. Where they differ the
 test names why and checks the difference to the flop. ``attention_flops``
 and ``resolve_config`` are held to the reference's, read from its source:
 importing ``repro.launch.dryrun`` would set ``XLA_FLAGS``. The walk's bytes
-and live-storage accounting are checked on small functions, and the
-affine extension of the per-token families against full walks. On a
+and live-storage accounting are checked on small functions, and the walk
+by trip count of the per-token loops against walks of every trip. On a
 fake process group (a process of its own), small DTensor programs: rank
 0's flops, the collectives by kind and bytes (all-reduce, all-gather, and
 on a CUDA mesh DTensor's all-to-all), the width cap, and the flops ranks
@@ -136,23 +136,95 @@ def test_attention_flops_and_resolve_config_match_reference():
         ref["LONG_WINDOW"], ref["LONG_NATIVE"], ref["LONG_SKIP"])
 
 
-@pytest.mark.parametrize("kind", ["train", "prefill"])
-def test_affine_extension_equals_full_walks(kind):
-    """The per-token family's every count read off the line through S = 8
-    and 16 equals a full walk's at S = 24 and 32."""
-    cfg = get_config("xlstm_350m").reduced()
+def _trip_walks(kind: str, mesh_shape) -> list:
+    """Reduced xLSTM's ``kind`` step at S = 24 and 32 walked by trip count
+    and walked through every trip, on one device (``mesh_shape`` None) or,
+    in a process of its own, partitioned on a fake process group of
+    ``mesh_shape`` → [(S, per-trip counts, full counts)]."""
+    from repro_torch.core import act
+    from repro_torch.launch import mesh as M
 
-    def make(s):
-        fn, args, _ = DR.build_step(cfg, InputShape("t", s, B, kind), "flash")
-        return fn, args
-
+    cfg = get_config("xlstm_350m").reduced(num_layers=5)
+    dm = None if mesh_shape is None else M.fake_device_mesh(
+        M.Mesh(tuple(mesh_shape), ("data", "model")), "cpu")
+    out = []
     for s in (24, 32):
-        fn, args = make(s)
-        full, _ = CA.walk(fn, *args)
-        ext = CA.affine_walk(make, s)
-        for f in CA._AFFINE:
-            assert getattr(ext, f) == getattr(full, f), (s, f)
-        assert ext.flops > 0 and ext.peak_bytes > ext.static_bytes
+        shape = InputShape("t", s, 4, kind)
+        counts = []
+        for trips in (CA.TRIPS, None):
+            fn, args, _ = DR.build_step(cfg, shape, "flash")
+            if dm is None:
+                cost, _ = CA.walk(fn, *args, trips=trips)
+            else:
+                with act.activation_policy(dm, ("data",), ("model",), flash_surrogate=True):
+                    cost, _ = CA.walk(fn, *DR.distribute_step(cfg, shape, args, dm), chips=4,
+                                      trips=trips)
+            counts.append({f: getattr(cost, f) for f in CA.EXACT})
+        out.append((s, *counts))
+    return out
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (2, 2)], ids=["one", "fake_2x2"])
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_walk_by_trip_count_equals_full_walk(kind, mesh_shape):
+    """Reduced xLSTM (two groups and a tail) at S = 24 and 32: the walk
+    that runs a scan's first trips and counts the rest as the last one's
+    repeat gives every count of a walk through every trip (flops, bytes,
+    static and peak bytes, the largest intermediate, ops, and the
+    collectives by kind, count and log in order), on one device and as a
+    partitioned step on a fake (2, 2) mesh."""
+    if mesh_shape is None:
+        walks = _trip_walks(kind, None)
+    else:
+        from repro_torch.core.distributed import run_isolated
+
+        walks = run_isolated(_trip_walks, kind, mesh_shape, timeout=300)
+    for s, per_trip, full in walks:
+        for f in CA.EXACT:
+            assert per_trip[f] == full[f], (s, f)
+        assert full["flops"] > 0 and full["peak_bytes"] > full["static_bytes"]
+        if mesh_shape is not None:
+            assert full["collective_count"] == len(full["collective_log"]) > 0
+    assert walks[0][1]["flops"] < walks[1][1]["flops"]
+
+
+def test_walk_by_trip_count_refuses_trips_that_differ():
+    """A scan whose trips do not repeat (a shape that grows) cannot be
+    counted by its trip count: the walk raises rather than extrapolate."""
+    from repro_torch.core import act
+
+    def grows(t, carry):
+        return torch.cat([carry, carry[:1]]), carry.sum()
+
+    def fn(x):
+        return act.scan(grows, x, 6)
+
+    with pytest.raises(ValueError, match="trips 1 and 2 differ"):
+        CA.walk(fn, torch.empty(4, device="meta"))
+    cost, (carry, ys) = CA.walk(fn, torch.empty(4, device="meta"), trips=None)
+    assert tuple(carry.shape) == (10,) and tuple(ys.shape) == (6,)
+
+
+def test_walk_by_trip_count_refuses_a_carry_off_meta():
+    """A scan walked by its first trips gives a result right only in its
+    shapes: on real tensors the walk raises, and with every trip run it
+    gives the loop's own result."""
+    from repro_torch.core import act
+
+    def adds(t, carry):
+        return carry + t, carry.sum()
+
+    def fn(x):
+        return act.scan(adds, x, 6)
+
+    x = torch.zeros(4)
+    with pytest.raises(ValueError, match="meta tensors"):
+        CA.walk(fn, x, device="cpu")
+    _, (carry, ys) = CA.walk(fn, x, device="cpu", trips=None)
+    want_carry, want_ys = fn(x)
+    assert torch.equal(carry, want_carry) and torch.equal(ys, want_ys)
+    _, (carry, ys) = CA.walk(fn, torch.empty(4, device="meta"))
+    assert tuple(carry.shape) == (4,) and tuple(ys.shape) == (6,)
 
 
 def test_walk_bytes_and_live_storage():

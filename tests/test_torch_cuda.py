@@ -1928,3 +1928,87 @@ def test_dtensor_to_a_kernel_wrapper_raises(nccl_mesh):
         with pytest.raises(TypeError, match="DTensor"):
             with torch.no_grad():
                 call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm_350m", "zamba2_7b", "seamless_m4t_medium"])
+def test_partitioned_family_steps_on_the_card_match_the_cpu(nccl_mesh, arch):
+    """One rank of each family's partitioned steps on the card (a (1, 1) NCCL
+    mesh: every recurrence through its local region, attention through the
+    flash kernel) against the plain steps on the CPU from the same weights:
+    the Gram within 1e-4 of its largest entry, the count exact, logits
+    within 1e-3 of a row's largest, the same tokens; one Gram launch, flash
+    launches where the family attends, the recurrences' carries noted."""
+    from repro_torch.launch import partitioned as PT
+    from repro_torch.models import transformer as T
+
+    plan = PT.Plan(arch, reduced=dict(num_classes=8), layers=5, batch=4, seq=32, decode=3)
+    cfg = plan.config()
+    params = T.init_params(cfg, seed=0, device="cpu")
+    out = PT.run_steps(nccl_mesh, plan, device="cuda", params=_tree_to(params, "cuda"))
+    one = PT.one_rank_steps(plan, device="cpu", params=params)
+    steps = out["steps"]
+    assert steps["train"]["gram_launches"] == 1
+    attends = cfg.arch_type != "xlstm"
+    assert all((v["flash_launches"] > 0) == attends for v in steps.values())
+    want = {"xlstm": {"mlstm", "slstm"}, "hybrid": {"ssd"}}.get(cfg.arch_type, set())
+    assert {name for name, _ in steps["train"]["scans"]} == want
+    g = one["state"]["gram"]
+    assert float((out["state"]["gram"] - g).abs().max() / g.abs().max()) < 1e-4
+    assert float(out["state"]["count"]) == plan.batch
+    for a, b in zip(out["logits"], one["logits"]):
+        assert float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max()) < 1e-3
+    assert all(torch.equal(a, b) for a, b in zip(out["tokens"], one["tokens"]))
+
+
+@pytest.mark.cuda
+def test_recurrence_regions_match_their_plain_loops(nccl_mesh):
+    """The mLSTM, sLSTM and Mamba2 mixers (apply from no state and from a
+    state, Mamba2's decode step) on DTensors of a (1, 1) NCCL mesh, each
+    recurrence in its ``act.local_region``, against the same functions on
+    plain CUDA tensors (the plain loop): outputs and states within rtol
+    1e-5 / atol 1e-6."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from repro_torch.config import SSMConfig
+    from repro_torch.launch import partitioned as PT
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import xlstm as X
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d, heads, b, s = 64, 4, 2, 24
+    cfg = SSMConfig(d_state=16, chunk=8, num_heads=4)
+    x = torch.randn((b, s, d), generator=gen, device="cuda")
+
+    def dist(tree):
+        if isinstance(tree, dict):
+            return {k: dist(v) for k, v in tree.items()}
+        return distribute_tensor(tree, nccl_mesh, [Replicate(), Replicate()])
+
+    def close(got, want):
+        if isinstance(want, dict):
+            for k in want:
+                close(got[k], want[k])
+            return
+        assert isinstance(got, DTensor)
+        torch.testing.assert_close(got.full_tensor(), want, rtol=1e-5, atol=1e-6)
+
+    mixers = [(X.mlstm_apply, X.init_mlstm(gen, d, heads, torch.float32, "cuda"), heads),
+              (X.slstm_apply, X.init_slstm(gen, d, heads, torch.float32, "cuda"), heads),
+              (SSM.mamba_apply, SSM.init_mamba(gen, d, cfg, torch.float32, "cuda"), cfg)]
+    with torch.no_grad(), PT.policy(nccl_mesh):
+        for apply, p, arg in mixers:
+            want, state = apply(p, x[:, :16], arg, return_state=True)
+            got, got_state = apply(dist(p), dist(x[:, :16]), arg, return_state=True)
+            close(got, want)
+            close(got_state, state)
+            want, want_state = apply(p, x[:, 16:], arg, init_state=state, return_state=True)
+            got, got_state = apply(dist(p), dist(x[:, 16:]), arg, init_state=dist(state),
+                                   return_state=True)
+            close(got, want)
+            close(got_state, want_state)
+            if apply is SSM.mamba_apply:
+                want, want_state = SSM.mamba_decode(p, x[:, :1], state, cfg)
+                got, got_state = SSM.mamba_decode(dist(p), dist(x[:, :1]), dist(state), cfg)
+                close(got, want)
+                close(got_state, want_state)

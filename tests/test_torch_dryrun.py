@@ -192,3 +192,43 @@ def test_pod_mesh_steps_are_partitioned(mesh_name):
         assert all(v > 0 for v in r["replicated"].values()), what
         np.testing.assert_allclose(r["flops"] * chips - sum(r["replicated"].values()),
                                    r["global_flops"], rtol=1e-9, err_msg=what)
+
+
+def _record(arch: str, shape: str, mesh_name: str, before: str) -> dict:
+    """``arch``'s record of a cell walked in a process that walked
+    ``before``'s at the same shape first."""
+    DR.run_one(before, shape, mesh_name, "flash")
+    rec = DR.run_one(arch, shape, mesh_name, "flash")
+    rec.pop("walk_s", None)
+    return rec
+
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+def test_xlstm_pod_cells_walk_by_trip_count(mesh_name, tmp_path, capsys):
+    """Every xLSTM cell of a pod mesh gives an ``ok`` record through the
+    CLI (its per-token loops walked by trip count, at full length), each
+    recurrence on its rank's batch shard, and another fresh process gives
+    the same record, though it walked minicpm's train step first: what
+    a process walked before cannot change a record (the flattened
+    federation dim, which DTensor's collectives take once it exists, is
+    made with the mesh)."""
+    from repro_torch.core.distributed import run_isolated
+
+    DR.main(["--arch", "xlstm_350m", "--shape", "all", "--mesh", mesh_name,
+             "--variant", "flash", "--out", str(tmp_path)])
+    assert "[FAIL]" not in capsys.readouterr().out
+    for name, shape in INPUT_SHAPES.items():
+        rec = json.loads((tmp_path / f"xlstm_350m__{name}__{mesh_name}__flash.json").read_text())
+        assert rec["ok"], (name, rec.get("error"))
+        assert rec["collectives"]["count"] > 0 and rec["flops_per_device"] > 0, name
+        if shape.kind != "decode":
+            # the mLSTM region: its rank's batch, every head (4 on a 16-wide
+            # 'model' axis do not divide), the state at the local batch
+            assert rec["replicated_flops"]["region:mlstm"] > 0, name
+            assert not rec["memory"]["peak_aval_shape"].startswith(
+                f"float32[{shape.global_batch}, 4,"), name
+    again = run_isolated(_record, "xlstm_350m", "train_4k", mesh_name, "minicpm_2b",
+                         timeout=600)
+    first = json.loads((tmp_path / f"xlstm_350m__train_4k__{mesh_name}__flash.json").read_text())
+    first.pop("walk_s")
+    assert again == first

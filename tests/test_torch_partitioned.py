@@ -23,6 +23,8 @@ scenario, each under a time limit so that a hung rank fails the test):
     .predict``).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -150,6 +152,104 @@ def test_partitioned_minicpm_prefill_decode_match_one_rank():
         assert cost["collective_count"] == len(step["collectives"])
         for kind, total in cost["collective_bytes"].items():
             assert total == sum(x[3] for x in step["collectives"] if x[0] == kind)
+
+
+# the families with recurrences or an encoder: at five layers the hybrid
+# and xLSTM stacks have two groups and a tail
+FAMILIES = ["xlstm_350m", "zamba2_7b", "seamless_m4t_medium"]
+FAMILY_LAYERS = 5
+# the reference's sLSTM scan body holds 7 collectives a trip (its HLO on
+# four forced CPU devices): the most a partitioned step may add a token
+SLSTM_TRIP_COLLECTIVES = 7
+
+
+def _local_scans(cfg, batch: int) -> dict:
+    """The carry shapes each recurrence should have on a rank of the (2, 2)
+    mesh: the batch over 'data', the heads over 'model'."""
+    b, heads = batch // 2, cfg.num_heads // 2
+    if cfg.arch_type == "xlstm":
+        dh = 2 * cfg.d_model // cfg.num_heads
+        return {"mlstm": ((b, heads, dh, dh), (b, heads, dh), (b, heads)),
+                "slstm": ((b, heads, dh),) * 3 + ((b, heads),)}
+    if cfg.arch_type == "hybrid":
+        d_inner = cfg.ssm.expand * cfg.d_model
+        nh = cfg.ssm.num_heads
+        return {"ssd": ((b, nh // 2, cfg.ssm.d_state, d_inner // nh),)}
+    return {}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_partitioned_family_steps_split_the_work(arch):
+    """xLSTM, zamba2 and seamless partitioned as the reference partitions
+    them, on four gloo ranks: the train step equals the reference's
+    single-device one on its weights (relative 5e-5, the count exact),
+    prefill and four decode steps the port's one rank (1e-3 of a row's
+    largest, the same tokens), every rank's collectives the fake process
+    group's walk op for op; each recurrence's carry is the rank's shard
+    (batch over 'data', heads over 'model'); 4 × rank 0's walked flops over
+    the one-device walk's is at most 1.01 in the train and prefill steps
+    (no rank repeats another's work); and the recurrences' loops issue no
+    collective: the mLSTM and sLSTM regions none, the Mamba2 region one
+    all-gather of B and C a layer, the steps' counts the same at S = 16
+    and 32 within the reference's 7 a trip of each sLSTM layer."""
+    over = dict(num_classes=8, num_layers=FAMILY_LAYERS)
+    plan = P.Plan(arch, reduced=over, batch=8, seq=32, decode=4)
+    short = P.Plan(arch, reduced=over, batch=8, seq=16, decode=1)
+    rcfg = ref_get_config(arch).reduced(**over)
+    p_ref = RT.init_params(jax.random.key(0), rcfg)
+    batch = RI.sample_batch(rcfg, 8, 32, seed=0)
+    ref = RST.make_analytic_train_step(rcfg)(
+        p_ref, RS.init_state(rcfg.d_model, rcfg.num_classes), batch)
+    p_np = jax.tree.map(np.asarray, p_ref)
+    data = {k: np.asarray(v) for k, v in batch.items()}
+    ranks = _ranks(P.rank_main, plan, "cpu", p_np, data)
+    cfg = plan.config()
+    g_ref, m_ref = np.asarray(ref.gram), np.asarray(ref.moment)
+    one = P.one_rank_steps(plan, device="cpu",
+                           params=params_from_jax(p_np, cfg, device="cpu"), data=data)
+    want_scans = _local_scans(cfg, plan.batch)
+    for r in ranks:
+        st = r["state"]
+        assert np.abs(st["gram"].numpy() - g_ref).max() / np.abs(g_ref).max() < 5e-5
+        assert np.abs(st["moment"].numpy() - m_ref).max() / np.abs(m_ref).max() < 5e-5
+        assert float(st["count"]) == float(ref.count) == 8
+        assert len(r["logits"]) == 5
+        for a, b in zip(r["logits"], one["logits"]):
+            assert _rel_rows(a, b) < 1e-3
+        assert all(torch.equal(a, b) for a, b in zip(r["tokens"], one["tokens"]))
+        for name in ("train", "prefill"):
+            assert set(r["steps"][name]["scans"]) == set(want_scans.items()), name
+    pred, pred_short = run_isolated(P.predict, [plan, short], *MESH, "cpu", whole=True,
+                                    timeout=TIMEOUT)
+    for name, step in pred["steps"].items():
+        for r in ranks:
+            got = r["steps"][name]
+            assert [tuple(c) for c in step["collectives"]] == \
+                [tuple(c) for c in got["collectives"]], name
+            assert got["comm_debug"] == len(got["collectives"]), name
+    ratio = P.repeated_work(pred, 4)
+    n_slstm = cfg.num_layers // cfg.slstm_every if cfg.arch_type == "xlstm" else 0
+    n_mamba = (cfg.num_layers - cfg.num_layers // cfg.shared_attn_every
+               if cfg.arch_type == "hybrid" else 0)
+    for name in ("train", "prefill"):
+        assert ratio[name] <= 1.01, (name, ratio)
+        log = pred["steps"][name]["collectives"]
+        assert [c for c in log if c[4] in ("mlstm", "slstm")] == [], name
+        assert [c[:2] for c in log if c[4] == "mamba"] == [("all-gather", "model")] * n_mamba
+        grown = len(log) - len(pred_short["steps"][name]["collectives"])
+        assert abs(grown) <= SLSTM_TRIP_COLLECTIVES * n_slstm * (plan.seq - short.seq), name
+
+
+def test_plan_layers_cut_depth_only():
+    cfg = P.Plan("zamba2_7b", layers=15).config()
+    full = P.Plan("zamba2_7b").config()
+    assert cfg.num_layers == 15 and cfg.d_model == full.d_model == 3584
+    assert cfg == dataclasses.replace(full, num_layers=15)
+    from repro_torch.models import transformer as T
+
+    assert T._hybrid_split(cfg) == (6, 2, 3)   # two groups of five Mamba2 layers, a tail of 3
+    reduced = P.Plan("xlstm_350m", reduced={}, layers=5).config()
+    assert reduced.num_layers == 5 and reduced.d_model == 128
 
 
 def _hang(rank, device_mesh):
