@@ -26,7 +26,9 @@ keys: :func:`decode_plan` cuts the band of visible keys into chunks, one
 block each, whose partials go to a workspace this wrapper allocates and a
 second kernel merges (``ref.mha_split_ref`` is the plain twin of that
 schedule). ``flash_attention.launches`` counts wrapper calls,
-``flash_attention.cuda_launches`` the kernels they launched.
+``flash_attention.cuda_launches`` the kernels they launched and
+``flash_attention.dtype_launches`` the calls by the instance's dtype
+(``"float32"``, ``"bfloat16"``).
 """
 
 from __future__ import annotations
@@ -109,7 +111,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the last dim contiguous; the result has the inputs' type. Launches on the current stream;
     ``flash_attention.launches`` counts the calls that launched,
     ``flash_attention.cuda_launches`` their kernels (two for a decode split
-    over several chunks, else one).
+    over several chunks, else one), ``flash_attention.dtype_launches`` the
+    calls by dtype. A bf16 call runs the bf16 instance: nothing is widened
+    outside the kernel.
 
     The kernel has no backward: with grad mode on and an input that
     requires grad this raises, rather than return attention without a
@@ -178,8 +182,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.cuda_launches += 2 if ws is not None else 1
+    flash_attention.dtype_launches[_DTYPE_NAMES[q.dtype]] += 1
     return o
 
 
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 flash_attention.launches = 0
 flash_attention.cuda_launches = 0
+# the calls that launched, by the instance's dtype
+flash_attention.dtype_launches = dict.fromkeys(_DTYPE_NAMES.values(), 0)

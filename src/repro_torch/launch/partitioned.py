@@ -62,11 +62,22 @@ class Plan:
     decode: int = 4
     seed: int = 0
     layers: Optional[int] = None     # a depth cut that keeps the widths
+    dtype: Optional[str] = None      # the config's dtype, None: the config's own
 
     def config(self) -> ModelConfig:
         cfg = get_config(self.arch)
         cfg = cfg if self.reduced is None else cfg.reduced(**self.reduced)
+        if self.dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=self.dtype)
         return cfg if self.layers is None else dataclasses.replace(cfg, num_layers=self.layers)
+
+
+def _fold(cfg: ModelConfig) -> tuple:
+    """(the analytic state's dtype, whether the Gram kernel folds into it):
+    f32 through the kernel, the reference's; an f64 model keeps an f64
+    state folded plainly, since the kernel folds in f32."""
+    f64 = cfg.param_dtype == torch.float64
+    return (torch.float64 if f64 else torch.float32), not f64
 
 
 def policy(device_mesh):
@@ -155,7 +166,8 @@ def assemble(blocks: list, mesh_shape: tuple) -> torch.Tensor:
 def run_steps(device_mesh, plan: Plan, *, device=None, params=None, data=None,
               walk: bool = False, routing: bool = False) -> dict:
     """The partitioned analytic train step, prefill and ``plan.decode``
-    greedy decode steps of ``plan`` on ``device_mesh``.
+    greedy decode steps of ``plan`` on ``device_mesh`` (for an f64 model its
+    state f64 and the fold plain).
 
     Real ranks (``walk`` False): ``params`` a full param tree on ``device``
     to distribute, or None to draw them from ``plan.seed`` layer by layer
@@ -223,9 +235,11 @@ def run_steps(device_mesh, plan: Plan, *, device=None, params=None, data=None,
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    state = SH.distribute(streaming.init_state(cfg.d_model, cfg.num_classes, device=dev),
+    dtype, use_kernel = _fold(cfg)
+    state = SH.distribute(streaming.init_state(cfg.d_model, cfg.num_classes, dtype=dtype,
+                                               device=dev),
                           SH.state_shardings(device_mesh), device_mesh)
-    train = ST.make_analytic_train_step(cfg, use_kernel=True)
+    train = ST.make_analytic_train_step(cfg, use_kernel=use_kernel)
     state = count("train", train, params, state, place(data))
     prompt = place({k: v for k, v in data.items() if k != "labels"})
     logits, cache = count("prefill", ST.make_prefill_step(cfg, plan.seq + plan.decode),
@@ -284,8 +298,9 @@ def one_rank_steps(plan: Plan, *, device=None, params=None, data=None,
         routes[name] = [tuple(t.cpu() for t in call) for call in seen]
         return res
 
-    state = streaming.init_state(cfg.d_model, cfg.num_classes, device=dev)
-    state = run("train", ST.make_analytic_train_step(cfg, use_kernel=True),
+    dtype, use_kernel = _fold(cfg)
+    state = streaming.init_state(cfg.d_model, cfg.num_classes, dtype=dtype, device=dev)
+    state = run("train", ST.make_analytic_train_step(cfg, use_kernel=use_kernel),
                 params, state, data)
     prompt = {k: v for k, v in data.items() if k != "labels"}
     logits, cache = run("prefill", ST.make_prefill_step(cfg, plan.seq + plan.decode),

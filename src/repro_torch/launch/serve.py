@@ -20,7 +20,8 @@ default; ``--device cpu`` for the CPU).
 
 Usage (the card; ``--device cpu`` runs the plain versions on the CPU, and
 ``--reduced`` the smoke-test variant of the config; unlike the reference's
-launcher, the default is the full config):
+launcher, the default is the full config, which ``--full`` also names, as
+the reference's does):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b \\
       --batch 4 --prompt-len 2048 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b \\
@@ -276,6 +277,9 @@ def main(argv=None) -> None:
                     help="LLM serving arch (any family), e.g. gemma3_12b")
     ap.add_argument("--reduced", action="store_true",
                     help="the config's smoke-test variant (default: full width)")
+    ap.add_argument("--full", dest="reduced", action="store_false",
+                    help="the full config, the default (the reference's flag, "
+                         "so that its command lines run unchanged)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

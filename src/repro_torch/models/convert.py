@@ -5,6 +5,8 @@ so a test that runs both packages on the same model hands the reference's
 parameters over as numpy arrays. This module takes that tree as plain numpy
 (it imports nothing of JAX): the caller converts, e.g.
 ``jax.tree.map(np.asarray, T.init_params(jax.random.key(0), cfg))``.
+A bf16 config's leaves arrive as ``ml_dtypes.bfloat16`` arrays and leave
+as ``torch.bfloat16`` tensors with the same bits.
 """
 
 from __future__ import annotations
@@ -21,9 +23,16 @@ from repro_torch.models.transformer import Params
 
 
 def _to_torch(tree, device):
+    """A numpy leaf (or a tree of them) as fresh tensors on ``device``. A
+    bf16 leaf (``ml_dtypes.bfloat16``, which torch cannot read) is carried
+    bit for bit: its 16-bit words as ``int16``, viewed as ``torch.bfloat16``,
+    never widened."""
     if isinstance(tree, Mapping):
         return {k: _to_torch(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    a = np.array(tree, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _layer(tree, i: int):

@@ -9,7 +9,9 @@ machine without it:
 Tolerances are those of tests/test_kernels_gram.py: rtol 2e-4 / atol 2e-3
 for f32 (sums in another order), 2e-2 / 2e-1 for bf16; the flash-attention
 kernel's those of tests/test_kernels_attention.py: rtol 2e-5 / atol 4e-4
-for f32, 2e-2 / 0.4 for bf16. The solve kernels' f64 instances are held to
+for f32, 2e-2 / 0.4 for bf16 at their small shapes, and at the model
+shapes of the bf16 path 1e-2 of the largest |value| of the plain version
+in f32 (``ATTN_BF16_REL``). The solve kernels' f64 instances are held to
 numpy f64 at 1e-10, the bar the reference holds its kernel solves to under
 x64 (tests/test_solve_kernels.py).
 """
@@ -2012,3 +2014,144 @@ def test_recurrence_regions_match_their_plain_loops(nccl_mesh):
                 got, got_state = SSM.mamba_decode(dist(p), dist(x[:, :1]), dist(state), cfg)
                 close(got, want)
                 close(got_state, want_state)
+
+
+# --- the bf16 model path (phase 20 of chip_smoke.py) ------------------------------
+
+BF16_REL = 2e-2     # tests/test_torch_bf16.py's bar: bf16 port against bf16 reference
+# the bf16 flash instance against the plain version in f32 on the same bf16
+# inputs: within this share of the plain output's largest |value| (the
+# kernel sums in f32 and rounds once to bf16, 2^-9 of a value). ATTN_TOL's
+# bf16 atol of 0.4 is above every output over thousands of keys (about
+# 0.09 here), so it could not fail a wrong kernel at this shape.
+ATTN_BF16_REL = 1e-2
+
+
+def _bf16_attn_err(q, k, v, **kw):
+    """(max |err| of the kernel, the bar, the plain output in f32, the
+    decode's chunk) for bf16 ``q, k, v``; one bf16 launch and no f32 one."""
+    by = dict(FA.flash_attention.dtype_launches)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.dtype_launches["bfloat16"] == by["bfloat16"] + 1
+    assert FA.flash_attention.dtype_launches["float32"] == by["float32"]
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    want = ref.mha_ref(q.float(), k.float(), v.float(), **kw)
+    chunk = FA.decode_plan(q.shape[0], k.shape[1], 1, k.shape[2], causal=True,
+                           window=kw["window"], q_offset=kw["q_offset"],
+                           sms=FA.sm_count(q.device.index))[2]
+    return float((out.float() - want).abs().max()), ATTN_BF16_REL * float(want.abs().max()), \
+        want, chunk
+
+
+@pytest.mark.cuda
+def test_bf16_flash_long_window_decode_over_524288_slots(cuda):
+    """The bf16 instance at granite_moe_3b_a800m's long_500k decode (Hq 24,
+    Hkv 8, one query over 524288 slots, D 64, window 4096) on a stacked (9,
+    1, 8, 524288, 64) cache: on layer 8 alone (its first element 2³¹
+    elements, 4 GiB, past the buffer's start: a 64-bit base pointer), and
+    on layers 0 and 8 as a batch of two, whose batch stride of 2³¹ elements
+    (2³² bytes) passes 32 bits in the kernel's own offsets. Each against the
+    plain version in f32 within ``ATTN_BF16_REL`` of its largest |value|,
+    at the cache's end and at its start; the same bar rejects each planted
+    fault: zeros, the band shifted back by one decode chunk, and layer 0's
+    keys and values in layer 8's place (an offset wrapped at 32 bits)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    shape = (9, 1, 8, 524288, 64)
+    kc = torch.randn(shape, generator=gen, device=cuda, dtype=torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=cuda, dtype=torch.bfloat16)
+    k, v = kc[8], vc[8]
+    assert k.data_ptr() - kc.data_ptr() == 8 * 8 * 524288 * 64 * 2 >= 2**32
+    kb, vb = kc[::8, 0], vc[::8, 0]
+    assert kb.shape == (2, 8, 524288, 64) and kb.stride(0) == vb.stride(0) == 2**31
+    for q_offset in (524287, 4095):
+        kw = dict(window=4096, q_offset=q_offset)
+        q = torch.randn((1, 24, 1, 64), generator=gen, device=cuda, dtype=torch.bfloat16)
+        err, bar, want, chunk = _bf16_attn_err(q, k, v, **kw)
+        assert err <= bar
+        wrong = [torch.zeros_like(want),
+                 ref.mha_ref(q.float(), kc[0].float(), vc[0].float(), **kw)]
+        if q_offset >= chunk:
+            wrong.append(ref.mha_ref(q.float(), k.float(), v.float(), window=4096,
+                                     q_offset=q_offset - chunk))
+        for w in wrong:
+            assert float((w - want).abs().max()) > bar
+        qb = torch.randn((2, 24, 1, 64), generator=gen, device=cuda, dtype=torch.bfloat16)
+        err, bar, want, _ = _bf16_attn_err(qb, kb, vb, **kw)
+        assert err <= bar
+        layer0 = ref.mha_ref(qb.float(), kc[0, 0].float().expand(2, -1, -1, -1),
+                             vc[0, 0].float().expand(2, -1, -1, -1), **kw)
+        assert float((layer0[1] - want[1]).abs().max()) > bar
+        assert float(want.abs().max()) > bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3_32b", "granite_moe_3b_a800m"])
+def test_bf16_reduced_model_kernel_matches_plain(cuda, arch):
+    """Reduced qwen3_32b (qk-norm) and granite_moe_3b_a800m (MoE, GQA at D
+    64) at ``dtype="bfloat16"`` on the card: the prefill's and four
+    teacher-forced decode steps' logits with the flash kernel's bf16
+    instance against plain attention (``layers.sdpa_plain``) on the card,
+    within ``BF16_REL`` of a row's largest |logit|; every flash call the
+    bf16 instance, every cache tensor and logit bf16. The plain run routes
+    each MoE call by the kernel run's expert choices (as phase 19 of
+    chip_smoke.py compares its ranks): its router logits are bf16, so a
+    rounding apart sends a near-tie token to another expert; every choice
+    its own router would make otherwise must be such a near-tie, its k-th
+    and (k+1)-th probabilities within ``BF16_REL``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import partitioned as PT
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.inputs import sample_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch).reduced(dtype="bfloat16")
+    params = T.init_params(cfg, seed=5, device=cuda)
+    assert {t.dtype for t in _tree_leaves(params)} == {torch.bfloat16}
+    toks = sample_batch(cfg, 2, 40, seed=5, with_labels=False, device=cuda)["tokens"]
+    prompt, n = 32, 4
+
+    def run():
+        logits, cache = ST.make_prefill_step(cfg, prompt + n)(params, {"tokens": toks[:, :prompt]})
+        assert {t.dtype for t in _tree_leaves(cache)} == {torch.bfloat16}
+        out = [logits]
+        for i in range(n):
+            logits, cache = ST.make_serve_step(cfg)(params, cache, toks[:, prompt + i], prompt + i)
+            out.append(logits)
+        return torch.stack(out, 1)
+
+    by = dict(FA.flash_attention.dtype_launches)
+    seen, forced = [], []
+    with PT._routing_spy(seen):
+        kern = run()
+    calls = FA.flash_attention.dtype_launches["bfloat16"] - by["bfloat16"]
+    assert calls == cfg.num_layers * (1 + n)
+    assert FA.flash_attention.dtype_launches["float32"] == by["float32"]
+    sdpa = L.sdpa
+    L.sdpa = L.sdpa_plain
+    try:
+        with PT._routing_spy(forced, iter([top_i for _, top_i, _, _ in seen])):
+            plain = run()
+    finally:
+        L.sdpa = sdpa
+    assert FA.flash_attention.dtype_launches["bfloat16"] == by["bfloat16"] + calls
+    assert len(forced) == len(seen) == (cfg.num_layers * (1 + n) if cfg.moe else 0)
+    for _, top_i, probs, own in forced:
+        flipped = (top_i.sort(-1).values != own.sort(-1).values).any(-1)
+        if flipped.any():
+            k = cfg.moe.top_k
+            top = probs[flipped].sort(-1, descending=True).values
+            assert float((top[:, k - 1] - top[:, k]).max()) <= BF16_REL
+    assert kern.dtype == plain.dtype == torch.bfloat16 and bool(torch.isfinite(kern).all())
+    rel = ((kern.double() - plain.double()).abs().amax(-1)
+           / plain.double().abs().amax(-1)).max()
+    assert float(rel) <= BF16_REL
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tree_leaves(v)]
+    return [tree]

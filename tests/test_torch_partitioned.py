@@ -43,6 +43,7 @@ from repro_torch.core.distributed import run_isolated, run_ranks
 from repro_torch.kernels import build
 from repro_torch.launch import partitioned as P
 from repro_torch.models.convert import params_from_jax
+from torch_f64 import F64, read_f64
 
 MESH = ((2, 2), ("data", "model"))
 TIMEOUT = 300.0
@@ -238,6 +239,81 @@ def test_partitioned_family_steps_split_the_work(arch):
         assert [c[:2] for c in log if c[4] == "mamba"] == [("all-gather", "model")] * n_mamba
         grown = len(log) - len(pred_short["steps"][name]["collectives"])
         assert abs(grown) <= SLSTM_TRIP_COLLECTIVES * n_slstm * (plan.seq - short.seq), name
+
+
+def _f64_modules():
+    """The port's modules that pin arithmetic to f32 on xLSTM's path."""
+    from repro_torch.models import layers, xlstm
+
+    return [(layers, "torch"), (xlstm, "torch")]
+
+
+def _f64_rank_main(rank, device_mesh, plan, device, params_np, data):
+    """``P.rank_main`` in a rank process whose model modules compute in f64."""
+    for mod, name in _f64_modules():
+        if not isinstance(getattr(mod, name), F64):
+            setattr(mod, name, F64(getattr(mod, name)))
+    return P.rank_main(rank, device_mesh, plan, device, params_np, data)
+
+
+# in f64 a right partition agrees with one rank to rounding: 1e-10 of the
+# Gram's largest entry and of a row's largest logit
+F64_PART_REL = 1e-10
+
+
+def test_partitioned_xlstm_in_f64_equals_one_rank(monkeypatch):
+    """Reduced xLSTM at ``dtype="float64"`` (every f32 of its modules read as
+    f64, the Gram's plain fold in f64: the kernel folds in f32) on the
+    (2, 2) gloo ranks against one rank on the reference's weights: the
+    Gram, the moment and every logit (prefill and four decode steps) agree
+    to ``F64_PART_REL``, the count and the greedy tokens exactly. In f32
+    the same ranks differ by about 1e-4 (reduced) to 2e-3 (full width, on
+    the card), which is therefore the recurrences amplifying f32 rounding,
+    not the partition."""
+    over = dict(num_classes=8, num_layers=FAMILY_LAYERS, dtype="float64")
+    plan = P.Plan("xlstm_350m", reduced=over, batch=8, seq=32, decode=4)
+    rcfg = ref_get_config("xlstm_350m").reduced(**dict(over, dtype="float32"))
+    p_np = jax.tree.map(lambda a: np.asarray(a, np.float64),
+                        RT.init_params(jax.random.key(0), rcfg))
+    data = {k: np.asarray(v) for k, v in RI.sample_batch(rcfg, 8, 32, seed=0).items()}
+    ranks = _ranks(_f64_rank_main, plan, "cpu", p_np, data)
+    read_f64(monkeypatch, _f64_modules())
+    cfg = plan.config()
+    one = P.one_rank_steps(plan, device="cpu",
+                           params=params_from_jax(p_np, cfg, device="cpu"), data=data)
+    g1, m1 = one["state"]["gram"], one["state"]["moment"]
+    assert g1.dtype == torch.float64 and one["logits"][0].dtype == torch.float64
+    gram_rel = [float((r["state"]["gram"] - g1).abs().max() / g1.abs().max()) for r in ranks]
+    logit_rel = [max(_rel_rows(a, b) for a, b in zip(r["logits"], one["logits"]))
+                 for r in ranks]
+    print(f"xLSTM f64, ranks against one rank: Gram {gram_rel}, logits {logit_rel}")
+    for r in ranks:
+        st = r["state"]
+        assert st["gram"].dtype == torch.float64
+        assert float((st["gram"] - g1).abs().max() / g1.abs().max()) <= F64_PART_REL
+        assert float((st["moment"] - m1).abs().max() / m1.abs().max()) <= F64_PART_REL
+        assert float(st["count"]) == float(one["state"]["count"]) == 8
+        assert len(r["logits"]) == len(one["logits"]) == 5
+        for a, b in zip(r["logits"], one["logits"]):
+            assert _rel_rows(a, b) <= F64_PART_REL
+        assert all(torch.equal(a, b) for a, b in zip(r["tokens"], one["tokens"]))
+        assert r["steps"]["train"]["gram_launches"] == 0
+
+
+def test_plan_dtype_f64_state_folds_plainly():
+    """``Plan.dtype`` replaces the config's dtype (widths unchanged); an f64
+    model's state is f64 and folded plainly (no Gram launch), and its
+    prefill and decode logits are f64."""
+    plan = P.Plan("xlstm_350m", reduced={}, layers=2, dtype="float64", batch=4, seq=8,
+                  decode=1)
+    cfg = plan.config()
+    assert cfg.dtype == "float64" and cfg.num_layers == 2 and cfg.d_model == 128
+    out = P.one_rank_steps(plan, device="cpu")
+    assert len(out["logits"]) == 2 and len(out["tokens"]) == 1
+    assert {t.dtype for t in out["logits"]} == {torch.float64}
+    assert out["state"]["gram"].dtype == torch.float64 and float(out["state"]["count"]) == 4
+    assert P._fold(cfg) == (torch.float64, False)
+    assert P._fold(P.Plan("xlstm_350m", reduced={}).config()) == (torch.float32, True)
 
 
 def test_plan_layers_cut_depth_only():

@@ -280,3 +280,27 @@ def test_serve_cli(capsys):
             "--prompt-len", "12", "--gen", "3"])
     out = capsys.readouterr().out
     assert "prefill:" in out and "tok/s" in out and "reduced=True" in out
+
+
+def test_serve_cli_takes_the_references_full(monkeypatch, capsys):
+    """``--full`` is the reference's flag for the full config; the port's
+    launcher serves the full config by default and takes it, so the
+    reference's command lines run unchanged; the last of ``--reduced`` and
+    ``--full`` wins, as in the reference's parser."""
+    seen = []
+
+    def fake_serve(cfg, batch, prompt_len, gen, **kw):
+        seen.append(cfg)
+        return np.zeros((batch, prompt_len + gen), np.int32), 0.5, 0.5
+
+    monkeypatch.setattr(S, "serve", fake_serve)
+    argv = ["--arch", "gemma3_12b", "--device", "cpu", "--batch", "2", "--prompt-len", "12",
+            "--gen", "3"]
+    S.main(argv + ["--full"])
+    S.main(argv)
+    S.main(argv + ["--reduced", "--full"])
+    S.main(argv + ["--full", "--reduced"])
+    full, small = get_config("gemma3_12b"), get_config("gemma3_12b").reduced()
+    assert seen == [full, full, full, small]
+    out = capsys.readouterr().out
+    assert out.count("reduced=False") == 3 and out.count("reduced=True") == 1

@@ -57,6 +57,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models import xlstm as PX
 from repro_torch.models.convert import params_from_jax
 from repro_torch.optim import tree_leaves, tree_map
+from torch_f64 import read_f64
 
 LR = 1e-2
 
@@ -172,23 +173,10 @@ def test_full_train_step_matches_reference(arch):
     _check_step(old, params, new_ref, 1e-4, spacing=True)
 
 
-class _F64:
-    """A module seen with its ``float32`` read as ``float64`` (as in
-    tests/test_torch_zoo.py): both packages pin norms, rope, attention's
-    products, the xLSTM states and the loss's log-softmax to f32."""
-
-    def __init__(self, mod):
-        self._mod = mod
-
-    def __getattr__(self, name):
-        return getattr(self._mod, "float64" if name == "float32" else name)
-
-
 @pytest.mark.parametrize("arch", ["minicpm_2b", "xlstm_350m"])
 def test_full_train_step_in_f64_is_the_reference(arch, monkeypatch):
-    for mod, name in [(RT, "jnp"), (RL, "jnp"), (RX, "jnp"), (RST, "jnp"),
-                      (T, "torch"), (PL, "torch"), (PX, "torch"), (ST, "torch")]:
-        monkeypatch.setattr(mod, name, _F64(getattr(mod, name)))
+    read_f64(monkeypatch, [(RT, "jnp"), (RL, "jnp"), (RX, "jnp"), (RST, "jnp"),
+                           (T, "torch"), (PL, "torch"), (PX, "torch"), (ST, "torch")])
     cfg_ref, cfg, p_ref, _ = _model(arch, num_layers=3)
     p64 = jax.tree.map(lambda a: np.asarray(a, np.float64), p_ref)
     params = params_from_jax(p64, cfg, device="cpu")

@@ -55,6 +55,7 @@ from repro_torch.models import layers as PL
 from repro_torch.models import transformer as T
 from repro_torch.models import xlstm as PX
 from repro_torch.models.convert import cache_from_jax, params_from_jax
+from torch_f64 import read_f64
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 CACHE_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -238,18 +239,6 @@ def test_run_analytic_matches_reference(arch):
     assert acc == acc_ref and train_s > 0
 
 
-class _F64:
-    """A module seen with its ``float32`` read as ``float64``: both
-    packages pin xLSTM's states and norms to f32, and the test below runs
-    them in f64 without changing either."""
-
-    def __init__(self, mod):
-        self._mod = mod
-
-    def __getattr__(self, name):
-        return getattr(self._mod, "float64" if name == "float32" else name)
-
-
 F64_TOL = dict(rtol=1e-10, atol=1e-10)
 
 
@@ -259,9 +248,8 @@ def test_xlstm_in_f64_is_the_reference(monkeypatch):
     reference's to 1e-10, and each decode step equals the port's own
     teacher-forced forward at its position, so the f32 differences above
     are rounding, not another function."""
-    for mod, name in [(RT, "jnp"), (RL, "jnp"), (RX, "jnp"),
-                      (T, "torch"), (PL, "torch"), (PX, "torch")]:
-        monkeypatch.setattr(mod, name, _F64(getattr(mod, name)))
+    read_f64(monkeypatch, [(RT, "jnp"), (RL, "jnp"), (RX, "jnp"),
+                           (T, "torch"), (PL, "torch"), (PX, "torch")])
     cfg_ref, cfg, p_ref, _ = _model("xlstm_350m")
     p64 = jax.tree.map(lambda a: np.asarray(a, np.float64), p_ref)
     params = params_from_jax(p64, cfg, device="cpu")
