@@ -34,9 +34,15 @@ without the repository around it. Phases, each fatal on failure:
      phase 20's bf16 instances (qwen3_32b's prefill (4, 64, 8, 512, 512,
      128) and decode (4, 64, 8, 1, 528, 128), granite's long_500k decode
      (1, 24, 8, 1, 524288, 64) with window 4096, and the same on a batch
-     stride of 2^31 elements), every bf16 call held to the plain version in
+     stride of 2^31 elements), at its run_analytic forward (64, 64, 8, 32,
+     32, 128), gemma3's local prefill at D 256 and grok1's softcap prefill
+     and decode in bf16, every bf16 call held to the plain version in
      f32 within 1e-2 of its largest |value|, a bar shown to reject planted
-     faults (zeros, the band a chunk back, another layer's keys), with
+     faults (zeros, the band a chunk back, another layer's keys), and to
+     the plain twin of its tensor-core schedule (``ref.mha_tile_bf16_ref``
+     or ``ref.mha_split_bf16_ref``) within 8e-3 of it, its kernels by
+     the profiler's names the regime's (``flash_wgmma_kernel`` or
+     ``flash_mma_decode_kernel``, no FFMA instance), with
      each call's regime, chunks and CUDA launches (two for a split decode)
      logged and checked; ``gram_update`` also at phase 20's (64, 5120, 16);
      one f32 call of ``blocked_cholesky`` (1, 1536), ``cholesky_solve``
@@ -550,6 +556,18 @@ EARLIER_MS = {("gram_update", (64, 2304, 16), "float32"): 0.0359,
            ("flash_attention", "serve decode, local"): 0.1328,
            ("flash_attention", "serve decode, global"): 0.2563,
            ("flash_attention", "trainer forward"): 0.1150,
+           # the bf16 instance on the f32 FFMA template, before its move onto
+           # the tensor cores (H100 80GB HBM3 at 700 W; PERF.md §6 names the runs)
+           ("flash_attention", "qwen3 bf16 prefill"): 0.9209,
+           ("flash_attention", "qwen3 bf16 decode"): 0.0387,
+           ("flash_attention", "granite long_500k bf16 decode, window 4096"): 0.0323,
+           ("flash_attention", "qwen3 bf16 run_analytic forward"): 0.2397,
+           ("flash_attention", "gemma3 bf16 D 256 prefill, local"): 4.3710,
+           ("flash_attention", "grok1 bf16 softcap prefill"): 0.7733,
+           ("flash_attention", "grok1 bf16 softcap decode"): 0.0454,
+           ("flash_attention", "bf16 GQA"): 0.0185,
+           ("flash_attention", "bf16 MQA, ragged"): 0.0284,
+           ("flash_attention", "decode, bf16"): 0.0592,
            "train_s": 12.539, "prefill_s": 2.935, "decode_ms_per_token": 63.67,
            "decode_step_flash_ms": 7.36,
            ("panel_tri_inv", 256, "float32"): 0.3376, ("panel_tri_inv", 128, "float64"): 0.1209,
@@ -3305,6 +3323,14 @@ ATTN_TOL = {torch.float32: (2e-5, 4e-4)}
 # a softmax average over hundreds of keys, so it could not fail a wrong
 # kernel at the model shapes
 ATTN_BF16_REL = 1e-2
+# ... and against the plain twin of the schedule it runs (ref.mha_tile_bf16_ref
+# for the wgmma tile, ref.mha_split_bf16_ref for the mma.sync decode: P
+# rounded once to bf16 before P·V, l summed from it), within this share of
+# the plain output's largest |value|: twice the largest reading on an H100
+# (3.76e-3, tools/kernel_probe.py --bf16 at (64, 64, 8, 32, 32, 128)), up to
+# one bf16 ulp of the largest value (2^-7 of it), by which the kernel and the
+# twin may round an output apart (tests/test_torch_cuda.py's TWIN_BF16_REL)
+TWIN_BF16_REL = 8e-3
 # (name, (B, Hq, Hkv, Sq, Skv, D), kw, dtype): the serve path's prefill and
 # decode step first (gemma3_12b, window 1024 on local layers), then slice
 # 1's trainer forward (minicpm_2b), then the reference tests' ragged cases,
@@ -3356,19 +3382,28 @@ ATTN_SHAPES = [
     ("qwen3 bf16 decode", (4, 64, 8, 1, 528, 128), dict(q_offset=526), torch.bfloat16),
     ("granite long_500k bf16 decode, window 4096", (1, 24, 8, 1, 524288, 64),
      dict(window=4096, q_offset=524287), torch.bfloat16),
+    # phase 20's run_analytic forward (batch 64 of 32 tokens), gemma3_12b's
+    # local prefill at D 256 and grok1's softcap prefill and decode, in bf16
+    ("qwen3 bf16 run_analytic forward", (64, 64, 8, 32, 32, 128), dict(), torch.bfloat16),
+    ("gemma3 bf16 D 256 prefill, local", (4, 16, 8, 2048, 2048, 256), dict(window=1024),
+     torch.bfloat16),
+    ("grok1 bf16 softcap prefill", (4, 48, 8, 512, 512, 128), dict(softcap=30.0),
+     torch.bfloat16),
+    ("grok1 bf16 softcap decode", (4, 48, 8, 1, 520, 128), dict(q_offset=518, softcap=30.0),
+     torch.bfloat16),
 ]
 
 
-def attention_plan(FA, shape, kw) -> tuple[str, int, int]:
+def attention_plan(FA, shape, kw, dtype) -> tuple[str, int, int]:
     """(regime, chunks, CUDA launches) of one flash call at ``shape``."""
     b, hq, hkv, sq, skv, d = shape
-    rows = hq // hkv * sq
-    if rows > FA.DECODE_MAX_ROWS:
-        return ("short tile" if rows <= 32 else "prefill tile"), 1, 1
+    kind = FA.regime(dtype, hq // hkv * sq)
+    if not FA.is_decode(kind):
+        return kind, 1, 1
     splits = FA.decode_plan(b, hkv, sq, skv, causal=kw.get("causal", True),
                             window=kw.get("window"), q_offset=kw.get("q_offset", 0),
                             sms=torch.cuda.get_device_properties(0).multi_processor_count)[3]
-    return "split decode", splits, 2 if splits > 1 else 1
+    return kind, splits, 2 if splits > 1 else 1
 
 
 def _mask_kw(kw) -> dict:
@@ -3482,6 +3517,38 @@ def check_attention(FA, ref, q, k, v, kw, what):
     return want, err
 
 
+def check_bf16_schedule(FA, ref, q, k, v, kw, want, what) -> tuple[float, list]:
+    """A bf16 call's kernels by the profiler's names, and its output against
+    the plain twin of its regime's schedule: the names must be the regime's
+    tensor-core kernel (and the merge, for a decode over several chunks),
+    no FFMA instance; the twin within ``TWIN_BF16_REL`` of ``want``'s
+    largest |value|. Returns (max |kernel − twin|, the names)."""
+    kind, _, cuda_launches = attention_plan(FA, (*q.shape[:2], k.shape[1], q.shape[2],
+                                                 k.shape[2], q.shape[3]), kw, q.dtype)
+    expected = {FA.KERNELS[kind]} | ({FA.MERGE_KERNEL} if cuda_launches == 2 else set())
+    def calls():
+        # the device side drops a window's first kernels (every kernel of
+        # three calls of bf16 GQA in one window of an H100 run): a
+        # throwaway kernel first, then ten calls
+        torch.ones(1, device="cuda").add_(1)
+        for _ in range(10):
+            FA.flash_attention(q, k, v, **kw)
+
+    calls()
+    names = [n for _, _, n in _device_spans(calls)[1] if "flash_" in n]
+    seen = {w for w in expected if any(w in n for n in names)}
+    if seen != expected or not all(any(w in n for w in expected) for n in names):
+        fail(f"flash_attention {what}: a bf16 call ran {names}, expected {sorted(expected)}")
+    twin = ref.mha_bf16_schedule_ref(
+        q, k, v, sms=torch.cuda.get_device_properties(0).multi_processor_count, **kw)
+    err = float((FA.flash_attention(q, k, v, **kw).float() - twin.float()).abs().max())
+    bar = TWIN_BF16_REL * float(want.abs().max())
+    if not err <= bar:
+        fail(f"flash_attention {what}: max|err| {err:.3e} from the plain twin of its "
+             f"schedule ({kind}), above {bar:.3e}")
+    return err, sorted(seen)
+
+
 def attention_phase(FA, ref):
     rows = []
     for i, (what, shape, kw, dtype) in enumerate(ATTN_SHAPES):
@@ -3492,13 +3559,15 @@ def attention_phase(FA, ref):
                    for s in [(b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)])
         before = FA.flash_attention.cuda_launches
         want, err = check_attention(FA, ref, q, k, v, kw, f"{what} {shape}")
-        regime, splits, cuda_launches = attention_plan(FA, shape, kw)
+        regime, splits, cuda_launches = attention_plan(FA, shape, kw, dtype)
         if FA.flash_attention.cuda_launches - before != cuda_launches:
             fail(f"flash_attention {what}: {FA.flash_attention.cuda_launches - before} CUDA "
                  f"launches, expected {cuda_launches} ({regime}, {splits} chunks)")
         rtol, atol = attention_tol(want, dtype)
-        faults = (planted_faults(FA, ref, q, k, v, kw, want, atol, what)
-                  if dtype == torch.bfloat16 else None)
+        faults = twin_err = names = None
+        if dtype == torch.bfloat16:
+            faults = planted_faults(FA, ref, q, k, v, kw, want, atol, what)
+            twin_err, names = check_bf16_schedule(FA, ref, q, k, v, kw, want, what)
         ms = time_auto(lambda: FA.flash_attention(q, k, v, **kw))
         plain_ms = time_auto(lambda: ref.mha_ref(q, k, v, **kw))
         library = _sdpa_library(ref, q, k, v, kw)
@@ -3519,12 +3588,15 @@ def attention_phase(FA, ref):
                          library_max_abs_err=library_err, bound_ms=bound_ms,
                          bound_by=bound_by, flops=flops, bytes=nbytes, regime=regime,
                          chunks=splits, cuda_launches_per_call=cuda_launches,
-                         earlier_ms=earlier, atol=atol, planted_faults=faults))
+                         earlier_ms=earlier, atol=atol, planted_faults=faults,
+                         twin_max_abs_err=twin_err, kernel_names=names))
         log(f"flash_attention {what} (B, Hq, Hkv, Sq, Skv, D)={shape} {kw} {dt}: {regime}, "
             f"{splits} chunk(s), {cuda_launches} CUDA launch(es) a call; "
             f"max|err|={err:.3e} (rtol {rtol} atol {atol:.3e}"
             + ("" if faults is None else
-               "; planted faults " + ", ".join(f"{n} {e:.3e}" for n, e in faults.items()))
+               "; planted faults " + ", ".join(f"{n} {e:.3e}" for n, e in faults.items())
+               + f"; twin {twin_err:.3e} (bar {TWIN_BF16_REL * float(want.abs().max()):.3e}); "
+               f"kernels {names}")
             + f") kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, {rows[-1]['library']} {library_ms:.4f} ms"
             f"{'' if library_err is None else f' (max|err| {library_err:.3e})'}, bound "
@@ -3737,7 +3809,7 @@ def serve_phase(K, get_config, T, L, serve_mod, ST, ref):
     # a decode call split over several chunks launches two kernels
     want_cuda = cfg.num_layers + sum(
         attention_plan(FA, (b, cfg.num_heads, cfg.num_kv_heads, 1, p + g, cfg.resolved_head_dim),
-                       dict(q_offset=pos, window=int(w) or None))[2]
+                       dict(q_offset=pos, window=int(w) or None), torch.float32)[2]
         for pos in range(p, p + g - 1) for w in window)
     log(f"serve: prefill_s={prefill_s:.3f} (before: {EARLIER_MS['prefill_s']}) decode "
         f"{1e3 * decode_s / (g - 1):.2f} ms/token (before: "
@@ -3958,7 +4030,7 @@ def zoo_serve(K, cfg, full_layers, T, serve_mod, want_prefill, want_decode):
     if (n_pre, n_dec) != (want_prefill, want_decode):
         fail(f"zoo {cfg.name}: the config gives {n_pre} prefill and {n_dec} decode flash "
              f"calls, expected {want_prefill} and {want_decode}")
-    want_cuda = sum(attention_plan(FA, shape, kw)[2] for _, shape, kw in calls)
+    want_cuda = sum(attention_plan(FA, shape, kw, torch.float32)[2] for _, shape, kw in calls)
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=ZOO_SERVE["seed"], device="cuda")
     torch.cuda.synchronize()
@@ -5263,7 +5335,8 @@ def bf16_phase(K, get_config, T, L, ST, serve_mod, train, D, FLConfig, api, Inpu
     fa_cuda = FA.flash_attention.cuda_launches
     want = n_layers * g
     want_cuda = n_layers * (1 + sum(attention_plan(
-        FA, (b, full.num_heads, full.num_kv_heads, 1, p + g, hd), dict(q_offset=pos))[2]
+        FA, (b, full.num_heads, full.num_kv_heads, 1, p + g, hd), dict(q_offset=pos),
+        torch.bfloat16)[2]
         for pos in range(p, p + g - 1)))
     _only(launches, {"flash_attention": want}, "bf16 serve")
     by = _flash_by_dtype(K, "bf16 serve", want)

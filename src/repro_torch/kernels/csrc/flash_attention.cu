@@ -12,10 +12,20 @@
 // caps them (grok1: c = 30). Masked logits are −1e30 and their
 // probabilities exactly 0; a row that sees no key comes out as zeros.
 // Inputs are f32 or bf16, each with its own strides (the head dim
-// contiguous); bf16 stays bf16 in shared memory and is widened to f32 when
-// read, every product is a plain f32 FMA (no TF32, no mma: the f32
-// tolerance, rtol 2e-5 / atol 4e-4, is too tight for a 3×TF32 split), exp
-// is the accurate expf, and the output is written in the input's type.
+// contiguous); the output is written in the input's type. Two instances:
+//
+//   * f32: every product a plain f32 FMA (no TF32, no mma: the f32
+//     tolerance, rtol 2e-5 / atol 4e-4, is too tight for a 3×TF32 split),
+//     exp the accurate expf; the three regimes below.
+//   * bf16, on the tensor cores (its two regimes below). Its numerics:
+//     every product bf16 × bf16 is exact in f32 and every sum is f32; the
+//     scale multiplies the logits after the product; P is rounded once to
+//     bf16 before P·V, and l is summed from that same rounded P, so the
+//     weights applied to V sum to one; the output is rounded once to bf16.
+//     Held to attention in f32 on the same bf16 inputs within 1e-2 of its
+//     largest |value| (chip_smoke.py's ATTN_BF16_REL; the readings are in
+//     PERF.md §6), and to the plain twins of its two schedules
+//     (ref.mha_tile_bf16_ref, ref.mha_split_bf16_ref).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention (kernel body _flash_kernel). The TPU version walks the kv
@@ -28,7 +38,8 @@
 // of one (batch, kv head) are packed across its GQA group: row ρ is query
 // position ρ / group of query head kv_head · group + ρ % group, so each key
 // and value is read once for the whole group. With rows = group · Sq,
-// launch() picks one of three regimes:
+// launch() picks the instance's regime (kernels/flash_attention.py:regime
+// names them). f32:
 //
 //   * rows <= 16, decode (split-KV): the band of keys some row sees, from
 //     the first to the last visible key, is cut into chunks
@@ -50,8 +61,8 @@
 //     each with its Q, K and V loads in flight at once. Bound: bytes.
 //   * otherwise (prefill): flash_tile_kernel with BQ = BK = 64 and 256
 //     threads. Q, and K and V tiles through a ring of two slots, are staged
-//     by cp.async as they lie (16 bytes of f32, 8 of bf16, value by value
-//     where strides do not allow it): K of tile t + 1 is in flight while the
+//     by cp.async as they lie (16 bytes at a time, value by value where
+//     strides do not allow it): K of tile t + 1 is in flight while the
 //     softmax and P·V of tile t run, V of tile t + 1 while S of tile t + 1
 //     runs. 16 row lanes × 16 key lanes, a warp 4 row lanes × 8 key lanes:
 //     each thread holds a 4 × 4 block of S in registers, and each of its 8
@@ -61,6 +72,51 @@
 //     goes through shared memory to P·V, which adds into the thread's 4
 //     rows × D/16 columns of acc. At D = 256 the block holds Q, two slots
 //     and P, 214 KB. Bound: the f32 FMAs.
+//
+// bf16 (flash_mma_decode_kernel, flash_wgmma_kernel; tensor_core.cuh has
+// the instructions and their fragment layouts):
+//
+//   * rows <= 16, decode (split-KV) on mma.sync m16n8k16: the same chunks
+//     (decode_plan), workspace and flash_merge_kernel as f32. The packed
+//     rows are the A tile, zeros past `rows` and never stored (wgmma's 64
+//     rows would waste at least 75% of qwen3's 8 or granite's 3). A block
+//     stages 64 keys and values a step by cp.async into a ring of two
+//     slots, rows padded by 16 bytes (ldmatrix without bank conflicts);
+//     each of its 4 warps takes 16 of them: S = Q Kᵀ as two n8 tiles over
+//     D / 16 slices (Q and K by ldmatrix), the online softmax on the
+//     fragment (a row's max and sum across the 4 threads of a quad), P
+//     narrowed to bf16 as the A fragment of P·V, V by ldmatrix.trans. The
+//     warps merge through shared memory, the max passed to the merge
+//     kernel as a natural-log logit. Bound: the bytes of K and V in the band.
+//   * otherwise on wgmma: prefill, the trainer's forwards, and the
+//     17-32-row short regime (no main path gives bf16 so few rows: a
+//     mostly empty 128-row block there spares a kernel of its own, and the
+//     card tests hold it at 32 rows). A block of two consumer
+//     warpgroups owns 128 packed rows (64 each, wgmma's M), walks the band
+//     in 64-key tiles and keeps acc (64 rows × D, f32) in registers. S = Q
+//     Kᵀ is m64n64k16 with Q and K both K-major from shared memory through
+//     descriptors in the 128-byte swizzle; scale, softcap (CAP) and the
+//     mask (edge tiles only) apply in f32 on the accumulator; the online
+//     softmax works on the fragment with quad shuffles; P is narrowed to
+//     bf16 in registers and is the A operand of P·V from registers (S's
+//     accumulator layout is the A layout of the next product's k16
+//     slices), V MN-major from shared memory (the transpose bit). P never
+//     reaches shared memory. The products of tile t are P·V of tile t − 1
+//     and S of tile t, issued back to back and waited for once; then the
+//     softmax of t. The two warpgroups run half a step apart (FA3's
+//     ping-pong, kept by the block's barrier at each half step), so one's
+//     softmax runs while the other's products are on the tensor cores. K
+//     of t + 1 and V of t land by cp.async two half steps ahead (Q, two K
+//     and two V slots: 192 KB at D = 256). A softmax overlapped with P·V in
+//     the same warpgroup (FA3's intra-warpgroup pipelining) made ptxas
+//     serialise every product of the kernel (C7513: a register a product
+//     reads defined while one is in flight), in every form tried. No TMA:
+//     the inputs are strided views, and a tensor map a call would add host
+//     work to decode steps the host already bounds. Bound: at D >= 64 the
+//     bytes of q, o and the visible keys and values, once, at 3.35 TB/s,
+//     above the flops at the bf16 tensor cores' 989 TFLOP/s (qwen3_32b's
+//     prefill, (4, 64, 8, 512, 512, 128): 75.5 MB, 22.5 us, against 17.2
+//     GFLOP, 17.4 us; FFMA could not go below 0.257 ms for those flops).
 //
 // In every regime q is staged as it is and the scale multiplies the logits
 // (then the softcap caps them, where there is one);
@@ -93,8 +149,10 @@
 #include <climits>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "cp_async.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -117,6 +175,7 @@ struct Problem {
   float softcap;         // > 0: logits x -> tanh(x / softcap) · softcap
   int causal, has_window, window, q_offset;
   int vec;               // rows and strides of q, k, v allow 4-element loads
+  int vec8;              // ... and 8-element (16-byte) bf16 loads
   int vec_o;             // o allows 4-element stores
 };
 
@@ -126,7 +185,6 @@ struct Split {
 };
 
 __device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
 __device__ __forceinline__ void narrow(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -138,47 +196,23 @@ __device__ __forceinline__ float logit(float a, const Problem& pb) {
   return CAP ? tanhf(x / pb.softcap) * pb.softcap : x;
 }
 
-// four consecutive values (16 bytes of f32, 8 of bf16, aligned) as f32
+// four consecutive f32 values (16 bytes, aligned)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const unsigned*>(&lo);
-  raw.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
 
-// one 4-value chunk into shared memory: 16 bytes of f32, 8 of bf16; zeros
-// where !ok
+// one 4-value f32 chunk (16 bytes) into shared memory; zeros where !ok
 __device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
   afl::cp_async16(dst, src, ok ? 16 : 0);
 }
-__device__ __forceinline__ void copy4(__nv_bfloat16* dst, const __nv_bfloat16* src, bool ok) {
-  afl::cp_async8(dst, src, ok ? 8 : 0);
-}
 __device__ __forceinline__ void put(float* dst, const float* src, bool ok) {
   *dst = ok ? *src : 0.f;
-}
-__device__ __forceinline__ void put(__nv_bfloat16* dst, const __nv_bfloat16* src, bool ok) {
-  *dst = ok ? *src : __float2bfloat16(0.f);
 }
 
 // Row ρ of q (or o) of kv head hk: query head hk · group + ρ % group,
@@ -670,6 +704,582 @@ flash_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, Strides st, 
   }
 }
 
+// ---- bf16 on the tensor cores ----------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 16 bytes of a staged row: where 16-byte chunk c of row r goes. Sw128: the
+// wgmma operands' swizzled blocks (tensor_core.cuh); Padded<LD>: row-major
+// with rows LD values apart (LD = D + 8 shifts each row by 16 bytes, so
+// ldmatrix's 8 rows hit 8 different banks).
+template <int ROWS>
+struct Sw128 {
+  __device__ static int offset(int r, int c) { return afl_tc::sw128_offset(ROWS, r, c); }
+};
+template <int LD>
+struct Padded {
+  __device__ static int offset(int r, int c) { return 2 * (r * LD + 8 * c); }
+};
+
+// Rows 0 .. ROWS − 1 of a bf16 operand into shared memory at dst, laid out
+// by L: row(r, ok) gives row r's first value and whether it exists; rows
+// that do not and columns past d are zeros. vec: 2 for 16-byte cp.async (d
+// % 8 == 0, rows 16-byte aligned), 1 for 8-byte (d % 4 == 0), 0 value by
+// value.
+template <typename L, int D, int ROWS, int NT, typename RowFn>
+__device__ __forceinline__ void stage_rows(uint8_t* dst, RowFn row, int d, int vec) {
+  constexpr int kChunks = ROWS * D / 8;
+#pragma unroll
+  for (int e = threadIdx.x; e < kChunks; e += NT) {
+    const int r = e / (D / 8);
+    const int c = e % (D / 8);
+    const int col = 8 * c;
+    bool ok;
+    const bf16* src = row(r, ok);
+    uint8_t* to = dst + L::offset(r, c);
+    if (vec == 2) {
+      afl::cp_async16(to, src + (col < d ? col : 0), ok && col < d ? 16 : 0);
+    } else if (vec == 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int cc = col + 4 * h;
+        afl::cp_async8(to + 8 * h, src + (cc < d ? cc : 0), ok && cc < d ? 8 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        reinterpret_cast<bf16*>(to)[u] = ok && col + u < d ? src[col + u] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// 2^x by the special-function unit (ex2.approx, relative error about
+// 2^-22, far under P's bf16 rounding; subnormal results flush to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A raw dot product as a capped logit in log2 units, c · tanh(scale · a /
+// c) · log2(e) with tanh(y) = 1 − 2 / (2^(2y·log2 e) + 1): two special-function
+// operations for tanhf's dozens; its absolute error stays at f32 rounding,
+// far under P's bf16 rounding
+__device__ __forceinline__ float cap2(float a, const Problem& pb) {
+  const float y = fminf(fmaxf(a * (2.f * kLog2e * pb.scale / pb.softcap), -64.f), 64.f);
+  return (1.f - __fdividef(2.f, exp2_approx(y) + 1.f)) * (pb.softcap * kLog2e);
+}
+
+// A raw dot product as a logit in log2 units (the softmax takes exp2):
+// scaled, capped where CAP (cap2), times log2(e).
+template <bool CAP>
+__device__ __forceinline__ float logit2(float a, const Problem& pb) {
+  return CAP ? cap2(a, pb) : a * (pb.scale * kLog2e);
+}
+
+// two f32 values as one bf16 pair (the lower column in the low half), and
+// the pair's sum as rounded
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi, float& sum) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  const float2 back = __bfloat1622float2(p);
+  sum += back.x + back.y;
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// -- rows > 16 (prefill, trainer forwards): wgmma tile --------------------------
+
+constexpr int kWgGroups = 2;                  // consumer warpgroups a block
+constexpr int kWgBQ = 64 * kWgGroups;         // packed rows a block: 64 a warpgroup
+constexpr int kWgBK = 64;                     // keys a tile
+constexpr int kWgThreads = 128 * kWgGroups;
+
+template <int D>
+struct WgShape {
+  static constexpr int kCB = D / 64;                    // 64-column blocks
+  static constexpr int kQBytes = kWgBQ * D * 2;
+  static constexpr int kTileBytes = kWgBK * D * 2;      // one K or V tile
+  // Q, two K slots, two V slots, and slack to align the start to 1024 bytes
+  static constexpr size_t kBytes = 1024 + kQBytes + 4 * size_t(kTileBytes);
+};
+
+// grid (tiles · B · Hkv); each block kWgBQ packed rows of one (batch, kv head)
+template <int D, bool CAP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o, Strides st, Problem pb,
+                   int tiles) {
+  using S = WgShape<D>;
+  constexpr int CB = S::kCB;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // Q, then K slots 0 and 1, then V slots 0 and 1, from a 1024-byte boundary
+  const uint32_t s_base = (afl::smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* sQ = smem_raw + (s_base - afl::smem_u32(smem_raw));
+  uint8_t* sK = sQ + S::kQBytes;
+  uint8_t* sV = sK + 2 * S::kTileBytes;
+
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x % 128 / 32;
+  const int lane = threadIdx.x % 32;
+  // late (long-band) tiles first: under a causal mask they have the most work
+  const int tile = tiles - 1 - static_cast<int>(blockIdx.x % tiles);
+  const int bh = static_cast<int>(blockIdx.x / tiles);
+  const int b = bh / pb.hkv;
+  const int hk = bh % pb.hkv;
+  const int row0 = tile * kWgBQ;
+  const int nrows = min(kWgBQ, pb.rows - row0);
+
+  // the keys this block's rows can see
+  const int s_lo = pb.q_offset + row0 / pb.group;
+  const int s_hi = pb.q_offset + (row0 + nrows - 1) / pb.group;
+  int kv_lo = 0;
+  int kv_hi = pb.skv;
+  if (pb.causal) kv_hi = min(kv_hi, s_hi + 1);
+  if (pb.has_window) kv_lo = max(kv_lo, s_lo - pb.window + 1);
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + kWgBK - 1) / kWgBK : 0;
+  const bf16* kbase = k + b * st.k[0] + hk * st.k[1];
+  const bf16* vbase = v + b * st.v[0] + hk * st.v[1];
+  const int vec = pb.vec8 ? 2 : pb.vec ? 1 : 0;
+
+  // K of tile t into K slot t % 2, V of tile t into V slot t % 2
+  auto stage_tile = [&](uint8_t* ring, const bf16* base, long long rs, int t) {
+    const int kp0 = kv_lo + t * kWgBK;
+    auto row = [&](int r, bool& ok) {
+      ok = kp0 + r < pb.skv;
+      return base + static_cast<long long>(ok ? kp0 + r : 0) * rs;
+    };
+    stage_rows<Sw128<kWgBK>, D, kWgBK, kWgThreads>(ring + (t & 1) * S::kTileBytes, row, pb.d,
+                                                    vec);
+  };
+  auto qrow = [&](int r, bool& ok) {
+    ok = r < nrows;
+    return packed_row(q, st.q, pb, b, hk, row0 + (ok ? r : 0));
+  };
+  stage_rows<Sw128<kWgBQ>, D, kWgBQ, kWgThreads>(sQ, qrow, pb.d, vec);
+  if (n_tiles > 0) stage_tile(sK, kbase, st.k[2], 0);
+  afl::cp_async_commit();
+
+  // this thread's two rows of the block (fragment rows i/4 and i/4 + 8)
+  const int rw = 64 * wg + 16 * warp + lane / 4;
+  const int t4 = lane % 4;
+  int pos[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    pos[h] = pb.q_offset + (row0 + rw + 8 * h) / pb.group;
+    m[h] = kMasked;
+    l[h] = 0.f;                       // this thread's part of the row sum
+  }
+  float acc[CB][32];
+#pragma unroll
+  for (int c = 0; c < CB; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+  uint32_t pa[4][4];                  // P of the previous tile: the A of its P·V
+  // descriptors of the warpgroup's 64 rows of Q and of the K and V slots 0;
+  // a slice or a slot is an offset in 16-byte units added to the start address
+  const uint64_t q_desc = afl_tc::sw128_desc(s_base + wg * 64 * 128, 16, 1024);
+  const uint64_t k_desc = afl_tc::sw128_desc(s_base + S::kQBytes, 16, 1024);
+  const uint64_t v_desc =
+      afl_tc::sw128_desc(s_base + S::kQBytes + 2 * S::kTileBytes, kWgBK * 128, 1024);
+
+  // S = Q Kᵀ of tile t, 64 rows × 64 keys a warpgroup (the first k slice
+  // overwrites s)
+  auto chain_s = [&](float (&s)[32], int slot) {
+    const uint64_t kt = k_desc + slot * (S::kTileBytes >> 4);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      afl_tc::wgmma_ss<0>(s, q_desc + ((kk / 4) * (kWgBQ * 128) + (kk % 4) * 32) / 16,
+                          kt + ((kk / 4) * (kWgBK * 128) + (kk % 4) * 32) / 16, kk > 0);
+  };
+  // acc += P V of tile t: four k16 slices of keys, D in blocks of 64 columns
+  auto chain_pv = [&](int slot) {
+    const uint64_t vt = v_desc + slot * (S::kTileBytes >> 4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        afl_tc::wgmma_rs<1>(acc[c], pa[j], vt + (c * (kWgBK * 128) + j * 2048) / 16, 1);
+  };
+  // the online softmax of tile t's S: the new max's factor alpha for the
+  // rows, P rounded once to bf16 (the A of P·V), l summed from that P
+  auto softmax = [&](float (&s)[32], int t, float (&alpha)[2], uint32_t (&pn)[4][4]) {
+    // the logits in log2 units are s · s2: uncapped, the scale folds into
+    // the exponent's FFMA; capped, s is the capped logit already
+    const float s2 = CAP ? 1.f : pb.scale * kLog2e;
+    // mask only where the tile crosses the end of the keys or a row's band
+    const int kv0 = kv_lo + t * kWgBK;
+    const bool edge = kv0 + kWgBK > pb.skv || (pb.causal && kv0 + kWgBK - 1 > s_lo) ||
+                      (pb.has_window && kv0 <= s_hi - pb.window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = kv0 + 8 * j + 2 * t4 + (e & 1);
+        const int p = pos[e >> 1];
+        bool ok = !edge || kp < pb.skv;
+        if (edge && pb.causal) ok = ok && kp <= p;
+        if (edge && pb.has_window) ok = ok && kp > p - pb.window;
+        const float x = CAP ? cap2(s[4 * j + e], pb) : s[4 * j + e];
+        s[4 * j + e] = ok ? x : kMasked;
+      }
+    // a row's 64 logits lie in the 4 threads of a quad
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kMasked;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[h], mx * s2);
+      alpha[h] = exp2_approx(m[h] - m_new);
+      m[h] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[4 * j + e];
+        // exactly 0 where masked, even while m is still the mask value
+        p[e] = x > kMasked ? exp2_approx(fmaf(x, s2, -m[e >> 1])) : 0.f;
+      }
+      pn[j / 2][2 * (j % 2)] = pack_bf16(p[0], p[1], sum[0]);
+      pn[j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3], sum[1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + sum[h];
+  };
+  // acc to the newest max before P·V adds the newest P (alpha of the last
+  // softmax)
+  float alpha[2];
+  auto rescale = [&]() {
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] *= alpha[(e >> 1) & 1];
+  };
+  // the wait for a stage's products: P·V of tile t − 1 and S of tile t are
+  // issued back to back and waited for once, and no other instruction of
+  // the warpgroup runs while they are in flight (ptxas serialises every
+  // product of the kernel if a register a product reads is defined while
+  // one is in flight: a softmax overlapped with P·V did, in every form
+  // tried)
+  float s[32];
+  auto wait_products = [&]() {
+    afl_tc::wgmma_commit();
+    afl_tc::wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < 32; ++e) afl_tc::fence_operand(s[e]);
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) afl_tc::fence_operand(acc[c][e]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) afl_tc::fence_operand(pa[j][e]);
+  };
+  // Half-steps h = 0, 1, ...: warpgroup 0 runs the products of tile t in
+  // half 2t and the softmax of t in half 2t + 1; warpgroup 1 the same one
+  // half later. So one warpgroup's softmax runs while the other's products
+  // are on the tensor cores (FA3's ping-pong, by the block's barrier). Each
+  // half opens at a barrier; at an even half 2t the block waits for the
+  // loads of half 2t − 2 and stages K of tile t + 1 and V of tile t, which
+  // the products of tile t + 1 read from half 2t + 2 on: a slot is reused
+  // two halves after both warpgroups' last products on it.
+  int h = 0;
+  auto open_half = [&]() {
+    const bool even = h % 2 == 0;
+    if (even) {
+      afl::cp_async_wait<0>();
+      afl_tc::fence_proxy_async();
+    }
+    __syncthreads();
+    if (even) {
+      const int t = h / 2;
+      if (t + 1 < n_tiles) stage_tile(sK, kbase, st.k[2], t + 1);
+      if (t < n_tiles) stage_tile(sV, vbase, st.v[2], t);
+      afl::cp_async_commit();
+    }
+    ++h;
+  };
+  if (n_tiles > 0) {
+    open_half();
+    if (wg == 1) open_half();              // warpgroup 1 idles in half 0
+    afl_tc::wgmma_fence();
+    chain_s(s, 0);
+    wait_products();
+    open_half();
+    for (int t = 0; t + 1 < n_tiles; ++t) {
+      softmax(s, t, alpha, pa);
+      open_half();
+      rescale();
+      afl_tc::wgmma_fence();
+      chain_pv(t & 1);
+      chain_s(s, (t + 1) & 1);
+      wait_products();
+      open_half();
+    }
+    softmax(s, n_tiles - 1, alpha, pa);
+    open_half();
+    rescale();
+    afl_tc::wgmma_fence();
+    chain_pv((n_tiles - 1) & 1);
+    wait_products();
+    if (wg == 0) open_half();              // warpgroup 0 idles in the last half
+  }
+  afl::cp_async_wait<0>();
+
+  // o = acc / l, 0 where no key was visible; rows past the end are not stored
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+  }
+#pragma unroll
+  for (int c = 0; c < CB; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) afl_tc::fence_operand(acc[c][e]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rw + 8 * h;
+    if (r >= nrows) continue;
+    const float norm = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    bf16* out = packed_row(o, st.o, pb, b, hk, row0 + r);
+#pragma unroll
+    for (int c = 0; c < CB; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * c + 8 * j + 2 * t4;
+        const float x0 = acc[c][4 * j + 2 * h] * norm;
+        const float x1 = acc[c][4 * j + 2 * h + 1] * norm;
+        if (pb.vec_o && col + 1 < pb.d) {
+          *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (col < pb.d) out[col] = __float2bfloat16(x0);
+          if (col + 1 < pb.d) out[col + 1] = __float2bfloat16(x1);
+        }
+      }
+  }
+}
+
+// -- rows <= 16 (decode, split-KV): mma.sync --------------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaKeys = 16;                   // keys a warp takes at a step
+constexpr int kMmaStep = kMmaWarps * kMmaKeys; // keys a block stages a step
+constexpr int kMmaRows = 16;                   // the A tile: rows past pb.rows are zeros
+
+template <int D>
+struct MmaShape {
+  static constexpr int kLD = D + 8;
+  static constexpr int kQ = kMmaRows * kLD;           // values
+  static constexpr int kTile = kMmaStep * kLD;        // values of one K or V step
+  static constexpr size_t kRing = 2 * (size_t(kQ) + 4 * size_t(kTile));   // bytes
+  // after the loop: each warp's (m, l) and acc for the merge
+  static constexpr size_t kMerge = sizeof(float) * kMmaWarps * kMmaRows * (2 + D);
+  static constexpr size_t kBytes = kRing > kMerge ? kRing : kMerge;
+};
+
+// grid (chunks, B · Hkv); rows <= 16
+template <int D, bool CAP>
+__global__ void __launch_bounds__(32 * kMmaWarps)
+flash_mma_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ o, Strides st, Problem pb,
+                        Split sp, float* __restrict__ ws) {
+  using S = MmaShape<D>;
+  constexpr int LD = S::kLD;
+  constexpr int NT = 32 * kMmaWarps;
+  extern __shared__ float4 smem4[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem4);         // [16][LD]
+  bf16* sK = sQ + S::kQ;                             // [2][kMmaStep][LD]
+  bf16* sV = sK + 2 * S::kTile;                      // [2][kMmaStep][LD]
+
+  const int rows = pb.rows;
+  const int split = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / pb.hkv;
+  const int hk = bh % pb.hkv;
+  const int k_begin = sp.lo + split * sp.chunk;
+  const int k_end = min(k_begin + sp.chunk, sp.hi);
+  const int n_steps = k_end > k_begin ? (k_end - k_begin + kMmaStep - 1) / kMmaStep : 0;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int t4 = lane % 4;
+  const bf16* kbase = k + b * st.k[0] + hk * st.k[1];
+  const bf16* vbase = v + b * st.v[0] + hk * st.v[1];
+  const int vec = pb.vec8 ? 2 : pb.vec ? 1 : 0;
+
+  auto stage_step = [&](int s) {
+    const int slot = s & 1;
+    const int kp0 = k_begin + s * kMmaStep;
+    auto krow = [&](int r, bool& ok) {
+      ok = kp0 + r < k_end;
+      return kbase + static_cast<long long>(ok ? kp0 + r : 0) * st.k[2];
+    };
+    auto vrow = [&](int r, bool& ok) {
+      ok = kp0 + r < k_end;
+      return vbase + static_cast<long long>(ok ? kp0 + r : 0) * st.v[2];
+    };
+    stage_rows<Padded<LD>, D, kMmaStep, NT>(reinterpret_cast<uint8_t*>(sK + slot * S::kTile),
+                                            krow, pb.d, vec);
+    stage_rows<Padded<LD>, D, kMmaStep, NT>(reinterpret_cast<uint8_t*>(sV + slot * S::kTile),
+                                            vrow, pb.d, vec);
+  };
+  auto qrow = [&](int r, bool& ok) {
+    ok = r < rows;
+    return packed_row(q, st.q, pb, b, hk, ok ? r : 0);
+  };
+  stage_rows<Padded<LD>, D, kMmaRows, NT>(reinterpret_cast<uint8_t*>(sQ), qrow, pb.d, vec);
+  if (n_steps > 0) stage_step(0);
+  afl::cp_async_commit();
+  if (n_steps > 1) stage_step(1);
+  afl::cp_async_commit();
+
+  int pos[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    pos[h] = pb.q_offset + (lane / 4 + 8 * h) / pb.group;
+    m[h] = kMasked;
+    l[h] = 0.f;                       // this thread's part of the row sum
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int slot = s & 1;
+    afl::cp_async_wait<1>();               // step s has landed (s + 1 may be in flight)
+    __syncthreads();
+    const int key0 = k_begin + s * kMmaStep + kMmaKeys * warp;
+    if (key0 < k_end) {
+      // S (16 rows × 16 keys) = Q Kᵀ: two n8 tiles
+      const bf16* kw = sK + slot * S::kTile + kMmaKeys * warp * LD;
+      float c[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4], bk[4];
+        afl_tc::ldmatrix_x4<false>(a, sQ + (lane % 16) * LD + 16 * kk + (lane / 16) * 8);
+        afl_tc::ldmatrix_x4<false>(bk, kw + (lane % 8 + (lane / 16) * 8) * LD + 16 * kk +
+                                           (lane / 8 % 2) * 8);
+        afl_tc::mma_m16n8k16(c[0], a, bk[0], bk[1]);
+        afl_tc::mma_m16n8k16(c[1], a, bk[2], bk[3]);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = key0 + 8 * n + 2 * t4 + (e & 1);
+          const int p = pos[e >> 1];
+          bool ok = kp < k_end;
+          if (pb.causal) ok = ok && kp <= p;
+          if (pb.has_window) ok = ok && kp > p - pb.window;
+          c[n][e] = ok ? logit2<CAP>(c[n][e], pb) : kMasked;
+        }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = fmaxf(fmaxf(c[0][2 * h], c[0][2 * h + 1]), fmaxf(c[1][2 * h], c[1][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        alpha[h] = exp2f(m[h] - m_new);
+        m[h] = m_new;
+      }
+      // P rounded once to bf16 as the A fragment of P·V; l sums the rounded P
+      uint32_t pa[4];
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = c[n][e] > kMasked ? exp2f(c[n][e] - m[e >> 1]) : 0.f;
+        pa[2 * n] = pack_bf16(p[0], p[1], sum[0]);
+        pa[2 * n + 1] = pack_bf16(p[2], p[3], sum[1]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + sum[h];
+      // acc = acc · alpha + P V, 16 columns (two n8 tiles) at a time
+      const bf16* vw = sV + slot * S::kTile + kMmaKeys * warp * LD;
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t bv[4];
+        afl_tc::ldmatrix_x4<true>(bv, vw + (lane % 8 + (lane / 8 % 2) * 8) * LD + 16 * n2 +
+                                          (lane / 16) * 8);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float* a = acc[2 * n2 + u];
+          a[0] *= alpha[0];
+          a[1] *= alpha[0];
+          a[2] *= alpha[1];
+          a[3] *= alpha[1];
+          afl_tc::mma_m16n8k16(acc[2 * n2 + u], pa, bv[2 * u], bv[2 * u + 1]);
+        }
+      }
+    }
+    __syncthreads();                       // every warp is done with this slot
+    if (s + 2 < n_steps) stage_step(s + 2);
+    afl::cp_async_commit();
+  }
+  afl::cp_async_wait<0>();
+  __syncthreads();
+
+  // the warps' partials through shared memory (over the ring), merged in warp order
+  float* sm = reinterpret_cast<float*>(smem4);       // [NW][16]
+  float* sl = sm + kMmaWarps * kMmaRows;             // [NW][16]
+  float* sacc = sl + kMmaWarps * kMmaRows;           // [NW][16][D]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+    const int r = warp * kMmaRows + lane / 4 + 8 * h;
+    if (t4 == 0) {
+      sm[r] = m[h];
+      sl[r] = l[h];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      sacc[r * D + 8 * n + 2 * t4] = acc[n][2 * h];
+      sacc[r * D + 8 * n + 2 * t4 + 1] = acc[n][2 * h + 1];
+    }
+  }
+  __syncthreads();
+  const bool direct = gridDim.x == 1;
+  for (int e = threadIdx.x; e < rows * pb.d; e += NT) {
+    const int r = e / pb.d;
+    const int col = e % pb.d;
+    float mx = kMasked;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) mx = fmaxf(mx, sm[w * kMmaRows + r]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) {
+      const float f = exp2f(sm[w * kMmaRows + r] - mx);
+      lsum = fmaf(f, sl[w * kMmaRows + r], lsum);
+      a = fmaf(f, sacc[(w * kMmaRows + r) * D + col], a);
+    }
+    if (direct) {
+      narrow(packed_row(o, st.o, pb, b, hk, r) + col, lsum > 0.f ? a / lsum : 0.f);
+    } else {
+      // flash_merge_kernel's partials: the max as a natural-log logit
+      float* part = ws + ((static_cast<size_t>(split) * gridDim.y + bh) * rows + r) * (pb.d + 2);
+      if (col == 0) {
+        part[0] = mx * kLn2;
+        part[1] = lsum;
+      }
+      part[2 + col] = a;
+    }
+  }
+}
+
 // ---- launch ----------------------------------------------------------------
 
 template <typename Kernel>
@@ -724,12 +1334,56 @@ int run(const T* q, const T* k, const T* v, T* o, const Strides& st, const Probl
   return run_tile<T, D, 64, 64, 256, CAP>(q, k, v, o, st, pb, b, stream);
 }
 
+template <int D, bool CAP>
+int run_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o, const Strides& st,
+              const Problem& pb, int b, cudaStream_t stream) {
+  const int tiles = (pb.rows + kWgBQ - 1) / kWgBQ;
+  const long long blocks = static_cast<long long>(tiles) * b * pb.hkv;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(flash_wgmma_kernel<D, CAP>, WgShape<D>::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_wgmma_kernel<D, CAP><<<static_cast<unsigned>(blocks), kWgThreads, WgShape<D>::kBytes,
+                               stream>>>(q, k, v, o, st, pb, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool CAP>
+int run_mma_decode(const bf16* q, const bf16* k, const bf16* v, bf16* o, const Strides& st,
+                   const Problem& pb, const Split& sp, int splits, float* ws, int b,
+                   cudaStream_t stream) {
+  const long long bhs = static_cast<long long>(b) * pb.hkv;
+  if (bhs > 65535 || splits < 1 || (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = MmaShape<D>::kBytes;
+  cudaError_t err = allow_smem(flash_mma_decode_kernel<D, CAP>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_mma_decode_kernel<D, CAP><<<dim3(splits, static_cast<unsigned>(bhs)), 32 * kMmaWarps,
+                                    bytes, stream>>>(q, k, v, o, st, pb, sp, ws);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  flash_merge_kernel<bf16><<<static_cast<unsigned>(bhs), 256, 0, stream>>>(ws, o, st, pb, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32: the FFMA regimes; bf16: mma.sync decode for rows <= 16, else the wgmma tile
+template <typename T, int D, bool CAP>
+int run_regime(const T* q, const T* k, const T* v, T* o, const Strides& st, const Problem& pb,
+               const Split& sp, int splits, float* ws, int b, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (pb.rows <= kDecodeMaxRows)
+      return run_mma_decode<D, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
+    return run_wgmma<D, CAP>(q, k, v, o, st, pb, b, stream);
+  } else {
+    return run<T, D, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
+  }
+}
+
 template <typename T, bool CAP>
 int run_width(const T* q, const T* k, const T* v, T* o, const Strides& st, const Problem& pb,
               const Split& sp, int splits, float* ws, int b, cudaStream_t stream) {
-  if (pb.d <= 64) return run<T, 64, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
-  if (pb.d <= 128) return run<T, 128, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
-  return run<T, 256, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
+  if (pb.d <= 64) return run_regime<T, 64, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
+  if (pb.d <= 128) return run_regime<T, 128, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
+  return run_regime<T, 256, CAP>(q, k, v, o, st, pb, sp, splits, ws, b, stream);
 }
 
 bool aligned(const void* p, size_t bytes) {
@@ -764,6 +1418,10 @@ int launch(const void* qv, const void* kv, const void* vv, void* ov, const long 
   pb.window = window;
   pb.q_offset = q_offset;
   pb.vec = vec;
+  bool strides8 = true;
+  for (int i = 0; i < 9; ++i) strides8 = strides8 && strides[i] % 8 == 0;
+  pb.vec8 = vec && d % 8 == 0 && strides8 && aligned(qv, 16) && aligned(kv, 16) &&
+            aligned(vv, 16);
   pb.vec_o = d % 4 == 0 && aligned(ov, 4 * sizeof(T)) && st.o[0] % 4 == 0 &&
              st.o[1] % 4 == 0 && st.o[2] % 4 == 0;
   const Split sp{split_lo, split_hi, split_chunk};

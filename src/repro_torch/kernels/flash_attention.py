@@ -21,11 +21,16 @@ without a copy. The output is allocated position-major, ``(B, Sq, Hq, D)``,
 and returned as its ``(B, Hq, Sq, D)`` view, so that merging the heads
 afterwards is free.
 
-With ``group · Sq <= DECODE_MAX_ROWS`` (a decode step) the kernel splits the
-keys: :func:`decode_plan` cuts the band of visible keys into chunks, one
-block each, whose partials go to a workspace this wrapper allocates and a
-second kernel merges (``ref.mha_split_ref`` is the plain twin of that
-schedule). ``flash_attention.launches`` counts wrapper calls,
+Which kernel a call runs is :func:`regime` of its dtype and its ``group ·
+Sq`` packed rows. With ``group · Sq <= DECODE_MAX_ROWS`` (a decode step)
+the kernel splits the keys: :func:`decode_plan` cuts the band of visible
+keys into chunks, one block each, whose partials go to a workspace this
+wrapper allocates and a second kernel merges. f32 runs on FFMA
+(``ref.mha_split_ref`` is the plain twin of its decode schedule); bf16 runs
+on the tensor cores, its decode on ``mma.sync`` and every longer call on a
+``wgmma`` tile, with P rounded once to bf16 before P·V
+(``ref.mha_split_bf16_ref`` and ``ref.mha_tile_bf16_ref`` are the plain
+twins of those two schedules). ``flash_attention.launches`` counts wrapper calls,
 ``flash_attention.cuda_launches`` the kernels they launched and
 ``flash_attention.dtype_launches`` the calls by the instance's dtype
 (``"float32"``, ``"bfloat16"``).
@@ -48,8 +53,23 @@ MAX_HEAD_DIM = 256       # the largest head-dim template (D in {64, 128, 256})
 
 # rows (group · Sq) up to which a call is a split-KV decode (the kernel's kDecodeMaxRows)
 DECODE_MAX_ROWS = 16
+SHORT_MAX_ROWS = 32      # f32: rows up to which a call takes the 32-row tile (kShortMaxRows)
+# bf16's wgmma tile: packed rows a block (two warpgroups of 64) and keys a tile
+# (the kernel's kWgBQ, kWgBK)
+TILE_ROWS = 128
+TILE_KEYS = 64
+# bf16's mma.sync decode: a block's 4 warps each take 16 keys of a 64-key step
+# (kMmaWarps, kMmaKeys)
+DECODE_WARPS = 4
+DECODE_WARP_KEYS = 16
+# each regime's kernel, as the profiler names it (a split decode over several
+# chunks also runs flash_merge_kernel)
+KERNELS = {"split decode": "flash_decode_kernel", "short tile": "flash_tile_kernel",
+           "prefill tile": "flash_tile_kernel", "mma decode": "flash_mma_decode_kernel",
+           "wgmma tile": "flash_wgmma_kernel"}
+MERGE_KERNEL = "flash_merge_kernel"
 SPLIT_BLOCKS_PER_SM = 2  # a decode grid fills each SM at least this many times over
-SPLIT_STEP = 4           # keys a decode warp takes at a time: chunks are multiples of it
+SPLIT_STEP = 4           # keys an f32 decode warp takes at a time: chunks are multiples of it
 SPLIT_MIN_CHUNK = 16     # the 4 warps' first step: no chunk is shorter
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -67,6 +87,26 @@ def build() -> _build.Build:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return built
+
+
+def regime(dtype: torch.dtype, rows: int) -> str:
+    """The kernel a call of ``rows = group · Sq`` packed rows runs: f32 the
+    FFMA ``"split decode"`` (rows <= ``DECODE_MAX_ROWS``), ``"short tile"``
+    (<= ``SHORT_MAX_ROWS``) or ``"prefill tile"``; bf16 the tensor cores'
+    ``"mma decode"`` (rows <= ``DECODE_MAX_ROWS``) or ``"wgmma tile"``.
+    Both decode regimes split the keys by :func:`decode_plan`."""
+    if dtype == torch.bfloat16:
+        return "mma decode" if rows <= DECODE_MAX_ROWS else "wgmma tile"
+    if dtype == torch.float32:
+        if rows <= DECODE_MAX_ROWS:
+            return "split decode"
+        return "short tile" if rows <= SHORT_MAX_ROWS else "prefill tile"
+    raise TypeError(f"flash_attention kernel takes f32 or bf16, got {dtype}")
+
+
+def is_decode(kind: str) -> bool:
+    """Whether a :func:`regime` splits the keys (one or two CUDA launches)."""
+    return kind in ("split decode", "mma decode")
 
 
 def _vector_loads(ts, d: int) -> bool:
@@ -112,8 +152,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention.launches`` counts the calls that launched,
     ``flash_attention.cuda_launches`` their kernels (two for a decode split
     over several chunks, else one), ``flash_attention.dtype_launches`` the
-    calls by dtype. A bf16 call runs the bf16 instance: nothing is widened
-    outside the kernel.
+    calls by dtype. A bf16 call runs the bf16 instance on the tensor cores
+    (:func:`regime`): nothing is widened outside the kernel.
 
     The kernel has no backward: with grad mode on and an input that
     requires grad this raises, rather than return attention without a
@@ -166,7 +206,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window = int(window) if has_window else None
     split = (0, 0, 0, 1)
     ws = None
-    if hq // hkv * sq <= DECODE_MAX_ROWS:
+    if is_decode(regime(q.dtype, hq // hkv * sq)):
         split = decode_plan(b, hkv, sq, skv, causal=bool(causal), window=window,
                             q_offset=int(q_offset), sms=sm_count(q.device.index))
         if split[3] > 1:

@@ -58,14 +58,21 @@ def attention_mask(sq: int, skv: int, *, causal: bool = True, window: Optional[i
                    q_offset: int = 0, device=None) -> torch.Tensor:
     """(Sq, Skv) bool: True where query row s (at position q_offset + s)
     sees key j, as ``mha_ref`` and the flash kernel mask."""
-    q_pos = torch.arange(sq, device=device)[:, None] + q_offset
-    k_pos = torch.arange(skv, device=device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    return _visible(torch.arange(sq, device=device) + q_offset,
+                    torch.arange(skv, device=device), causal=causal, window=window)
+
+
+def _visible(pos: torch.Tensor, keys: torch.Tensor, *, causal: bool,
+             window: Optional[int]) -> torch.Tensor:
+    """(..., rows, keys) bool: the row at position ``pos`` sees key ``keys``."""
+    pos, keys = pos[..., :, None], keys[..., None, :]
+    seen = torch.ones(torch.broadcast_shapes(pos.shape, keys.shape), dtype=torch.bool,
+                      device=pos.device)
     if causal:
-        mask &= k_pos <= q_pos
+        seen &= keys <= pos
     if window is not None:
-        mask &= k_pos > q_pos - window
-    return mask
+        seen &= keys > pos - window
+    return seen
 
 
 def _cap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
@@ -130,11 +137,131 @@ def mha_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: 
         ms.append(m)
         ls.append(p.sum(-1, keepdim=True))
         accs.append(torch.einsum("bhgqk,bhkd->bhgqd", p, v[:, :, k0:k1].to(torch.float32)))
+    return _merge(ms, ls, accs).reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _merge(ms: list, ls: list, accs: list) -> torch.Tensor:
+    """Partials (m, l, unnormalised acc) rescaled by their max and merged in
+    order, as ``flash_merge_kernel`` does; a row that sees no key gives 0."""
     top = torch.stack(ms).amax(0)
     l = sum(torch.exp(m - top) * x for m, x in zip(ms, ls))
     acc = sum(torch.exp(m - top) * x for m, x in zip(ms, accs))
-    out = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    return torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+
+
+def _packed(x: torch.Tensor, hkv: int) -> torch.Tensor:
+    """(B, Hq, Sq, D) as the kernel's packed rows, (B, Hkv, Sq · group, D):
+    row ρ is position ρ // group of query head hk · group + ρ % group."""
+    b, hq, sq, d = x.shape
+    return x.reshape(b, hkv, hq // hkv, sq, d).transpose(2, 3).reshape(b, hkv, -1, d)
+
+
+def _unpacked(x: torch.Tensor, hq: int) -> torch.Tensor:
+    b, hkv, rows, d = x.shape
+    return x.reshape(b, hkv, rows * hkv // hq, hq // hkv, d).transpose(2, 3).reshape(
+        b, hq, -1, d)
+
+
+def _online_step(m, l, acc, logits, seen, v):
+    """One online-softmax step of the bf16 schedules: masked logits
+    ``MASKED`` with probabilities exactly 0, P rounded once to bf16, l summed
+    from the rounded P, acc += P · v (bf16 products, exact in f32)."""
+    logits = logits.masked_fill(~seen, MASKED)
+    m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    p = torch.where(logits > MASKED, torch.exp(logits - m_new), 0.0)
+    p = p.to(torch.bfloat16).float()
+    return m_new, alpha * l + p.sum(-1, keepdim=True), alpha * acc + p @ v
+
+
+def mha_tile_bf16_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      scale: Optional[float] = None, q_offset: int = 0,
+                      softcap: float = 0.0) -> torch.Tensor:
+    """Plain twin of the bf16 instance's ``wgmma`` tile (``csrc/
+    flash_attention.cu``, rows > ``DECODE_MAX_ROWS``): blocks of
+    ``flash_attention.TILE_ROWS`` packed rows, each walking the keys its rows
+    can see in tiles of ``TILE_KEYS`` from the start of its band, with the
+    online softmax: the dot products scaled (then capped) as logits, P
+    rounded once to bf16 before P·V, l summed from that rounded P, and the
+    output rounded once to bf16. The semantics of ``mha_ref``."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    qp = _packed(q.float(), hkv)
+    kf, vf = k.float(), v.float()
+    rows = qp.shape[2]
+    pos = q_offset + torch.arange(rows, device=q.device) // group
+    out = torch.zeros_like(qp)
+    for r0 in range(0, rows, _fa.TILE_ROWS):
+        r1 = min(r0 + _fa.TILE_ROWS, rows)
+        lo = 0 if window is None else max(0, int(pos[r0]) - window + 1)
+        hi = min(skv, int(pos[r1 - 1]) + 1) if causal else skv
+        qb = qp[:, :, r0:r1]
+        m = torch.full_like(qb[..., :1], MASKED)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qb)
+        for k0 in range(lo, hi, _fa.TILE_KEYS):
+            keys = torch.arange(k0, min(k0 + _fa.TILE_KEYS, skv), device=q.device)
+            logits = _cap((qb @ kf[:, :, keys].transpose(-1, -2)) * scale, softcap)
+            seen = _visible(pos[r0:r1], keys, causal=causal, window=window)
+            m, l, acc = _online_step(m, l, acc, logits, seen, vf[:, :, keys])
+        out[:, :, r0:r1] = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+    return _unpacked(out, hq).to(torch.bfloat16)
+
+
+def mha_split_bf16_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: Optional[int] = None,
+                       scale: Optional[float] = None, q_offset: int = 0,
+                       softcap: float = 0.0, sms: int = 132) -> torch.Tensor:
+    """Plain twin of the bf16 instance's ``mma.sync`` decode (rows <=
+    ``DECODE_MAX_ROWS``): ``mha_split_ref``'s chunks (``decode_plan`` for
+    ``sms`` SMs), each walked in steps of ``DECODE_WARPS · DECODE_WARP_KEYS``
+    keys, warp w taking keys ``16w .. 16w + 15`` of a step into its own
+    online softmax (P rounded once to bf16, l summed from it); the warps'
+    partials merged in a chunk, the chunks' partials merged as
+    ``flash_merge_kernel`` does, the output rounded once to bf16."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    lo, hi, chunk, splits = _fa.decode_plan(b, hkv, sq, skv, causal=causal, window=window,
+                                            q_offset=q_offset, sms=sms)
+    qp = _packed(q.float(), hkv)[:, :, None]                      # (B, Hkv, 1, rows, D)
+    kf, vf = k.float(), v.float()
+    pos = q_offset + torch.arange(qp.shape[3], device=q.device) // group
+    nw, wk = _fa.DECODE_WARPS, _fa.DECODE_WARP_KEYS
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        k0, k1 = lo + s * chunk, min(lo + (s + 1) * chunk, hi)
+        m = torch.full(qp.shape[:2] + (nw, qp.shape[3], 1), MASKED, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qp.shape[:2] + (nw,) + qp.shape[3:], device=q.device)
+        for s0 in range(k0, k1, nw * wk):
+            keys = s0 + torch.arange(nw * wk, device=q.device).reshape(nw, wk)
+            read = keys.clamp(max=skv - 1)
+            logits = _cap((qp @ kf[:, :, read].transpose(-1, -2)) * scale, softcap)
+            seen = _visible(pos, keys, causal=causal, window=window) & (keys < k1)[:, None]
+            m, l, acc = _online_step(m, l, acc, logits, seen, vf[:, :, read])
+        top = m.amax(2, keepdim=True)
+        f = torch.exp(m - top)
+        ms.append(top[:, :, 0])
+        ls.append((f * l).sum(2))
+        accs.append((f * acc).sum(2))
+    return _unpacked(_merge(ms, ls, accs), hq).to(torch.bfloat16)
+
+
+def mha_bf16_schedule_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          sms: int = 132, **kw) -> torch.Tensor:
+    """The plain twin of the schedule the bf16 kernel runs at these inputs'
+    shape (``flash_attention.regime``): ``mha_split_bf16_ref`` (for ``sms``
+    SMs) for the mma.sync decode, else ``mha_tile_bf16_ref``; ``kw`` as
+    ``mha_ref``'s."""
+    rows = q.shape[1] // k.shape[1] * q.shape[2]
+    if _fa.is_decode(_fa.regime(torch.bfloat16, rows)):
+        return mha_split_bf16_ref(q, k, v, sms=sms, **kw)
+    return mha_tile_bf16_ref(q, k, v, **kw)
 
 
 def factor_tile(tile: torch.Tensor) -> torch.Tensor:

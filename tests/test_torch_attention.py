@@ -9,8 +9,13 @@ of that file, with its tolerances: rtol 2e-5 / atol 4e-4 in f32, 2e-2 /
 land one bf16 step apart). ``kernels.ref.mha_split_ref``, the plain twin of
 the CUDA kernel's split-KV decode, is held to the same at decode shapes.
 The logit softcap, which the Pallas kernel lacks, is held to the
-reference's ``layers.sdpa(softcap=30)`` at the f32 tolerance. Inputs are
-made with numpy from a seed.
+reference's ``layers.sdpa(softcap=30)`` at the f32 tolerance. The plain
+twins of the bf16 instance's two tensor-core schedules
+(``ref.mha_tile_bf16_ref``, ``ref.mha_split_bf16_ref``: P rounded once to
+bf16 before P·V) are held to the Pallas kernel on the same bf16 values
+widened to f32 within 1e-2 of its largest |value|, a bar that zeros and the
+band shifted by one tile or chunk fail; ``flash_attention.regime`` at its
+edges. Inputs are made with numpy from a seed.
 """
 
 import jax.numpy as jnp
@@ -244,3 +249,100 @@ def test_softcap_matches_reference_sdpa(case):
         np.testing.assert_allclose(_np(out), _np(want), rtol=rtol, atol=atol)
     uncapped = _np(RL.sdpa(jq, jk, jv, **sdpa_kw))
     assert np.abs(uncapped - _np(want)).max() > 100 * atol
+
+
+# --- the bf16 instance's schedules on the tensor cores ----------------------
+#
+# ``ref.mha_tile_bf16_ref`` (the wgmma tile: 128-row blocks, 64-key tiles from
+# the start of each block's band) and ``ref.mha_split_bf16_ref`` (the
+# mma.sync decode: decode_plan's chunks, 16 keys a warp) round P once to bf16
+# before P·V and sum l from that rounded P. Each is held to the Pallas kernel
+# in interpret mode on the same bf16 values widened to f32, within
+# ATTN_BF16_REL of its largest |value|: chip_smoke.py's bar for the bf16
+# instance on the card (the twins read 2.0e-3–3.4e-3 here).
+ATTN_BF16_REL = 1e-2
+BF16_TWIN_CASES = [(shape, kw) for shape, kw, dtype in CASES if dtype == "float32"] + [
+    ((2, 16, 2, 40, 40, 128), dict(causal=True)),                   # reduced qwen3: group 8, D 128
+    ((2, 16, 2, 1, 48, 128), dict(causal=True, q_offset=47)),      # ... and a decode step
+    ((1, 6, 2, 70, 70, 64), dict(causal=True, window=24)),          # granite's group of 3, a window
+    ((2, 6, 2, 1, 90, 64), dict(causal=True, window=24, q_offset=89)),
+]
+
+
+def _bf16_case(seed, shape):
+    """bf16 inputs from a numpy seed, as torch bf16 and as jnp f32 (the same
+    values widened)."""
+    _, (q, k, v) = _inputs(seed, *shape, "bfloat16")
+    return (q, k, v), [jnp.asarray(t.float().numpy()) for t in (q, k, v)]
+
+
+def _shifted_band(q, k, v, kind, kw):
+    """The plain output with the key band shifted back by one tile (wgmma
+    tile) or one decode chunk: a planted fault, or None where the mask does
+    not move with q_offset (non-causal, no window)."""
+    if not (kw.get("causal", True) or kw.get("window")):
+        return None
+    shift = FA.TILE_KEYS
+    if FA.is_decode(kind):
+        b, _, sq, _ = q.shape
+        shift = FA.decode_plan(b, k.shape[1], sq, k.shape[2], causal=kw.get("causal", True),
+                               window=kw.get("window"), q_offset=kw.get("q_offset", 0),
+                               sms=132)[2]
+    moved = dict(kw, q_offset=kw.get("q_offset", 0) - shift)
+    return ref.mha_ref(q.float(), k.float(), v.float(), **moved)
+
+
+@pytest.mark.parametrize("case", BF16_TWIN_CASES, ids=lambda c: _ids((c[0], c[1], "bfloat16")))
+def test_bf16_schedule_twins_match_pallas(case):
+    """The bf16 kernel's schedule twin against the Pallas kernel (interpret
+    mode, block_q = block_k = 64) within ``ATTN_BF16_REL`` of its largest
+    |value|; the same bar rejects zeros and the band shifted back by one
+    tile or chunk."""
+    shape, kw = case
+    (q, k, v), (jq, jk, jv) = _bf16_case(sum(shape) + 3, shape)
+    want = _np(pallas_flash(jq, jk, jv, interpret=True, block_q=64, block_k=64, **kw))
+    got = ref.mha_bf16_schedule_ref(q, k, v, **kw)
+    kind = FA.regime(torch.bfloat16, shape[1] // shape[2] * shape[3])
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    bar = ATTN_BF16_REL * np.abs(want).max()
+    assert np.abs(_np(got) - want).max() <= bar
+    assert np.abs(want).max() > bar                                  # zeros fail
+    shifted = _shifted_band(q, k, v, kind, kw)
+    if shifted is not None:
+        assert np.abs(_np(shifted) - want).max() > bar
+
+
+@pytest.mark.parametrize("case", SOFTCAP_CASES, ids=lambda c: _ids((c[0], c[1], "bfloat16")))
+def test_bf16_schedule_twins_softcap_match_reference_sdpa(case):
+    """With ``softcap=30``, which the Pallas kernel lacks: the twin of the
+    regime against the reference's ``layers.sdpa(softcap=30)`` on the same
+    bf16 values widened to f32, within ``ATTN_BF16_REL``; the cap itself
+    moves the output past that bar."""
+    shape, kw, _ = case
+    (q, k, v), (jq, jk, jv) = _bf16_case(sum(shape) + 9, shape)
+    q, jq = (q.float() * 8).to(torch.bfloat16), jq * 8
+    sdpa_kw = dict(kw, window=kw.get("window") or 0, q_offset=kw.get("q_offset", 0))
+    want = _np(RL.sdpa(jq, jk, jv, softcap=SOFTCAP, **sdpa_kw))
+    got = ref.mha_bf16_schedule_ref(q, k, v, softcap=SOFTCAP, **kw)
+    bar = ATTN_BF16_REL * np.abs(want).max()
+    assert np.abs(_np(got) - want).max() <= bar
+    assert np.abs(_np(RL.sdpa(jq, jk, jv, **sdpa_kw)) - want).max() > bar
+
+
+@pytest.mark.parametrize("dtype,rows,want", [
+    (torch.float32, 16, "split decode"), (torch.float32, 17, "short tile"),
+    (torch.float32, 32, "short tile"), (torch.float32, 33, "prefill tile"),
+    (torch.bfloat16, 16, "mma decode"), (torch.bfloat16, 17, "wgmma tile"),
+    (torch.bfloat16, 32, "wgmma tile"), (torch.bfloat16, 33, "wgmma tile"),
+])
+def test_regime_edges(dtype, rows, want):
+    """Which kernel a call of ``rows`` packed rows runs: the FFMA regimes in
+    f32, the tensor cores' in bf16; both decode regimes split the keys."""
+    kind = FA.regime(dtype, rows)
+    assert kind == want
+    assert FA.is_decode(kind) == (rows <= FA.DECODE_MAX_ROWS)
+    assert FA.KERNELS[kind].startswith("flash_")
+    if dtype == torch.bfloat16:
+        assert FA.KERNELS[kind] not in ("flash_tile_kernel", "flash_decode_kernel")
+    with pytest.raises(TypeError):
+        FA.regime(torch.float64, rows)

@@ -8,10 +8,10 @@ machine without it:
 
 Tolerances are those of tests/test_kernels_gram.py: rtol 2e-4 / atol 2e-3
 for f32 (sums in another order), 2e-2 / 2e-1 for bf16; the flash-attention
-kernel's those of tests/test_kernels_attention.py: rtol 2e-5 / atol 4e-4
-for f32, 2e-2 / 0.4 for bf16 at their small shapes, and at the model
-shapes of the bf16 path 1e-2 of the largest |value| of the plain version
-in f32 (``ATTN_BF16_REL``). The solve kernels' f64 instances are held to
+kernel's those of tests/test_kernels_attention.py, rtol 2e-5 / atol 4e-4,
+for f32, and for bf16 1e-2 of the largest |value| of the plain version in
+f32 on the same inputs (``ATTN_BF16_REL``) and ``TWIN_BF16_REL`` of it
+from the plain twin of the kernel's schedule. The solve kernels' f64 instances are held to
 numpy f64 at 1e-10, the bar the reference holds its kernel solves to under
 x64 (tests/test_solve_kernels.py).
 """
@@ -685,14 +685,16 @@ BLOCKED_KERNELS = ("chol_", "solve_inverse_kernel", "forward_", "backward_")
 PROFILE_PAD_S = 0.02
 
 
-def _cuda_kernels(fn, names=BLOCKED_KERNELS) -> int:
-    """The kernels (by ``names``) torch.profiler counts in one synchronised
-    call of ``fn``, after a warm-up call outside the window; ``fn`` runs
-    twice. The counted call sits PROFILE_PAD_S inside the window on each
-    side: the profiler keeps only the kernels whose card timestamps fall in
-    its capture window, and a call right at the window's start lost some or
-    all of its kernels (on an H100, 2 of 54 windows that opened with a
-    warm-up step lost every kernel; none of 270 padded windows lost one)."""
+def _kernel_names(fn, calls: int = 1) -> list:
+    """The names of the CUDA kernels torch.profiler records in ``calls``
+    synchronised calls of ``fn``, after a warm-up call outside the window.
+    The calls sit PROFILE_PAD_S inside the window on each side, behind a
+    throwaway kernel: the profiler keeps only the kernels whose card
+    timestamps fall in its capture window, and a call right at the window's
+    start lost some or all of its kernels (on an H100, 2 of 54 windows that
+    opened with a warm-up step lost every kernel; none of 270 padded windows
+    lost one; unpadded, short bf16 flash calls lost the window's first
+    kernel, or every kernel of three calls)."""
     import time
 
     from torch.autograd import DeviceType
@@ -702,11 +704,18 @@ def _cuda_kernels(fn, names=BLOCKED_KERNELS) -> int:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
-        fn()
+        torch.ones(1, device="cuda").add_(1)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-               and any(k in e.name for k in names))
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _cuda_kernels(fn, names=BLOCKED_KERNELS) -> int:
+    """The kernels (by ``names``) torch.profiler counts in one synchronised
+    call of ``fn`` (``_kernel_names``; ``fn`` runs twice)."""
+    return sum(1 for n in _kernel_names(fn) if any(k in n for k in names))
 
 
 @pytest.mark.cuda
@@ -865,7 +874,20 @@ def test_engine_narrow_sweep_and_rank_update_on_card(cuda):
 
 # --- flash attention ----------------------------------------------------------
 
-ATTN_TOL = {torch.float32: (2e-5, 4e-4), torch.bfloat16: (2e-2, 0.4)}
+ATTN_TOL = {torch.float32: (2e-5, 4e-4)}
+# the bf16 instance (the tensor cores: flash_attention.regime) against the
+# plain version in f32 on the same bf16 inputs: within this share of the
+# plain output's largest |value| (products exact, sums in f32, P and the
+# output each rounded once to bf16: 2.0e-3–3.4e-3 of it in the plain twins).
+# tests/test_kernels_attention.py's bf16 atol of 0.4 is above every output of
+# a softmax average over a few hundred keys, so it could not fail a wrong
+# kernel.
+ATTN_BF16_REL = 1e-2
+# ... and against the plain twin of its own schedule (ref.mha_tile_bf16_ref,
+# ref.mha_split_bf16_ref): twice the largest reading on an H100 (3.76e-3),
+# up to one bf16 ulp of the largest value (2^-7 of it), by which the kernel
+# and the twin may round an output apart (chip_smoke.py's TWIN_BF16_REL)
+TWIN_BF16_REL = 8e-3
 
 
 def _attn_inputs(seed, b, hq, hkv, sq, skv, d, dtype, device):
@@ -875,11 +897,26 @@ def _attn_inputs(seed, b, hq, hkv, sq, skv, d, dtype, device):
                  for shape in [(b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)])
 
 
+def _bf16_check(out, q, k, v, **kw):
+    """A bf16 kernel output against the plain version in f32 on the same
+    inputs within ``ATTN_BF16_REL``, and against its schedule's twin within
+    ``TWIN_BF16_REL``, of the plain output's largest |value|."""
+    want = ref.mha_ref(q.float(), k.float(), v.float(), **kw)
+    assert out.shape == want.shape and out.dtype == torch.bfloat16
+    top = float(want.abs().max())
+    assert float((out.float() - want).abs().max()) <= ATTN_BF16_REL * top
+    twin = ref.mha_bf16_schedule_ref(q, k, v, sms=FA.sm_count(q.device.index), **kw)
+    assert float((out.float() - twin.float()).abs().max()) <= TWIN_BF16_REL * top
+
+
 def _attn_check(q, k, v, **kw):
     before = FA.flash_attention.launches
     out = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert FA.flash_attention.launches == before + 1
+    if q.dtype == torch.bfloat16:
+        _bf16_check(out, q, k, v, **kw)
+        return
     want = ref.mha_ref(q, k, v, **kw)
     assert out.shape == want.shape and out.dtype == want.dtype
     rtol, atol = ATTN_TOL[q.dtype]
@@ -922,6 +959,58 @@ def test_flash_attention_matches_plain(cuda, shape, kw, dtype):
 ])
 def test_flash_attention_main_path_shapes(cuda, shape, kw):
     _attn_check(*_attn_inputs(8, *shape, torch.float32, cuda), **kw)
+
+
+# the bf16 instance at the model paths' shapes: (b, hq, hkv, sq, skv, d), kw
+BF16_MODEL_CASES = [
+    ((64, 64, 8, 32, 32, 128), dict()),                         # qwen3_32b's run_analytic forward
+    ((2, 16, 8, 1024, 1024, 256), dict(window=512)),            # gemma3-like prefill at D 256
+    ((1, 8, 4, 300, 300, 256), dict()),                         # D 256, ragged tiles
+    ((2, 48, 8, 256, 256, 128), dict(softcap=30.0)),            # grok1's cap: the wgmma tile
+    ((4, 48, 8, 1, 520, 128), dict(q_offset=518, softcap=30.0)),  # ... and the mma decode
+    ((2, 48, 8, 2, 520, 128), dict(q_offset=517, softcap=30.0, window=64)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", BF16_MODEL_CASES)
+def test_flash_attention_bf16_model_shapes(cuda, shape, kw):
+    """The bf16 instance against the plain version in f32 and its schedule's
+    twin; a softcap's q is scaled up so that the logits reach the cap's
+    bend."""
+    q, k, v = _attn_inputs(14, *shape, torch.bfloat16, cuda)
+    if kw.get("softcap"):
+        q = (q.float() * 8).to(torch.bfloat16)
+    _attn_check(q, k, v, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 16, 2, 300, 300, 128), dict()),                        # wgmma tile
+    ((2, 4, 1, 8, 100, 64), dict(q_offset=92)),                 # 32 rows: the wgmma tile
+    ((4, 64, 8, 1, 528, 128), dict(q_offset=526)),              # mma decode, chunks + merge
+    ((1, 4, 4, 1, 20, 64), dict(q_offset=19)),                  # mma decode, one chunk
+])
+def test_bf16_flash_runs_the_tensor_core_kernels(cuda, shape, kw):
+    """One bf16 call launches its regime's tensor-core kernel (and the
+    merge for several chunks) by name, and no FFMA instance
+    (flash_tile_kernel, flash_decode_kernel); the same shape in f32 still
+    runs the FFMA kernel."""
+    b, hq, hkv, sq, skv, d = shape
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _attn_inputs(15, *shape, dtype, cuda)
+        kind = FA.regime(dtype, hq // hkv * sq)
+        seen = [n for n in _kernel_names(lambda: FA.flash_attention(q, k, v, **kw), 10)
+                if "flash_" in n]
+        want = {FA.KERNELS[kind]}
+        if _cuda_launches(q, k, **kw) == 2:
+            want.add(FA.MERGE_KERNEL)
+        assert {w for w in want if any(w in n for n in seen)} == want
+        assert all(any(w in n for w in want) for n in seen), seen
+        names[dtype] = seen
+    assert not any("flash_tile_kernel" in n or "flash_decode_kernel" in n
+                   for n in names[torch.bfloat16])
 
 
 @pytest.mark.cuda
@@ -2019,12 +2108,6 @@ def test_recurrence_regions_match_their_plain_loops(nccl_mesh):
 # --- the bf16 model path (phase 20 of chip_smoke.py) ------------------------------
 
 BF16_REL = 2e-2     # tests/test_torch_bf16.py's bar: bf16 port against bf16 reference
-# the bf16 flash instance against the plain version in f32 on the same bf16
-# inputs: within this share of the plain output's largest |value| (the
-# kernel sums in f32 and rounds once to bf16, 2^-9 of a value). ATTN_TOL's
-# bf16 atol of 0.4 is above every output over thousands of keys (about
-# 0.09 here), so it could not fail a wrong kernel at this shape.
-ATTN_BF16_REL = 1e-2
 
 
 def _bf16_attn_err(q, k, v, **kw):
